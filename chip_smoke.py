@@ -6,18 +6,27 @@
 Run from the root of the repository. Phases, one JSON line each:
 
 1. device: the card, its power limit, the TF32 switches (both off);
-2. build: kernels B1 (CUDA C++, nvcc) and B3 (Triton) from ``diffsensei_tpu_torch/csrc``;
+2. build: kernels B1 and B6 (CUDA C++, one nvcc each, started together) and
+   B3 (Triton) from ``diffsensei_tpu_torch/csrc``;
 3. flash_attention: B1 against its plain twin at the UNet's shapes, with times
    beside the plain twin and ``F.scaled_dot_product_attention``;
 4. groupnorm_silu: B3 likewise, beside ``F.group_norm`` + ``F.silu``;
-5. reference: a cut-down SDXL-width UNet (bf16, kernels on) and the SDXL VAE
-   decoder (fp32) on the card against the same weights on the CPU in fp32;
-6. serve: ``DiffSenseiServer.generate`` at full SDXL width with random
+5. int4_matmul: B6 against its plain twin at the agent's decode shapes, with
+   times beside the twin and ``torch.matmul`` on the weight dequantized to bf16;
+6. reference: a cut-down SDXL-width UNet (bf16, kernels on), the SDXL VAE
+   decoder (fp32) and a cut-down SEED-X-width int4 LLaMA (prefill and 8
+   decode steps) on the card against the same weights on the CPU in fp32;
+7. serve: ``DiffSenseiServer.generate`` at full SDXL width with random
    weights: 1024² with 20 Euler steps and CFG, two characters and a dialog
-   box; the 768x1344 bucket; an unconditioned 1024² panel. The kernels'
-   launch counts are reset before and checked after.
+   box; the 768x1344 bucket; an unconditioned 1024² panel;
+8. serve_agent: the same server with the SEED-X agent (int4 LLaMA-13B at
+   full width, random weights) beside the SDXL stack on the one card: the
+   1024² request again, its characters adapted by 500 greedy decode steps.
+9. profile_decode: ``torch.profiler`` over 16 of the agent's decode steps:
+   device time and kernels a token, the device's busy share, the top kernels.
 
-Then the kernels line, the card's ``nvidia-smi`` line and, last,
+The kernels' launch counts are set to 0 before each served path and checked
+after it. Then the kernels line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. Needs one CUDA device; imports nothing of JAX.
 """
@@ -29,8 +38,21 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+# one H100 SXM (NVIDIA's data sheet): HBM rate and dense bf16 tensor-core peak
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the bf16 peak."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
 def emit(obj) -> None:
@@ -44,20 +66,30 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms (CUDA events around each call)."""
+def cuda_ms(fns, reps: int = 10, warmup: int = 3) -> float:
+    """Median device time of one call in ms, from CUDA events around a pass.
+
+    ``fns`` is one call, or a list of the same call on distinct copies of its
+    operands, together more bytes than the 50 MB L2 holds, so each call finds
+    its weights cold, as in a decode step. Every pass is queued behind a
+    device sleep of about 10 ms, so the events time the device and not the
+    host's launch rate."""
     import torch
 
+    fns = fns if isinstance(fns, list) else [fns]
     for _ in range(warmup):
-        fn()
+        for fn in fns:
+            fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
         start.record()
-        fn()
+        for fn in fns:
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / len(fns))
     return statistics.median(times)
 
 
@@ -109,8 +141,11 @@ def check_flash(device) -> dict:
         emit({"phase": "flash_attention", **row})
         if not (err_o <= 2e-2 and err_lse <= 1e-3):
             raise AssertionError(f"flash_attention disagrees with its plain twin: {row}")
+    b, h, sq, sk, d = FLASH_CASES[0][:5]
+    nbytes = 2 * b * h * d * (2 * sq + 2 * sk) + 4 * b * h * sq
     return dict(max_abs_err=max(r["max_abs_err_o"] for r in rows), ms=rows[0]["ms"],
-                plain_ms=rows[0]["plain_ms"])
+                plain_ms=rows[0]["plain_ms"], library_ms=rows[0]["sdpa_ms"],
+                **bound(nbytes, 4 * b * h * sq * sk * d))
 
 
 def check_groupnorm(device) -> dict:
@@ -145,8 +180,68 @@ def check_groupnorm(device) -> dict:
             raise AssertionError(f"groupnorm_silu disagrees with its plain twin: {row}")
         del x, got, want, nchw
         torch.cuda.empty_cache()
+    shape = GN_CASES[0][0]
+    n = int(np.prod(shape))
+    # bf16 in and out; about 10 operations an element (stats, affine, SiLU)
     return dict(max_abs_err=max(r["max_abs_err"] for r in rows), ms=rows[0]["ms"],
-                plain_ms=rows[0]["plain_ms"])
+                plain_ms=rows[0]["plain_ms"], library_ms=rows[0]["library_ms"],
+                **bound(2 * 2 * n + 4 * shape[-1], 10 * n))
+
+
+INT4_CASES = [  # (tokens, in, features): the agent's decode projections at T = 1
+    (1, 5120, 5120),       # q/k/v/o_proj
+    (1, 5120, 13824),      # gate/up_proj (the row in the kernels line)
+    (1, 13824, 5120),      # down_proj
+    (1, 5120, 32330),      # lm_head, padded to 32512
+    (16, 5120, 13824),     # the kernel's largest token count
+]
+
+
+def check_int4(device) -> dict:
+    import torch
+    from diffsensei_tpu_torch.ops import int4_matmul as i4
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    rows = []
+    for tokens, in_f, features in INT4_CASES:
+        padded = i4.padded_features(features, in_f, 128)
+        wbytes = in_f * padded // 2 + (in_f // 128) * padded * 4
+        copies = min(64, -(-256 * 2**20 // wbytes))
+        weights = [(torch.randint(0, 256, (in_f, padded // 2), generator=gen, device=device,
+                                  dtype=torch.uint8),
+                    (torch.rand((in_f // 128, padded), generator=gen, device=device) + 0.5)
+                    / (4.61 * in_f ** 0.5))      # around the served scale: outputs of order 1
+                   for _ in range(copies)]
+        x = torch.randn((tokens, in_f), generator=gen, device=device).bfloat16()
+        packed, scale = weights[0]
+        got = i4.int4_decode_matmul(x, packed, scale)
+        again = i4.int4_decode_matmul(x, packed, scale)
+        torch.cuda.synchronize()
+        dense = [i4.dequantize(q, s, torch.bfloat16) for q, s in weights]
+        ref = x.float() @ dense[0].float()          # bf16 dequant matmul, fp32 sums
+        xf = x.float()
+        twin = i4.int4_decode_fallback(xf, packed, scale)
+        row = dict(shape=[tokens, in_f, features], padded=padded,
+                   max_abs_err=(got - twin).abs().max().item(),
+                   rel_frobenius=((got - twin).norm() / twin.norm()).item(),
+                   allclose_bf16=torch.allclose(got, ref, rtol=2e-2, atol=2e-2),
+                   bit_equal=torch.equal(got, again), copies=copies,
+                   ms=cuda_ms([lambda q=q, s=s: i4.int4_decode_matmul(x, q, s)
+                                     for q, s in weights]),
+                   plain_ms=cuda_ms([lambda q=q, s=s: i4.int4_decode_fallback(xf, q, s)
+                                           for q, s in weights]),
+                   library_ms=cuda_ms([lambda w=w: torch.matmul(x, w) for w in dense]),
+                   **bound(wbytes + 2 * tokens * in_f + 4 * tokens * padded,
+                           2 * tokens * in_f * padded))
+        rows.append(row)
+        emit({"phase": "int4_matmul", **row})
+        if not (row["allclose_bf16"] and row["rel_frobenius"] < 2e-2 and row["bit_equal"]):
+            raise AssertionError(f"int4_decode_matmul disagrees with its plain twin: {row}")
+        del weights, dense, twin, ref
+        torch.cuda.empty_cache()
+    main = rows[1]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
 
 
 # ---------------------------------------------------------------------------
@@ -202,10 +297,67 @@ def check_reference(device) -> None:
         raise AssertionError(f"VAE decoder on the card disagrees with the CPU: {row}")
 
 
+def check_llama_reference(device, num_layers: int = 2, prompt_len: int = 24,
+                          steps: int = 8) -> None:
+    """SEED-X width (hidden 5120, 40 heads of 128, intermediate 13824, vocab
+    32330) with ``num_layers`` layers in int4: a prefill and ``steps`` greedy
+    decode steps on the card (B6) against the same weights on the CPU in fp32.
+    The card is fed the CPU's tokens, so each step's logits compare; its own
+    argmax must pick the CPU's token unless the CPU's top two logits lie
+    within the bound."""
+    import dataclasses
+    import torch
+    from diffsensei_tpu_torch.core.config import LlamaConfig
+    from diffsensei_tpu_torch.models.mllm.llama import LlamaForCausalLM, init_caches
+    from diffsensei_tpu_torch.ops import int4_matmul as i4
+    from diffsensei_tpu_torch.utils.init import init_flax_like_
+
+    cfg = dataclasses.replace(LlamaConfig.seed_x_13b(), num_layers=num_layers)
+    with torch.device("meta"):
+        llm = LlamaForCausalLM(cfg, quantized="int4")
+    init_flax_like_(llm.to_empty(device="cpu"), torch.Generator().manual_seed(5)).eval()
+    ids = torch.from_numpy(np.random.default_rng(5).integers(3, cfg.vocab_size, (1, prompt_len)))
+
+    def run(model, dev, tokens=None):
+        caches = init_caches(cfg, 1, prompt_len + steps, torch.float32, dev)
+        logits, _, caches = model(ids.to(dev), positions=torch.arange(prompt_len, device=dev)[None],
+                                  caches=caches, cache_index=0)
+        out = [logits[0].float().cpu()]
+        picked = []
+        for i in range(steps):
+            picked.append(int(out[-1][-1].argmax()))
+            tok = picked[-1] if tokens is None else tokens[i]
+            pos = torch.full((1, 1), prompt_len + i, device=dev)
+            logits, _, caches = model(torch.full((1, 1), tok, device=dev), positions=pos,
+                                      caches=caches, cache_index=prompt_len + i)
+            out.append(logits[0].float().cpu())
+        return out, picked
+
+    with torch.inference_mode():
+        want, cpu_tokens = run(llm, torch.device("cpu"))
+        i4.launches = 0
+        got, card_tokens = run(llm.to(device), device, cpu_tokens)
+        torch.cuda.synchronize()
+    rels = [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want)]
+    ties = []
+    for step, (w, tok, card) in enumerate(zip(want, cpu_tokens, card_tokens)):
+        top2 = w[-1].topk(2).values
+        gap = (top2[0] - top2[1]).item() / w[-1].abs().max().item()
+        if card != tok:
+            ties.append(dict(step=step, cpu=tok, card=card, top2_gap_rel=gap))
+    row = dict(module=f"llama_seed_x_width_{num_layers}_layers_int4", max_rel_err=max(rels),
+               prefill_rel_err=rels[0], decode_rel_errs=rels[1:], bound=5e-2,
+               cpu_tokens=cpu_tokens, card_tokens=card_tokens, int4_launches=i4.launches)
+    emit({"phase": "reference", **row})
+    if not (max(rels) <= 5e-2 and i4.launches == steps * (7 * num_layers + 1)
+            and all(t["top2_gap_rel"] <= 5e-2 for t in ties)):
+        raise AssertionError(f"the int4 LLaMA on the card disagrees with the CPU: {row} {ties}")
+
+
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
-def serve(device) -> dict:
+def serve(device):
     import torch
     from PIL import Image
     from diffsensei_tpu_torch.ops import flash_attention as fa, groupnorm as gn
@@ -277,7 +429,158 @@ def serve(device) -> dict:
             raise AssertionError(f"launch counts {(got_fa, got_gn)} != expected "
                                  f"{(want_fa, want_gn)} for {row}")
     totals.update(flash=fa.launches, groupnorm=gn.launches)
-    return totals
+    return totals, mods, ids
+
+
+def serve_agent(device, mods, ids, max_new_tokens: int = 500) -> dict:
+    """R1 with the SEED-X agent attached: ``ContinuousLVLM`` at ``AgentConfig()``
+    width, int4, random weights from seed 0, beside ``mods`` on the card. One
+    warm request, then one timed with every launch count checked: B6 runs 281
+    times a decode step (40 layers x 7 projections + lm_head), B1 and B3 as R1."""
+    import torch
+    from PIL import Image
+    from diffsensei_tpu_torch.core.config import AgentConfig
+    from diffsensei_tpu_torch.data.mllm_dataset import MLLMTokenSpec, build_inference_prompt
+    from diffsensei_tpu_torch.models.mllm.seed_x import ContinuousLVLM
+    from diffsensei_tpu_torch.ops import flash_attention as fa, groupnorm as gn
+    from diffsensei_tpu_torch.ops import int4_matmul as i4
+    from diffsensei_tpu_torch.pipelines.pipeline import DiffSenseiPipeline
+    from diffsensei_tpu_torch.serve.api import DiffSenseiServer, GenerationRequest
+
+    acfg = AgentConfig()
+    t0 = time.perf_counter()
+    agent = ContinuousLVLM.build(acfg, quantized="int4", device=device, seed=0)
+    torch.cuda.synchronize()
+    emit({"phase": "serve_agent_build", "seconds": time.perf_counter() - t0,
+          "params": {name: sum(p.numel() for p in m.parameters())
+                     for name, m in zip(("llm", "input_resampler", "output_resampler"),
+                                        agent.networks())},
+          "llm_bytes": sum(p.numel() * p.element_size() for p in agent.llm.parameters()),
+          "memory_allocated_gib": torch.cuda.memory_allocated() / 2**30})
+
+    # no tokenizer files: text ids from a numpy generator seeded by the text,
+    # the image ladder at the top of the vocabulary
+    vocab, n_img = acfg.llm.vocab_size, acfg.input_resampler.num_queries
+    ladder = list(range(vocab - n_img - 2, vocab))
+    encode = lambda text: np.random.default_rng(list(text.encode()) or [0]).integers(
+        3, ladder[0], max(1, len(text.split()))).tolist()
+    spec = MLLMTokenSpec(bos_id=1, eos_id=2, pad_id=0, boi_id=ladder[0], eoi_id=ladder[-1],
+                         img_ids=ladder[1:-1], encode_text=encode)
+    server = DiffSenseiServer(DiffSenseiPipeline(mods), agent=agent, mllm_spec=spec,
+                              mllm_max_new_tokens=max_new_tokens)
+
+    # device time of every LLM forward (CUDA events), and the agent's output
+    calls, result = [], {}
+    forward, generate = agent.llm.forward, agent.generate
+
+    def timed_forward(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = forward(*args, **kwargs)
+        end.record()
+        calls.append((start, end))
+        return out
+
+    def timed_generate(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = generate(*args, **kwargs)
+        torch.cuda.synchronize()
+        result.update(out, seconds=time.perf_counter() - t)
+        return out
+
+    agent.llm.forward, agent.generate = timed_forward, timed_generate
+    rng = np.random.default_rng(4)
+    chars = [Image.fromarray((rng.random((300, 200, 3)) * 255).astype(np.uint8))
+             for _ in range(2)]
+    req = GenerationRequest(
+        prompt="two girls talk on a rainy street, one holds an umbrella, speech bubble",
+        height=1024, width=1024, num_inference_steps=20, guidance_scale=7.5, seed=1,
+        prompt_ids=ids(), character_images=chars,
+        ip_bbox=[[0.05, 0.1, 0.5, 0.95], [0.5, 0.2, 0.95, 0.9]],
+        dialog_bbox=[[0.1, 0.02, 0.6, 0.2]])
+    server.generate(req)                    # warm: Triton specializations, cuDNN plans
+    torch.cuda.synchronize()
+
+    calls.clear()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = gn.launches = i4.launches = 0
+    t0 = time.perf_counter()
+    img = server.generate(req)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(flash=fa.launches, groupnorm=gn.launches, int4=i4.launches)
+    call_ms = [start.elapsed_time(end) for start, end in calls]
+    feat = result["img_gen_feat"]
+    ids_out = result["output_ids"][0]
+    prompt = build_inference_prompt(encode(req.prompt), spec, encode("\n"))
+    row = dict(seconds=seconds, agent_seconds=result["seconds"],
+               prompt_tokens=prompt["input_ids"].shape[1],
+               agent_prefill_ms=call_ms[0], decode_steps=len(call_ms) - 1,
+               decode_ms_per_token_mean=statistics.mean(call_ms[1:]),
+               decode_ms_per_token_median=statistics.median(call_ms[1:]),
+               num_gen_imgs=result["num_gen_imgs"],
+               img_gen_feat_shape=None if feat is None else list(feat.shape),
+               img_gen_feat_finite=feat is not None and bool(torch.isfinite(feat).all()),
+               ladder_forced=bool((ids_out[:n_img + 1] == np.asarray(ladder[1:])).all()),
+               shape=list(img.shape), finite=bool(np.isfinite(img).all()),
+               min=float(img.min()), max=float(img.max()), mean=float(img.mean()),
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches)
+    emit({"phase": "serve_agent", **row})
+    want = dict(flash=20 * 70, groupnorm=20 * 34 + 28,
+                int4=max_new_tokens * (7 * acfg.llm.num_layers + 1))
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != expected {want}")
+    if not (row["num_gen_imgs"] >= 1 and row["img_gen_feat_finite"] and row["ladder_forced"]
+            and row["decode_steps"] == max_new_tokens):
+        raise AssertionError(f"the agent's output is wrong: {row}")
+    if img.shape != (1, 1024, 1024, 3) or not row["finite"] or row["min"] < 0.0 \
+            or row["max"] > 1.0:
+        raise AssertionError(f"bad panel: {row}")
+    profile_decode(device, agent.llm)
+    return launches
+
+
+def profile_decode(device, llm, prompt_len: int = 83, steps: int = 16) -> None:
+    """Where a decode step's time goes: ``steps`` cached decode steps of the
+    agent's LLM under ``torch.profiler``; device time a token (kernel time
+    summed) beside the host clock, the kernels launched a token, and the
+    kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from diffsensei_tpu_torch.models.mllm.llama import init_caches
+
+    caches = init_caches(llm.config, 1, prompt_len + steps + 1, torch.float32, device)
+    tok = torch.full((1, 1), 5, device=device)
+    pos = lambda i: torch.full((1, 1), i, device=device)
+    with torch.inference_mode():
+        llm(torch.arange(3, 3 + prompt_len, device=device)[None],
+            positions=torch.arange(prompt_len, device=device)[None],
+            caches=caches, cache_index=0)
+        llm(tok, positions=pos(prompt_len), caches=caches, cache_index=prompt_len)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(1, steps + 1):
+                llm(tok, positions=pos(prompt_len + i), caches=caches, cache_index=prompt_len + i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    # device-side entries only: the operators' own rows repeat their kernels' time
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    launch_calls = sum(e.count for e in events if "LaunchKernel" in e.key)
+    seen = bool(kernels)     # None below: the profiler saw no device time
+    emit({"phase": "profile_decode", "steps": steps,
+          "wall_ms_per_token_profiled": wall / steps * 1e3,
+          "device_ms_per_token": device_us / steps / 1e3 if seen else None,
+          "device_busy_share": device_us / 1e6 / wall if seen else None,
+          "kernels_per_token": sum(e.count for e in kernels) / steps if seen else None,
+          "host_launch_calls_per_token": launch_calls / steps,
+          "top": [dict(name=e.key[:80], ms_per_token=e.self_device_time_total / steps / 1e3,
+                       per_token=e.count / steps) for e in top]})
 
 
 def main() -> int:
@@ -287,6 +590,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from diffsensei_tpu_torch.ops import flash_attention as fa, groupnorm as gn
+    from diffsensei_tpu_torch.ops import int4_matmul as i4
 
     device = torch.device("cuda", 0)
     smi = nvidia_smi_line()
@@ -298,26 +602,38 @@ def main() -> int:
           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
 
-    t0 = time.perf_counter()
-    fa.build()
-    t_flash = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    gn.build()
-    x = torch.ones((1, 8, 8, 64), device=device)
-    gn.groupnorm_silu(x, torch.ones(64, device=device), torch.zeros(64, device=device), 32)
-    torch.cuda.synchronize()
-    t_gn = time.perf_counter() - t0
+    def timed(fn):
+        t = time.perf_counter()
+        fn()
+        return time.perf_counter() - t
+
+    with ThreadPoolExecutor(2) as pool:       # one nvcc for each CUDA source, together
+        nvcc = {"flash_attention": pool.submit(timed, fa.build),
+                "int4_matmul": pool.submit(timed, i4.build)}
+        t0 = time.perf_counter()
+        gn.build()
+        x = torch.ones((1, 8, 8, 64), device=device)
+        gn.groupnorm_silu(x, torch.ones(64, device=device), torch.zeros(64, device=device), 32)
+        torch.cuda.synchronize()
+        t_gn = time.perf_counter() - t0
+        nvcc = {name: fut.result() for name, fut in nvcc.items()}
     from diffsensei_tpu_torch.ops import _build
-    log = _build.cuda_library("flash_attention.cu").with_suffix(".log").read_text()
-    emit({"phase": "build", "flash_attention_nvcc_s": t_flash,
-          "groupnorm_triton_s": t_gn,
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+    ptxas = {}
+    for name in nvcc:
+        log = _build.cuda_library(f"{name}.cu").with_suffix(".log").read_text()
+        ptxas[name] = [ln.strip() for ln in log.splitlines()
+                       if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "flash_attention_nvcc_s": nvcc["flash_attention"],
+          "int4_matmul_nvcc_s": nvcc["int4_matmul"], "groupnorm_triton_s": t_gn,
+          "ptxas": ptxas})
 
     flash = check_flash(device)
     gnorm = check_groupnorm(device)
+    int4 = check_int4(device)
     check_reference(device)
-    launches = serve(device)
+    check_llama_reference(device)
+    launches, mods, ids = serve(device)
+    agent_launches = serve_agent(device, mods, ids)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -330,6 +646,10 @@ def main() -> int:
              source="diffsensei_tpu_torch/csrc/groupnorm_silu.py",
              replaces="diffsensei_tpu/ops/groupnorm.py:44",
              launches=launches["groupnorm"], **gnorm),
+        dict(name="int4_decode_matmul", route="cuda",
+             source="diffsensei_tpu_torch/csrc/int4_matmul.cu",
+             replaces="diffsensei_tpu/ops/int4_matmul.py:125",
+             launches=agent_launches["int4"], **int4),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,309 @@
+"""LLaMA for the SEED-X agent (port of ``diffsensei_tpu/models/mllm/llama.py``).
+
+RMSNorm, rotary positions, GQA attention with a static KV cache, the SwiGLU
+MLP, and every projection a ``LoRADense`` whose base is a dense weight, a
+weight-only int8 ``Int8Dense`` or a packed int4 ``Int4Dense``. The state-dict
+names follow the JAX tree (``layers.{i}.attn.q_proj.base.weight``,
+``layers.{i}.input_norm.weight``, ``lm_head.kernel_q``, ...), so
+``utils.from_jax.llama`` is a rename and a transpose.
+
+The served decode is batch 1, one token a step: each ``Int4Dense`` then
+streams its packed weight once through kernel B6 (``ops/int4_matmul.py``);
+prefill dequantizes and runs one plain matmul. Attention goes through the
+port's dispatcher, so it reaches B1 only at 1024 keys or more in bf16. The KV
+cache is written in place at ``cache_index`` (the JAX package returns a new
+one), which keeps one buffer per layer for the whole request.
+
+Left for the training slice: ``cross_entropy_lm_loss`` and remat.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from diffsensei_tpu_torch.core.config import LlamaConfig
+from diffsensei_tpu_torch.ops import int4_matmul as i4
+from diffsensei_tpu_torch.ops.attention import multi_head_attention
+
+NEG_INF = -1e30
+Cache = Tuple[torch.Tensor, torch.Tensor]
+
+
+class Int8Dense(nn.Module):
+    """Weight-only int8, per output channel: ``y = (x @ Q) * s`` with ``Q``
+    int8 ``[in, out]`` and ``s`` fp32 ``[out]``."""
+
+    def __init__(self, in_features: int, features: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel_q = nn.Parameter(torch.empty((in_features, features), dtype=torch.int8,
+                                                 device=device), requires_grad=False)
+        self.kernel_scale = nn.Parameter(torch.empty((features,), dtype=torch.float32,
+                                                     device=device), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x.to(self.dtype), self.kernel_q.to(self.dtype))
+        return y * self.kernel_scale.to(self.dtype)
+
+
+class Int4Dense(nn.Module):
+    """Weight-only group-wise int4, nibble-packed (``ops/int4_matmul.py``):
+    ``kernel_q`` uint8 ``[in, F'/2]``, ``kernel_scale`` fp32 ``[in/g, F']``
+    with ``F'`` the padded feature count; the output is sliced to ``features``.
+
+    Up to 16 tokens (decode) the product streams the packed bytes: kernel B6
+    on the card where ``kernel_eligible`` (x cast to bf16, fp32 out, as the
+    TPU kernel does), the plain twin otherwise. More tokens (prefill)
+    dequantize once and run one ``torch.matmul``."""
+
+    def __init__(self, in_features: int, features: int, group: int = 128,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.features, self.group, self.dtype = features, group, dtype
+        g = i4.group_size(group, in_features)
+        padded = i4.padded_features(features, in_features, group)
+        self.kernel_q = nn.Parameter(torch.empty((in_features, padded // 2), dtype=torch.uint8,
+                                                 device=device), requires_grad=False)
+        self.kernel_scale = nn.Parameter(torch.empty((in_features // g, padded),
+                                                     dtype=torch.float32, device=device),
+                                         requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        in_f = x.shape[-1]
+        q, s = self.kernel_q, self.kernel_scale
+        tokens = math.prod(x.shape[:-1])
+        if tokens <= i4.MAX_TOKENS:
+            x2 = x.reshape(tokens, in_f)
+            if i4.kernel_eligible(in_f, self.group):
+                xk = x2.to(torch.bfloat16 if x2.is_cuda else self.dtype).contiguous()
+                y = i4.int4_decode_matmul(xk, q, s).to(self.dtype)
+            else:
+                y = i4.int4_decode_fallback(x2.to(self.dtype), q, s)
+            return y[..., :self.features].reshape(x.shape[:-1] + (self.features,))
+        w = i4.dequantize(q, s, dtype=self.dtype)
+        return torch.matmul(x.to(self.dtype), w)[..., :self.features]
+
+
+class LoRADense(nn.Module):
+    """A projection: a base (dense ``nn.Linear`` without bias, ``Int8Dense``
+    or ``Int4Dense`` by ``quantized``: False, True/"int8", "int4") plus an
+    optional low-rank adapter, ``y = base(x) + (alpha/r) (x A) B``."""
+
+    def __init__(self, in_features: int, features: int, lora_rank: int = 0,
+                 lora_alpha: float = 16.0, quantized=False, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        if str(quantized) == "int4":
+            self.base = Int4Dense(in_features, features, **kw)
+        elif quantized:
+            self.base = Int8Dense(in_features, features, **kw)
+        else:
+            self.base = nn.Linear(in_features, features, bias=False, **kw)
+        self.lora_rank, self.lora_alpha = lora_rank, lora_alpha
+        if lora_rank > 0:
+            self.lora_A = nn.Linear(in_features, lora_rank, bias=False, **kw)
+            self.lora_B = nn.Linear(lora_rank, features, bias=False, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.base(x)
+        if self.lora_rank > 0:
+            y = y + (self.lora_alpha / self.lora_rank) * self.lora_B(self.lora_A(x))
+        return y
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-5, dtype=torch.float32, device=None):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.empty((dim,), dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        norm = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + self.eps)
+        return (norm * self.weight.float()).to(self.dtype)
+
+
+def rotary_tables(head_dim: int, max_len: int, theta: float,
+                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 ``(cos, sin)``, each ``[max_len, head_dim]``."""
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                        device=device) / head_dim))
+    freqs = torch.outer(torch.arange(max_len, dtype=torch.float32, device=device), inv)
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """x: ``[B, H, S, D]``; positions: ``[B, S]`` absolute positions."""
+    c = cos[positions][:, None]
+    s = sin[positions][:, None]
+    half = x.shape[-1] // 2
+    rot = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return (x.float() * c + rot.float() * s).to(x.dtype)
+
+
+def decode_bias(positions: torch.Tensor, klen: int) -> torch.Tensor:
+    """fp32 ``[B, 1, S, klen]``: 0 where the key's slot <= the query's
+    position, -1e30 beyond the written prefix of the cache."""
+    kpos = torch.arange(klen, device=positions.device)[None, None, None, :]
+    qpos = positions[:, None, :, None]
+    zero = torch.zeros((), dtype=torch.float32, device=positions.device)
+    return torch.where(kpos <= qpos, zero, torch.full_like(zero, NEG_INF))
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig, lora_rank: int = 0, quantized=False,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.config = config
+        hd, h, kvh = config.head_dim, config.num_heads, config.num_kv_heads
+        kw = dict(lora_rank=lora_rank, quantized=quantized, dtype=dtype, device=device)
+        d = config.hidden_size
+        self.q_proj = LoRADense(d, h * hd, **kw)
+        self.k_proj = LoRADense(d, kvh * hd, **kw)
+        self.v_proj = LoRADense(d, kvh * hd, **kw)
+        self.o_proj = LoRADense(h * hd, d, **kw)
+
+    def forward(self, x, cos, sin, positions, cache: Optional[Cache] = None,
+                cache_index: Optional[int] = None, bias: Optional[torch.Tensor] = None):
+        """``bias``: the decode mask of ``decode_bias`` when the caller has it."""
+        cfg = self.config
+        b, s, _ = x.shape
+        hd = cfg.head_dim
+
+        def heads(t, n):
+            return t.reshape(b, s, n, hd).transpose(1, 2)
+
+        q = apply_rotary(heads(self.q_proj(x), cfg.num_heads), cos, sin, positions)
+        k = apply_rotary(heads(self.k_proj(x), cfg.num_kv_heads), cos, sin, positions)
+        v = heads(self.v_proj(x), cfg.num_kv_heads)
+
+        new_cache = None
+        if cache is not None:
+            ck, cv = cache    # [B, H_kv, max_len, D], written in place
+            ck[:, :, cache_index:cache_index + s] = k.to(ck.dtype)
+            cv[:, :, cache_index:cache_index + s] = v.to(cv.dtype)
+            k, v = ck, cv
+            new_cache = (ck, cv)
+
+        if cfg.num_kv_heads != cfg.num_heads:
+            rep = cfg.num_heads // cfg.num_kv_heads
+            k = k.repeat_interleave(rep, dim=1)
+            v = v.repeat_interleave(rep, dim=1)
+
+        if cache is None:
+            o = multi_head_attention(q, k, v, causal=True)
+        else:
+            if bias is None:
+                bias = decode_bias(positions, k.shape[2])
+            o = multi_head_attention(q, k, v, bias=bias)
+        o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * hd)
+        return self.o_proj(o), new_cache
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig, lora_rank: int = 0, quantized=False,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(lora_rank=lora_rank, quantized=quantized, dtype=dtype, device=device)
+        d, f = config.hidden_size, config.intermediate_size
+        self.gate_proj = LoRADense(d, f, **kw)
+        self.up_proj = LoRADense(d, f, **kw)
+        self.down_proj = LoRADense(f, d, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, lora_rank: int = 0, quantized=False,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        qkw = dict(lora_rank=lora_rank, quantized=quantized, **kw)
+        self.input_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
+        self.attn = LlamaAttention(config, **qkw)
+        self.post_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
+        self.mlp = LlamaMLP(config, **qkw)
+
+    def forward(self, x, cos, sin, positions, cache=None, cache_index=None, bias=None):
+        a, new_cache = self.attn(self.input_norm(x), cos, sin, positions, cache=cache,
+                                 cache_index=cache_index, bias=bias)
+        x = x + a
+        x = x + self.mlp(self.post_norm(x))
+        return x, new_cache
+
+
+class LlamaForCausalLM(nn.Module):
+    """Returns ``(logits, final_hidden, new_caches)``.
+
+    ``inputs_embeds`` is first-class (the agent scatters image embeddings into
+    token slots first); ``caches`` is a list of per-layer ``(k, v)`` buffers
+    (``init_caches``) with ``cache_index`` the write offset, or None for a
+    full causal forward. ``quantized``: False, True/"int8" or "int4"."""
+
+    def __init__(self, config: LlamaConfig, lora_rank: int = 0, quantized=False,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.config, self.lora_rank, self.quantized, self.dtype = (
+            config, lora_rank, quantized, dtype)
+        kw = dict(dtype=dtype, device=device)
+        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size, **kw)
+        self.layers = nn.ModuleList(
+            LlamaLayer(config, lora_rank, quantized=quantized, **kw)
+            for _ in range(config.num_layers))
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
+        if str(quantized) == "int4":
+            self.lm_head = Int4Dense(config.hidden_size, config.vocab_size, **kw)
+        elif quantized:
+            self.lm_head = Int8Dense(config.hidden_size, config.vocab_size, **kw)
+        else:
+            self.lm_head = nn.Linear(config.hidden_size, config.vocab_size, bias=False, **kw)
+        self._rope = {}
+
+    def rotary(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The rotary tables on ``device``, computed once."""
+        key = str(device)
+        if key not in self._rope:
+            cfg = self.config
+            self._rope[key] = rotary_tables(cfg.head_dim, cfg.max_position_embeddings,
+                                            cfg.rope_theta, device)
+        return self._rope[key]
+
+    def embed_tokens_only(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Token embedding lookup (the agent needs it before scattering)."""
+        return self.embed_tokens(input_ids)
+
+    def forward(self, input_ids=None, inputs_embeds=None, positions=None,
+                caches: Optional[List[Cache]] = None, cache_index: Optional[int] = None):
+        if inputs_embeds is None:
+            inputs_embeds = self.embed_tokens(input_ids)
+        x = inputs_embeds
+        b, s, _ = x.shape
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        cos, sin = self.rotary(x.device)
+        bias = None if caches is None else decode_bias(positions, caches[0][0].shape[2])
+        new_caches = []
+        for idx, layer in enumerate(self.layers):
+            cache = None if caches is None else caches[idx]
+            x, nc = layer(x, cos, sin, positions, cache, cache_index, bias)
+            new_caches.append(nc)
+        x = self.norm(x)
+        logits = self.lm_head(x)
+        return logits, x, (new_caches if caches is not None else None)
+
+
+def init_caches(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.float32,
+                device=None) -> List[Cache]:
+    shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return [(torch.zeros(shape, dtype=dtype, device=device),
+             torch.zeros(shape, dtype=dtype, device=device))
+            for _ in range(cfg.num_layers)]

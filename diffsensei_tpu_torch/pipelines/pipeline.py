@@ -1,14 +1,16 @@
 """DiffSensei inference pipeline: prompt -> manga panel (port of
 ``diffsensei_tpu/pipelines/pipeline.py``).
 
-The wo-MLLM path: two CLIP text encoders, CLIP-H + Magi ViTMAE + Resampler
-for the characters, masked-IP biases built once per call per attention
-level, a CFG Euler loop over ``UNetMangaModel`` (a Python loop; the JAX
-package's ``fori_loop``), and the fp32 VAE decode. CFG rows are
-``[uncond | cond]``; the uncond half gets all-zero boxes (ROADMAP trap C4).
+Two CLIP text encoders, CLIP-H + Magi ViTMAE + Resampler for the
+characters, masked-IP biases built once per call per attention level, a CFG
+Euler loop over ``UNetMangaModel`` (a Python loop; the JAX package's
+``fori_loop``), and the fp32 VAE decode. CFG rows are ``[uncond | cond]``;
+the uncond half gets all-zero boxes (ROADMAP trap C4). The SEED-X agent's
+per-character tokens (``ip_image_embeds``) are pasted over the resampler's
+character block.
 
-Left for later slices: the other samplers, DeepCache, the MLLM paste-over
-(``ip_image_embeds``), the tiled decode above 1024², CUDA graphs.
+Left for later slices: the other samplers, DeepCache, the tiled decode above
+1024², CUDA graphs.
 """
 
 from __future__ import annotations
@@ -84,7 +86,7 @@ class PipelineModules:
 
     @classmethod
     def build(cls, configs: Dict[str, Any], dtype: torch.dtype = torch.float32,
-              device="cpu", seed: int = 0) -> "PipelineModules":
+              device="cuda", seed: int = 0) -> "PipelineModules":
         """Modules for ``configs`` with flax-like random weights drawn on
         ``device`` from ``seed``. The VAE is always fp32."""
         device = torch.device(device)
@@ -104,8 +106,9 @@ class PipelineModules:
         return mods
 
     @classmethod
-    def tiny(cls, device="cpu", seed: int = 0) -> "PipelineModules":
-        """CPU-testable tiny stack (the JAX ``PipelineModules.tiny`` configs)."""
+    def tiny(cls, device="cuda", seed: int = 0) -> "PipelineModules":
+        """The tiny stack of the JAX ``PipelineModules.tiny`` configs (the CPU
+        tests pass ``device="cpu"``)."""
         return cls.build(tiny_configs(), torch.float32, device, seed)
 
     @classmethod
@@ -199,8 +202,10 @@ class DiffSenseiPipeline:
         h2, pooled = m.text_encoder_2(both_2)
         return torch.cat([h1, h2], dim=-1), pooled
 
-    def check_inputs(self, prompt, ip_pixel_values, ip_bbox, dialog_bbox, num_samples):
-        """The reference's input contract (``check_inputs``)."""
+    def check_inputs(self, prompt, ip_pixel_values=None, ip_image_embeds=None,
+                     ip_bbox=None, dialog_bbox=None, num_samples: int = 1):
+        """The reference's input contract (``check_inputs``); pixels and
+        embeds may come together (the embeds paste over)."""
         manga = self.m.manga
         if prompt is not None and not isinstance(prompt, str):
             raise ValueError(f"prompt must be a string, got {type(prompt)}")
@@ -210,6 +215,9 @@ class DiffSenseiPipeline:
         if n_chars > manga.max_num_ips:
             raise ValueError(f"{n_chars} character images > max_num_ips="
                              f"{manga.max_num_ips}")
+        if ip_image_embeds is not None and ip_image_embeds.shape[-2] % manga.num_vision_tokens:
+            raise ValueError("ip_image_embeds token count must be a multiple of "
+                             f"num_vision_tokens={manga.num_vision_tokens}")
         if ip_bbox is not None and len(ip_bbox) > manga.max_num_ips:
             raise ValueError(f"{len(ip_bbox)} character bboxes > max_num_ips="
                              f"{manga.max_num_ips}")
@@ -220,32 +228,49 @@ class DiffSenseiPipeline:
             raise ValueError(f"{len(dialog_bbox)} dialog bboxes > max_num_dialogs="
                              f"{manga.max_num_dialogs}")
 
-    def prepare_ip_image_embeds(self, ip_pixel_values: torch.Tensor,
+    def prepare_ip_image_embeds(self, ip_pixel_values: Optional[torch.Tensor],
+                                ip_image_embeds: Optional[torch.Tensor] = None,
                                 num_valid: Optional[int] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Character crops ``[n <= max_num_ips, 224, 224, 3]`` -> resampled
         ``(positive, negative)`` IP tokens, each ``[1, D + I*V, D_cross]``.
 
         Crops are padded with black to ``max_num_ips``; the padding
-        characters' embeddings are zeroed through ``num_valid``."""
+        characters' embeddings are zeroed through ``num_valid``. Without
+        crops the resampler sees all-zero character features.
+        ``ip_image_embeds`` ``[n, V, D_cross]`` (the agent's per-character
+        blocks) are pasted over the positive block after the dummy tokens."""
         m = self.m
         manga = m.manga
-        pixels = torch.as_tensor(ip_pixel_values, dtype=torch.float32).to(self.device)
-        n_ips = pixels.shape[0]
-        if n_ips < manga.max_num_ips:
-            pad = pixels.new_zeros((manga.max_num_ips - n_ips,) + tuple(pixels.shape[1:]))
-            pixels = torch.cat([pixels, pad], dim=0)
-            num_valid = n_ips if num_valid is None else min(num_valid, n_ips)
-            n_ips = manga.max_num_ips
-        clip_h, _ = m.image_encoder(pixels)
-        _, magi_cls = m.magi_encoder(pixels)
-        clip_h, magi_cls = clip_h[None], magi_cls[None]
-        if num_valid is not None and num_valid < n_ips:
-            valid = (torch.arange(n_ips, device=self.device) < num_valid).to(clip_h.dtype)
-            clip_h = clip_h * valid[None, :, None, None]
-            magi_cls = magi_cls * valid[None, :, None]
+        if ip_pixel_values is not None:
+            pixels = torch.as_tensor(ip_pixel_values, dtype=torch.float32).to(self.device)
+            n_ips = pixels.shape[0]
+            if n_ips < manga.max_num_ips:
+                pad = pixels.new_zeros((manga.max_num_ips - n_ips,) + tuple(pixels.shape[1:]))
+                pixels = torch.cat([pixels, pad], dim=0)
+                num_valid = n_ips if num_valid is None else min(num_valid, n_ips)
+                n_ips = manga.max_num_ips
+            clip_h, _ = m.image_encoder(pixels)
+            _, magi_cls = m.magi_encoder(pixels)
+            clip_h, magi_cls = clip_h[None], magi_cls[None]
+            if num_valid is not None and num_valid < n_ips:
+                valid = (torch.arange(n_ips, device=self.device) < num_valid).to(clip_h.dtype)
+                clip_h = clip_h * valid[None, :, None, None]
+                magi_cls = magi_cls * valid[None, :, None]
+        else:
+            p = m.resampler.config
+            clip_h = torch.zeros((1, manga.max_num_ips, m.image_encoder.config.seq_len,
+                                  p.embedding_dim), device=self.device)
+            magi_cls = torch.zeros((1, manga.max_num_ips, p.magi_embedding_dim),
+                                   device=self.device)
         pos = m.resampler(clip_h, magi_cls)
         neg = m.resampler(torch.zeros_like(clip_h), torch.zeros_like(magi_cls))
+        if ip_image_embeds is not None:
+            nv, v = ip_image_embeds.shape[0], manga.num_vision_tokens
+            start = manga.num_dummy_tokens
+            pos = pos.clone()
+            pos[:, start:start + nv * v] = torch.as_tensor(ip_image_embeds).reshape(
+                1, nv * v, -1).to(pos.device, pos.dtype)
         return pos, neg
 
     def _prepare_bboxes(self, ip_bbox, dialog_bbox, num_samples: int):
@@ -277,6 +302,7 @@ class DiffSenseiPipeline:
                  num_samples: int = 1, generator: Optional[torch.Generator] = None,
                  latents: Optional[torch.Tensor] = None,
                  ip_pixel_values: Optional[torch.Tensor] = None,
+                 ip_image_embeds: Optional[torch.Tensor] = None,
                  ip_bbox: Optional[Sequence[Sequence[float]]] = None,
                  ip_scale: Optional[float] = None,
                  dialog_bbox: Optional[Sequence[Sequence[float]]] = None,
@@ -290,7 +316,8 @@ class DiffSenseiPipeline:
         replacing the ``generator`` draw (the diffusers ``latents=`` surface),
         so a caller can split a request across calls, or feed two
         implementations the same draw. ``callback(i, latents)`` sees the
-        latents after every denoising step."""
+        latents after every denoising step. ``ip_image_embeds``
+        ``[n, V, D_cross]`` are pasted over the encoded characters."""
         cfg = self.config
         m = self.m
         manga = m.manga
@@ -300,19 +327,21 @@ class DiffSenseiPipeline:
         ipscale = cfg.ip_scale if ip_scale is None else ip_scale
         neg = cfg.negative_prompt if negative_prompt is None else negative_prompt
 
-        self.check_inputs(prompt, ip_pixel_values, ip_bbox, dialog_bbox, num_samples)
+        self.check_inputs(prompt, ip_pixel_values, ip_image_embeds, ip_bbox, dialog_bbox,
+                          num_samples)
         if snap_to_buckets:
             height, width = snap_to_bucket(height, width)
         lh, lw = height // self.latent_scale, width // self.latent_scale
 
         ctx, pooled = self.encode_prompt(prompt, neg, **(prompt_ids or {}))
 
-        use_ip = ip_pixel_values is not None and m.resampler is not None
+        use_ip = ((ip_pixel_values is not None or ip_image_embeds is not None)
+                  and m.resampler is not None)
         ip_tokens, ip_biases = None, None
         ip_bbox_arr, dialog_arr = self._prepare_bboxes(ip_bbox, dialog_bbox, num_samples)
         if use_ip:
             pos, negt = self.prepare_ip_image_embeds(
-                ip_pixel_values, None if ip_bbox is None else len(ip_bbox))
+                ip_pixel_values, ip_image_embeds, None if ip_bbox is None else len(ip_bbox))
             ip_tokens = torch.cat([negt.expand(num_samples, -1, -1),
                                    pos.expand(num_samples, -1, -1)], dim=0)
             ucfg = m.unet.config

@@ -1,10 +1,11 @@
 """Headless serving API (port of ``diffsensei_tpu/serve/api.py``).
 
 ``DiffSenseiServer.generate`` turns a ``GenerationRequest`` into panels:
-character crops through the CLIP preprocessing, the request's latents drawn
+character crops through the CLIP preprocessing, optionally the SEED-X agent
+adapting the character embeddings to the prompt (blended by ``mllm_scale``,
+reference ``scripts/demo/gradio.py:60-109``), the request's latents drawn
 once from its seed, then the pipeline, batched or one sample at a time by the
-auto-batch rule. The SEED-X agent (``agent=`` in the JAX server) waits for a
-later slice.
+auto-batch rule.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from PIL import Image
 
 from diffsensei_tpu_torch.core.buckets import snap_to_bucket
 from diffsensei_tpu_torch.data import processors
+from diffsensei_tpu_torch.data.mllm_dataset import MLLMTokenSpec, build_inference_prompt
 from diffsensei_tpu_torch.pipelines.pipeline import DiffSenseiPipeline
 
 
@@ -35,11 +37,13 @@ class GenerationRequest:
     ip_bbox: Sequence[Sequence[float]] = ()
     dialog_bbox: Sequence[Sequence[float]] = ()
     ip_scale: Optional[float] = None
+    mllm_scale: Optional[float] = None   # only used when an agent is attached
     prompt_ids: Optional[dict] = None    # pre-tokenized prompts (no tokenizer files)
 
 
 class DiffSenseiServer:
-    """The pipeline behind a single ``generate`` call.
+    """The pipeline, and optionally the SEED-X agent (``agent`` with its
+    ``mllm_spec``), behind a single ``generate`` call.
 
     Multi-sample requests run as one batched denoise when the bucket's long
     side is at most ``auto_batch_max_side`` (default 512) and one sample at a
@@ -47,9 +51,14 @@ class DiffSenseiServer:
     latents once from ``seed`` and give the same panels. ``None`` always
     batches."""
 
-    def __init__(self, pipeline: DiffSenseiPipeline,
+    def __init__(self, pipeline: DiffSenseiPipeline, agent=None,
+                 mllm_spec: Optional[MLLMTokenSpec] = None,
+                 mllm_max_new_tokens: int = 500,
                  auto_batch_max_side: Optional[int] = 512):
         self.pipeline = pipeline
+        self.agent = agent
+        self.mllm_spec = mllm_spec
+        self.mllm_max_new_tokens = mllm_max_new_tokens
         self.auto_batch_max_side = auto_batch_max_side
 
     def _preprocess_characters(self, images: Sequence[Image.Image]) -> torch.Tensor:
@@ -61,6 +70,31 @@ class DiffSenseiServer:
             imgs.append(Image.new("RGB", (224, 224), (0, 0, 0)))
         return torch.from_numpy(processors.batch_clip(imgs))
 
+    @torch.inference_mode()
+    def _adapt_with_mllm(self, req: GenerationRequest, clip_pixels: torch.Tensor,
+                         n_valid: int) -> Optional[torch.Tensor]:
+        """SEED-X character adaptation: the resampled character block goes
+        through ``agent.generate`` with the caption's prompt; the generated
+        features are blended with it by ``mllm_scale`` and returned as
+        per-character blocks ``[I, V, D_cross]`` (None if no image came out)."""
+        pipe = self.pipeline
+        manga = pipe.m.manga
+        pos, _ = pipe.prepare_ip_image_embeds(clip_pixels, None, n_valid)
+        char_block = pos[:, manga.num_dummy_tokens:, :]         # [1, I*V, D]
+        spec = self.mllm_spec
+        prompt = build_inference_prompt(spec.encode_text(req.prompt), spec,
+                                        spec.encode_text("\n"))
+        out = self.agent.generate(prompt["input_ids"], image_embeds=char_block,
+                                  ids_cmp_mask=prompt["ids_cmp_mask"],
+                                  ladder_ids=spec.ladder_ids,
+                                  max_new_tokens=self.mllm_max_new_tokens)
+        if out["img_gen_feat"] is None:
+            return None
+        gen = out["img_gen_feat"][:1].to(char_block.device)    # [1, I*V, D]
+        scale = pipe.config.mllm_scale if req.mllm_scale is None else req.mllm_scale
+        blended = scale * gen + (1.0 - scale) * char_block
+        return blended.reshape(-1, manga.num_vision_tokens, blended.shape[-1])
+
     def initial_latents(self, seed: int, shape: Tuple[int, ...]) -> torch.Tensor:
         """The request's standard-normal draw, from a CPU generator seeded with
         ``seed`` (the same panels on any device)."""
@@ -71,14 +105,18 @@ class DiffSenseiServer:
         """Returns ``[num_samples, H, W, 3]`` float32 in [0, 1]."""
         pipe = self.pipeline
         manga = pipe.m.manga
-        clip_pixels = None
+        clip_pixels, ip_image_embeds = None, None
         if req.character_images:
             clip_pixels = self._preprocess_characters(req.character_images)
+            if self.agent is not None and self.mllm_spec is not None:
+                n_valid = min(len(req.character_images), manga.max_num_ips)
+                ip_image_embeds = self._adapt_with_mllm(req, clip_pixels, n_valid)
         kwargs = dict(
             num_inference_steps=req.num_inference_steps,
             guidance_scale=req.guidance_scale,
             negative_prompt=req.negative_prompt,
             ip_pixel_values=clip_pixels,
+            ip_image_embeds=ip_image_embeds,
             ip_bbox=list(req.ip_bbox)[: manga.max_num_ips] or None,
             ip_scale=req.ip_scale,
             dialog_bbox=list(req.dialog_bbox)[: manga.max_num_dialogs] or None,

@@ -47,7 +47,7 @@ def to_tensors(sd: StateDict, dtype=None, device=None):
     the bridge itself stays numpy only)."""
     import torch
 
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dtype=dtype, device=device)
+    return {k: torch.from_numpy(np.array(v, order="C")).to(dtype=dtype, device=device)
             for k, v in sd.items()}
 
 
@@ -245,3 +245,66 @@ def vae(params: Dict, cfg) -> StateDict:
     _conv(sd, "quant_conv", p["quant_conv"])
     _conv(sd, "post_quant_conv", p["post_quant_conv"])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# the SEED-X agent (names of the port's modules, which follow the JAX tree)
+# ---------------------------------------------------------------------------
+def _projection(sd: StateDict, name: str, node: Dict) -> None:
+    """A ``kernel`` dense -> ``weight`` [out, in]; a quantized one's
+    ``kernel_q`` / ``kernel_scale`` pass through as they are (int8
+    ``[in, out]``, or packed uint8 ``[in, F'/2]`` with fp32 ``[in/g, F']``)."""
+    if "kernel" in node:
+        sd[f"{name}.weight"] = _a(node["kernel"]).T
+    else:
+        sd[f"{name}.kernel_q"] = np.asarray(node["kernel_q"])
+        sd[f"{name}.kernel_scale"] = _a(node["kernel_scale"])
+
+
+def llama(params: Dict) -> StateDict:
+    """``LlamaForCausalLM`` tree (float, LoRA, int8 or int4) -> the port's
+    ``models.mllm.llama.LlamaForCausalLM`` names. Float leaves become fp32;
+    cast with ``to_tensors(..., dtype)`` only a float tree."""
+    p = params["params"]
+    sd: StateDict = {"embed_tokens.weight": _a(p["embed_tokens"]["embedding"]),
+                     "norm.weight": _a(p["norm"]["weight"])}
+    i = 0
+    while f"layers_{i}" in p:
+        lp = p[f"layers_{i}"]
+        for block, names in (("attn", ("q_proj", "k_proj", "v_proj", "o_proj")),
+                             ("mlp", ("gate_proj", "up_proj", "down_proj"))):
+            for n in names:
+                node, base = lp[block][n], f"layers.{i}.{block}.{n}"
+                _projection(sd, f"{base}.base", node["base"])
+                if "lora_a" in node:
+                    sd[f"{base}.lora_A.weight"] = _a(node["lora_a"]).T
+                    sd[f"{base}.lora_B.weight"] = _a(node["lora_b"]).T
+        for n in ("input_norm", "post_norm"):
+            sd[f"layers.{i}.{n}.weight"] = _a(lp[n]["weight"])
+        i += 1
+    _projection(sd, "lm_head", p["lm_head"])
+    return sd
+
+
+def qwen_resampler(params: Dict) -> StateDict:
+    """``QwenResampler`` tree -> the reference ``QwenResampler`` names (the
+    ``nn.MultiheadAttention`` in-projection packed as ``[3E, E]``)."""
+    p = params["params"]
+    sd: StateDict = {"query": _a(p["query"])}
+    if "kv_proj" in p:
+        _lin(sd, "kv_proj", p["kv_proj"])
+    _norm(sd, "ln_q", p["ln_q"])
+    _norm(sd, "ln_kv", p["ln_kv"])
+    names = ("q_in_proj", "k_in_proj", "v_in_proj")
+    sd["attn.in_proj_weight"] = np.concatenate([_a(p[n]["kernel"]).T for n in names])
+    sd["attn.in_proj_bias"] = np.concatenate([_a(p[n]["bias"]) for n in names])
+    _lin(sd, "attn.out_proj", p["out_proj"])
+    return sd
+
+
+def agent(jagent) -> Dict[str, StateDict]:
+    """A JAX ``ContinuousLVLM`` -> ``{"llm", "input_resampler",
+    "output_resampler"}`` state dicts for the port's ``ContinuousLVLM``."""
+    return {"llm": llama(jagent.llm_params),
+            "input_resampler": qwen_resampler(jagent.input_resampler_params),
+            "output_resampler": qwen_resampler(jagent.output_resampler_params)}

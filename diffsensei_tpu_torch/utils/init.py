@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from diffsensei_tpu_torch.models.layers import FusedGroupNormSiLU
+from diffsensei_tpu_torch.models.mllm.llama import Int4Dense, Int8Dense, RMSNorm
 
 # parameter-name suffix -> normal std (None: zeros), as the JAX modules init them
 _NAMED_STD = {
@@ -25,14 +26,31 @@ _NAMED_STD = {
     "embeddings.position_embeddings": 0.02,
     "dummy_tokens": 0.02,
     "dialog_bbox_embedding": None,
+    "query": 0.02,                      # QwenResampler queries
+    "lora_A.weight": 0.02,              # LLM adapters: A normal, B zero
+    "lora_B.weight": None,
+    "attn.in_proj_bias": None,
 }
 
 
 @torch.no_grad()
 def init_flax_like_(root: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Overwrite every parameter of ``root`` in place; returns ``root``."""
+    """Overwrite every parameter of ``root`` in place; returns ``root``.
+
+    The agent's quantized projections get what their JAX modules draw:
+    uniform random bytes (int4 nibbles in [-8, 7], std 4.61) or ints in
+    [-127, 127] (int8, std 73.3), with the constant scale that makes the
+    effective weight lecun-like, ``1 / (std * sqrt(in))``."""
     for mod in root.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+        if isinstance(mod, Int4Dense):
+            mod.kernel_q.random_(0, 256, generator=generator)
+            mod.kernel_scale.fill_(1.0 / (4.61 * mod.kernel_q.shape[0] ** 0.5))
+        elif isinstance(mod, Int8Dense):
+            mod.kernel_q.random_(-127, 128, generator=generator)
+            mod.kernel_scale.fill_(1.0 / (73.3 * mod.kernel_q.shape[0] ** 0.5))
+        elif isinstance(mod, RMSNorm):
+            mod.weight.fill_(1.0)
+        elif isinstance(mod, (nn.Linear, nn.Conv2d)):
             fan_in = mod.weight[0].numel()
             mod.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
             if mod.bias is not None:
@@ -47,6 +65,9 @@ def init_flax_like_(root: nn.Module, generator: torch.Generator) -> nn.Module:
     for name, param in root.named_parameters():
         if name == "latents":  # Resampler: normal(1/sqrt(dim))
             param.normal_(0.0, param.shape[-1] ** -0.5, generator=generator)
+            continue
+        if name == "attn.in_proj_weight":  # QwenResampler: three lecun-normal [E, E]
+            param.normal_(0.0, param.shape[1] ** -0.5, generator=generator)
             continue
         for suffix, std in _NAMED_STD.items():
             if name.endswith(suffix):

@@ -13,6 +13,7 @@ import torch
 from diffsensei_tpu_torch.ops import attention as tatt
 from diffsensei_tpu_torch.ops import flash_attention as tfa
 from diffsensei_tpu_torch.ops import groupnorm as tgn
+from diffsensei_tpu_torch.ops import int4_matmul as ti4
 
 
 @pytest.fixture
@@ -83,3 +84,46 @@ def test_dispatcher_sends_long_bf16_attention_to_the_kernel(cuda):
     tatt.multi_head_attention(q, short, short)
     tatt.multi_head_attention(q.float(), q.float(), q.float())
     assert tfa.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tokens,in_f,features", [
+    (1, 128, 256),
+    (3, 384, 300),          # odd features padded to 512
+    (16, 384, 1000),        # padded to 1024; 16 tokens
+    (16, 128, 256),
+    (1, 5120, 32330),       # the agent's lm_head, padded to 32512
+])
+def test_int4_kernel_matches_plain_on_card(cuda, tokens, in_f, features):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    padded = ti4.padded_features(features, in_f, 128)
+    packed = torch.randint(0, 256, (in_f, padded // 2), generator=g, device=cuda,
+                           dtype=torch.uint8)
+    # group scales around the served 1 / (4.61 sqrt(in)): outputs of order 1
+    scale = (torch.rand((in_f // 128, padded), generator=g, device=cuda) + 0.5) \
+        / (4.61 * in_f ** 0.5)
+    x = torch.randn((tokens, in_f), generator=g, device=cuda).bfloat16()
+    before = ti4.launches
+    y = ti4.int4_decode_matmul(x, packed, scale)
+    y2 = ti4.int4_decode_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert ti4.launches == before + 2
+    assert y.dtype == torch.float32 and y.shape == (tokens, padded)
+    assert torch.equal(y, y2)                      # no float atomics: same bits
+    ref = x.float() @ ti4.dequantize(packed, scale, torch.bfloat16).float()
+    torch.testing.assert_close(y, ref, rtol=2e-2, atol=2e-2)
+    twin = ti4.int4_decode_fallback(x.float(), packed, scale)
+    assert ((y - twin).norm() / twin.norm()).item() < 2e-2
+
+
+@pytest.mark.gpu
+def test_int4_kernel_rejects_what_it_does_not_take(cuda):
+    packed = torch.zeros((256, 128), dtype=torch.uint8, device=cuda)
+    scale = torch.ones((2, 256), device=cuda)
+    x = torch.zeros((1, 256), device=cuda)
+    with pytest.raises(ValueError):
+        ti4.int4_decode_matmul(x, packed, scale)                     # fp32 x
+    with pytest.raises(ValueError):
+        ti4.int4_decode_matmul(torch.zeros((17, 256), device=cuda).bfloat16(), packed, scale)
+    with pytest.raises(ValueError):
+        ti4.int4_decode_matmul(x.bfloat16(), packed, scale[:1])
