@@ -6,8 +6,9 @@
 Run from the root of the repository. Phases, one JSON line each:
 
 1. device: the card, its power limit, the TF32 switches (both off);
-2. build: kernels B1 and B6 (CUDA C++, one nvcc each, started together) and
-   B3 (Triton) from ``diffsensei_tpu_torch/csrc``;
+2. build: kernels B1, B2 and B4 (one CUDA C++ source) and B6 (CUDA C++),
+   one nvcc each, started together, and B3 (Triton) from
+   ``diffsensei_tpu_torch/csrc``;
 3. flash_attention: B1 against its plain twin at the UNet's shapes, with times
    beside the plain twin and ``F.scaled_dot_product_attention``;
 4. groupnorm_silu: B3 likewise, beside ``F.group_norm`` + ``F.silu``;
@@ -23,10 +24,19 @@ Run from the root of the repository. Phases, one JSON line each:
    full width, random weights) beside the SDXL stack on the one card: the
    1024² request again, its characters adapted by 500 greedy decode steps.
 9. profile_decode: ``torch.profiler`` over 16 of the agent's decode steps:
-   device time and kernels a token, the device's busy share, the top kernels.
+   device time and kernels a token, the device's busy share, the top kernels;
+10. flash_attention_bwd (run after phase 5): B2 (dQ) and B4 (dK/dV) against
+   their plain twin at the training shapes and the edge cases, with times
+   beside the twin and the backward of ``F.scaled_dot_product_attention``;
+11. reference_train (after phase 6): one stage-2 loss and backward on a
+   cut-down SDXL-width stack, bf16 on the card against fp32 on the CPU;
+12. train: 6 stage-2 steps through the port's train CLI on
+   ``configs/train/condition.yaml`` at full SDXL width (random weights,
+   synthetic MangaZero pages from a numpy seed, the 1024² bucket, batch 1),
+   one line a step; profile_train: ``torch.profiler`` over one of them.
 
-The kernels' launch counts are set to 0 before each served path and checked
-after it. Then the kernels line, the card's ``nvidia-smi`` line and, last,
+The kernels' launch counts are set to 0 before each served or trained path
+and checked after it. Then the kernels line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. Needs one CUDA device; imports nothing of JAX.
 """
@@ -244,6 +254,93 @@ def check_int4(device) -> dict:
                 **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
 
 
+FLASH_BWD_CASES = [  # (B, H, Sq, Sk, D, causal, bias)
+    (1, 10, 4096, 4096, 64, False, False),   # UNet level 1 at 1024², train batch 1
+    (1, 20, 1024, 1024, 64, False, False),   # UNet level 2
+] + FLASH_CASES[3:]                          # ragged + bias, causal, head_dim 128
+
+
+def _causal_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs the attention computes: every pair, or below the
+    diagonal for causal."""
+    return sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+
+
+def check_flash_bwd(device):
+    """B2 (dQ) and B4 (dK/dV) against the fp32 plain twin on the same bf16
+    inputs: relative Frobenius error of each gradient at most 2e-2, two calls
+    bit-equal. Times beside the twin's and the backward of
+    ``F.scaled_dot_product_attention`` (one call that computes dQ, dK and dV
+    together)."""
+    import torch
+    import torch.nn.functional as F
+    from diffsensei_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    rel = lambda g, w: ((g.float() - w).norm() / w.norm()).item()
+    rows = []
+    for b, h, sq, sk, d, causal, with_bias in FLASH_BWD_CASES:
+        mk = lambda s: torch.randn((b, h, s, d), generator=gen, device=device).bfloat16()
+        q, k, v, do = mk(sq), mk(sk), mk(sk), mk(sq)
+        bias = None
+        if with_bias:
+            bias = torch.where(torch.rand((b, 1, sq, sk), generator=gen, device=device) > 0.3,
+                               0.0, -10000.0)
+        kw = dict(causal=causal)
+        o, lse = fa.flash_attention(q, k, v, bias, **kw)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, bias, o, lse, do, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, bias, lse, delta, do, **kw)
+        again = fa.flash_attention_bwd(q, k, v, bias, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_ref(q.float(), k.float(), v.float(), bias, o.float(),
+                                          lse, do.float(), causal)
+        errs = {n: rel(g, w) for n, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+        abs_err = {n: (g.float() - w).abs().max().item()
+                   for n, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+        bit_equal = all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again))
+        del want, again
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=None if bias is None else bias.bfloat16(), is_causal=causal)
+        pairs = b * h * _causal_pairs(sq, sk, causal)
+        elems_q, elems_k = b * h * sq * d, b * h * sk * d
+        bias_bytes = 0 if bias is None else 4 * bias.numel()
+        row = dict(shape=[b, h, sq, sk, d], causal=causal, bias=with_bias,
+                   rel_frobenius=errs, max_abs_err=abs_err, bit_equal=bit_equal,
+                   dq_ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, bias, o, lse, do,
+                                                                   **kw)),
+                   dkv_ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, bias, lse, delta,
+                                                                     do, **kw)),
+                   dq_plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_dq_ref(
+                       q, k, v, bias, o, lse, do, causal), reps=5),
+                   dkv_plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv_ref(
+                       q, k, v, bias, lse, delta, do, causal), reps=5),
+                   sdpa_bwd_ms=cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                                                   retain_graph=True)),
+                   # B2 reads q k v o dO lse, writes dQ and delta; 3 products a pair
+                   dq_bound=bound(2 * (4 * elems_q + 2 * elems_k) + 8 * b * h * sq + bias_bytes,
+                                  3 * 2 * pairs * d),
+                   # B4 reads q k v dO lse delta, writes dK dV; 4 products a pair
+                   dkv_bound=bound(2 * (2 * elems_q + 4 * elems_k) + 8 * b * h * sq + bias_bytes,
+                                   4 * 2 * pairs * d))
+        rows.append(row)
+        emit({"phase": "flash_attention_bwd", **row})
+        if not (max(errs.values()) <= 2e-2 and bit_equal):
+            raise AssertionError(f"the flash backward kernels disagree with their twin: {row}")
+        del q, k, v, do, o, lse, dq, dk, dv, delta, out, qs, ks, vs
+        torch.cuda.empty_cache()
+    main = rows[0]
+    library = dict(library_ms=main["sdpa_bwd_ms"],
+                   library_call="scaled_dot_product_attention backward (dq, dk, dv together)")
+    dq_row = dict(max_abs_err=max(r["max_abs_err"]["dq"] for r in rows), ms=main["dq_ms"],
+                  plain_ms=main["dq_plain_ms"], **main["dq_bound"], **library)
+    dkv_row = dict(max_abs_err=max(max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"])
+                                   for r in rows),
+                   ms=main["dkv_ms"], plain_ms=main["dkv_plain_ms"], **main["dkv_bound"],
+                   **library)
+    return dq_row, dkv_row
+
+
 # ---------------------------------------------------------------------------
 # the modules on the card against the CPU on a small input
 # ---------------------------------------------------------------------------
@@ -352,6 +449,101 @@ def check_llama_reference(device, num_layers: int = 2, prompt_len: int = 24,
     if not (max(rels) <= 5e-2 and i4.launches == steps * (7 * num_layers + 1)
             and all(t["top2_gap_rel"] <= 5e-2 for t in ties)):
         raise AssertionError(f"the int4 LLaMA on the card disagrees with the CPU: {row} {ties}")
+
+
+def check_reference_train(device) -> None:
+    """One stage-2 ``loss_fn`` and its backward on a cut-down SDXL-width
+    stack: the UNet of ``check_reference`` (320/640, 1024 tokens at level 1,
+    per-block remat) beside the full SDXL VAE and DiffSensei Resampler, the
+    text and character encoders at full width with 2 layers each. On the
+    card in bf16 with fp32 trainables (kernels B1-B4 on), against the same
+    weights, batch and draws on the CPU in fp32. Bounds: the loss within
+    2e-2 and the concatenated trainables' gradient within 5e-2 (relative),
+    every gradient tensor within 1.5e-1."""
+    import copy
+    import dataclasses
+    import torch
+    from diffsensei_tpu_torch.core.config import (
+        ResamplerConfig, TextEncoderConfig, UNetConfig, VAEConfig, VisionEncoderConfig)
+    from diffsensei_tpu_torch.models.schedulers import DDPMSchedule
+    from diffsensei_tpu_torch.ops import flash_attention as fa, groupnorm as gn
+    from diffsensei_tpu_torch.pipelines.pipeline import PipelineModules
+    from diffsensei_tpu_torch.train import diffusion as td, optim
+
+    two = lambda cfg: dataclasses.replace(cfg, num_layers=2)
+    configs = dict(
+        unet=UNetConfig(block_out_channels=(320, 640), transformer_layers_per_block=(0, 1),
+                        layers_per_block=1, mid_transformer_layers=1),
+        vae=VAEConfig.sdxl(), text_encoder=two(TextEncoderConfig.clip_l()),
+        text_encoder_2=two(TextEncoderConfig.clip_bigg()),
+        image_encoder=two(VisionEncoderConfig.clip_vit_h()),
+        magi_encoder=two(VisionEncoderConfig.magi_vitmae()), resampler=ResamplerConfig.diffsensei())
+    cpu = PipelineModules.build(configs, torch.float32, device="cpu", seed=6)
+    card = copy.deepcopy(cpu)
+    for name, mod in card.networks().items():
+        mod.to(device=device, dtype=torch.float32 if name == "vae" else torch.bfloat16)
+    manga = cpu.manga
+    rng = np.random.default_rng(6)
+    i, hw = manga.max_num_ips, 512
+    batch = dict(
+        pixel_values=rng.uniform(-1, 1, (1, hw, hw, 3)),
+        text_input_ids=rng.integers(1, 49000, (1, 77)),
+        text_input_ids_2=rng.integers(1, 49000, (1, 77)),
+        ip_pixel_values=rng.normal(size=(1, i, 1, 224, 224, 3)),
+        magi_pixel_values=rng.normal(size=(1, i, 1, 224, 224, 3)),
+        ip_exists=np.ones((1, i, 1)), ip_bbox=np.array([[[0.05, 0.1, 0.45, 0.9],
+                                                          [0.5, 0.1, 0.95, 0.6],
+                                                          [0.5, 0.6, 0.8, 0.95],
+                                                          [0.1, 0.7, 0.3, 0.95]]]),
+        dialog_bbox=np.concatenate([[[[0.1, 0.02, 0.6, 0.2], [0.6, 0.7, 0.95, 0.95]]],
+                                    np.zeros((1, manga.max_num_dialogs - 2, 4))], axis=1),
+        original_size=np.array([[hw, hw]]), crop_coords_top_left=np.zeros((1, 2)),
+        target_size=np.array([[hw, hw]]))
+    draws = dict(latent_noise=rng.normal(size=(1, hw // 8, hw // 8, 4)),
+                 noise=rng.normal(size=(1, hw // 8, hw // 8, 4)), timesteps=np.array([500]))
+
+    def grads(mods, dev):
+        mods.unet.enable_remat()
+        trainable, _ = optim.partition_params(
+            mods.unet, optim.unet_trainable_mask(mods.unet, "new"))
+        params = {f"unet.{k}": p for k, p in trainable.items()}
+        res, _ = optim.partition_params(
+            mods.resampler, {k: True for k, _ in mods.resampler.named_parameters()})
+        params.update({f"resampler.{k}": p for k, p in res.items()})
+        step = td.make_stage2_step(mods.unet, mods.resampler, DDPMSchedule(), td.Stage2Config(
+            manga=manga, ip_contrastive="fast"))
+        frozen = td.FrozenDiffusionStack(
+            vae=mods.vae, text_encoder=mods.text_encoder, text_encoder_2=mods.text_encoder_2,
+            image_encoder=mods.image_encoder, magi_encoder=mods.magi_encoder)
+        as_t = lambda a: torch.tensor(a, dtype=torch.int32 if a.dtype.kind == "i"
+                                      else torch.float32, device=dev)
+        loss, _ = step.loss_fn(frozen, {k: as_t(v) for k, v in batch.items()},
+                               **{k: as_t(v) for k, v in draws.items()})
+        loss.backward()
+        return loss.item(), {k: p.grad.float().cpu() for k, p in params.items()}
+
+    want_loss, want = grads(cpu, "cpu")
+    fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = gn.launches = 0
+    got_loss, got = grads(card, device)
+    torch.cuda.synchronize()
+    launches = dict(flash_fwd=fa.launches, flash_dq=fa.bwd_dq_launches,
+                    flash_dkv=fa.bwd_dkv_launches, groupnorm=gn.launches)
+    per = {k: ((got[k] - want[k]).norm() / want[k].norm()).item() for k in want}
+    cat = lambda d: torch.cat([d[k].flatten() for k in want])
+    total = ((cat(got) - cat(want)).norm() / cat(want).norm()).item()
+    worst = max(per, key=per.get)
+    row = dict(module="stage2_unet_320_640_bf16", loss=got_loss, loss_cpu=want_loss,
+               loss_rel_err=abs(got_loss - want_loss) / abs(want_loss),
+               grad_rel_frobenius=total, worst_tensor=worst, worst_rel_frobenius=per[worst],
+               median_rel_frobenius=float(np.median(list(per.values()))),
+               trainable_tensors=len(per), bounds=dict(loss=2e-2, grad=5e-2, tensor=1.5e-1),
+               launches=launches)
+    emit({"phase": "reference_train", **row})
+    # 4 self-attentions of 1024 tokens at level 1: B1 forward + remat replay
+    if not (row["loss_rel_err"] <= 2e-2 and total <= 5e-2 and per[worst] <= 1.5e-1
+            and launches["flash_fwd"] == 8 and launches["flash_dq"] == 4
+            and launches["flash_dkv"] == 4 and launches["groupnorm"] > 0):
+        raise AssertionError(f"the stage-2 step on the card disagrees with the CPU: {row}")
 
 
 # ---------------------------------------------------------------------------
@@ -542,6 +734,171 @@ def serve_agent(device, mods, ids, max_new_tokens: int = 500) -> dict:
     return launches
 
 
+def write_mangazero(root, pages: int = 8, seed: int = 8) -> None:
+    """A MangaZero-format page set from a numpy seed: each page one
+    1024x1024 frame (the 1024² bucket) with four characters and two dialog
+    boxes, the page image a smooth random PNG."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    words = ["girl", "boy", "rain", "street", "umbrella", "talks", "shouts", "night", "room"]
+    anns = []
+    for p in range(pages):
+        img = Image.fromarray((rng.random((36, 36, 3)) * 255).astype(np.uint8))
+        img.resize((1152, 1152), Image.BICUBIC).save(root / f"page_{p}.png")
+        x0, y0 = 64, 64
+
+        def box(w_range, h_range):
+            w, h = rng.integers(*w_range), rng.integers(*h_range)
+            x, y = rng.integers(x0, x0 + 1024 - w), rng.integers(y0, y0 + 1024 - h)
+            return [int(x), int(y), int(x + w), int(y + h)]
+        anns.append({"image_path": f"page_{p}.png", "frames": [{
+            "bbox": [x0, y0, x0 + 1024, y0 + 1024],
+            "caption": " ".join(rng.choice(words, 6)),
+            "characters": [{"id": c, "bbox": box((150, 400), (200, 600)), "type": 0}
+                           for c in range(4)],
+            "dialogs": [{"bbox": box((100, 300), (60, 200))} for _ in range(2)]}]})
+    (root / "annotations.json").write_text(json.dumps(anns))
+
+
+TRAIN_STEPS, PROFILED_STEP = 6, 5
+
+
+def train(device) -> dict:
+    """Stage 2 through the port's CLI (``train.cli.main``) on
+    ``configs/train/condition.yaml`` at full SDXL width with four changes:
+    ``init: random``, no ``weights:`` group, the synthetic data paths (and
+    the log directory beside them), ``max_train_steps: 6, log_every: 1,
+    checkpoint_every: 3``. Each step's loss, seconds, peak memory and kernel
+    launches; step ``PROFILED_STEP`` under ``torch.profiler``. Checks: finite
+    losses, checkpoints at steps 3 and 6, the trainables moved and the frozen
+    UNet weights did not, the same launch counts on every step."""
+    import pathlib
+    import tempfile
+    import torch
+    import yaml
+    from torch.profiler import ProfilerActivity, profile
+    from diffsensei_tpu_torch.ops import flash_attention as fa, groupnorm as gn
+    from diffsensei_tpu_torch.train import cli, optim
+
+    names = ("flash_fwd", "flash_dq", "flash_dkv", "groupnorm")
+    counts = lambda: (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches, gn.launches)
+    snap, built = {}, {}
+    build_models = cli.build_models
+
+    def capture(*args, **kwargs):     # the CLI's models, for the moved/frozen check
+        mods = build_models(*args, **kwargs)
+        mask = optim.unet_trainable_mask(mods.unet, "new")
+        for name, p in mods.unet.named_parameters():   # on the host: no device memory
+            snap[("unet", name, mask[name])] = p.detach().cpu()
+        for name, p in mods.resampler.named_parameters():
+            snap[("resampler", name, True)] = p.detach().cpu()
+        built["mods"] = mods
+        return mods
+
+    rows, prof = [], profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    clock = {}
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now, c = time.perf_counter(), counts()
+        if step == PROFILED_STEP + 1:
+            prof.stop()
+            clock["profiled_s"] = now - clock["profile_start"]
+        rows.append(dict(step=step, **{k: float(v) for k, v in metrics.items()},
+                         host_s=now - clock["last"],
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         launches=dict(zip(names, (a - b for a, b in zip(c, clock["counts"]))))))
+        torch.cuda.reset_peak_memory_stats()
+        if step == PROFILED_STEP:
+            prof.start()
+            clock["profile_start"] = time.perf_counter()
+        clock.update(last=time.perf_counter(), counts=counts())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        write_mangazero(tmp)
+        cfg = yaml.safe_load(pathlib.Path("configs/train/condition.yaml").read_text())
+        cfg.pop("weights")
+        cfg["model"]["init"] = "random"
+        cfg["train_data"].update(ann_path=str(tmp / "annotations.json"), image_root=str(tmp))
+        cfg["trainer"].update(max_train_steps=TRAIN_STEPS, log_every=1, checkpoint_every=3,
+                              log_dir=str(tmp / "logs"))
+        (tmp / "config.yaml").write_text(yaml.safe_dump(cfg))
+
+        cli.build_models = capture
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = gn.launches = 0
+        t0 = clock["last"] = time.perf_counter()
+        clock["counts"] = counts()
+        try:
+            state = cli.main(["--config", str(tmp / "config.yaml")], on_step=on_step)
+        finally:
+            cli.build_models = build_models
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        totals = dict(zip(names, counts()))
+        logged = [json.loads(line) for line in (tmp / "logs" / "metrics.jsonl").read_text()
+                  .splitlines()]
+        checkpoints = sorted(p.parent.name for p in (tmp / "logs").glob("step-*/ckpt.pt"))
+
+    for row, rec in zip(rows, logged):
+        row.update(step_s=rec["time/step_s"], data_s=rec["time/data_s"])
+        emit({"phase": "train", **row})
+    moved = {"unet": [], "resampler": [], "frozen_unet": []}
+    mods = built.pop("mods")
+    live = {("unet", n): p for n, p in mods.unet.named_parameters()}
+    live.update({("resampler", n): p for n, p in mods.resampler.named_parameters()})
+    for (module, name, trains), before in snap.items():
+        changed = not torch.equal(live[(module, name)].detach().float().cpu(), before.float())
+        moved["frozen_unet" if not trains else module].append(changed)
+    del snap, live, mods
+    summary = dict(steps=len(rows), seconds=seconds, checkpoints=checkpoints,
+                   trainable_tensors=len(state.params),
+                   trainable_params=sum(p.numel() for p in state.params.values()),
+                   moved_unet=f"{sum(moved['unet'])}/{len(moved['unet'])}",
+                   moved_resampler=f"{sum(moved['resampler'])}/{len(moved['resampler'])}",
+                   moved_frozen_unet=f"{sum(moved['frozen_unet'])}/{len(moved['frozen_unet'])}",
+                   launches=totals)
+    emit({"phase": "train_summary", **summary})
+    # per step, remat on: B1 70 forward + 70 replayed, B2 and B4 70 each; B3 34 in
+    # the UNet forward + 34 replayed + 20 in the VAE encoder
+    want = dict(flash_fwd=140, flash_dq=70, flash_dkv=70, groupnorm=88)
+    if len(rows) != TRAIN_STEPS or not all(np.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"a bad loss: {rows}")
+    if checkpoints != ["step-3", "step-6"]:
+        raise AssertionError(f"checkpoints {checkpoints} != step-3, step-6")
+    if not (all(moved["unet"]) and all(moved["resampler"]) and not any(moved["frozen_unet"])):
+        raise AssertionError(f"trainables did not move or frozen weights did: {summary}")
+    if any(r["launches"] != want for r in rows):
+        raise AssertionError(f"launch counts per step {[r['launches'] for r in rows]} "
+                             f"!= {want}")
+    profile_train(prof, clock["profiled_s"])
+    return totals
+
+
+def profile_train(prof, wall_s: float) -> None:
+    """Where one train step's time goes, from the profiler over step
+    ``PROFILED_STEP + 1``: device time (kernel time summed), kernels launched,
+    the device's busy share, the ten kernels that take the most time."""
+    import torch
+
+    events = prof.key_averages()
+    # device-side entries only, without the optimizer's annotation ranges,
+    # which span kernels counted on their own
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    seen = bool(kernels)     # None below: the profiler saw no device time
+    emit({"phase": "profile_train", "step": PROFILED_STEP + 1, "wall_s": wall_s,
+          "device_s": device_us / 1e6 if seen else None,
+          "device_busy_share": device_us / 1e6 / wall_s if seen else None,
+          "kernels": sum(e.count for e in kernels) if seen else None,
+          "top": [dict(name=e.key[:80], ms=e.self_device_time_total / 1e3, count=e.count)
+                  for e in top]})
+
+
 def profile_decode(device, llm, prompt_len: int = 83, steps: int = 16) -> None:
     """Where a decode step's time goes: ``steps`` cached decode steps of the
     agent's LLM under ``torch.profiler``; device time a token (kernel time
@@ -630,26 +987,43 @@ def main() -> int:
     flash = check_flash(device)
     gnorm = check_groupnorm(device)
     int4 = check_int4(device)
+    flash_dq, flash_dkv = check_flash_bwd(device)
     check_reference(device)
     check_llama_reference(device)
+    check_reference_train(device)
     launches, mods, ids = serve(device)
     agent_launches = serve_agent(device, mods, ids)
+    del mods
+    torch.cuda.empty_cache()
+    train_launches = train(device)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
+    by_path = lambda serve_key, train_key: dict(
+        launches=launches[serve_key] + agent_launches[serve_key] + train_launches[train_key],
+        launches_by_path=dict(serve=launches[serve_key], serve_agent=agent_launches[serve_key],
+                              train=train_launches[train_key]))
 
     emit({"kernels": [
         dict(name="flash_attention_fwd", route="cuda",
              source="diffsensei_tpu_torch/csrc/flash_attention.cu",
              replaces="diffsensei_tpu/ops/flash_attention.py:59",
-             launches=launches["flash"], **flash),
+             **by_path("flash", "flash_fwd"), **flash),
         dict(name="groupnorm_silu", route="triton",
              source="diffsensei_tpu_torch/csrc/groupnorm_silu.py",
              replaces="diffsensei_tpu/ops/groupnorm.py:44",
-             launches=launches["groupnorm"], **gnorm),
+             **by_path("groupnorm", "groupnorm"), **gnorm),
         dict(name="int4_decode_matmul", route="cuda",
              source="diffsensei_tpu_torch/csrc/int4_matmul.cu",
              replaces="diffsensei_tpu/ops/int4_matmul.py:125",
              launches=agent_launches["int4"], **int4),
+        dict(name="flash_attention_dq", route="cuda",
+             source="diffsensei_tpu_torch/csrc/flash_attention.cu",
+             replaces="diffsensei_tpu/ops/flash_attention.py:196",
+             launches=train_launches["flash_dq"], **flash_dq),
+        dict(name="flash_attention_dkv", route="cuda",
+             source="diffsensei_tpu_torch/csrc/flash_attention.cu",
+             replaces="diffsensei_tpu/ops/flash_attention.py:258",
+             launches=train_launches["flash_dkv"], **flash_dkv),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -66,12 +66,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Issue the copy of BN rows of D bf16 starting at row0; rows >= limit are zeros.
-template <int D>
+// Start the copy of ROWS rows of D bf16 from row0 on; rows >= limit are zeros.
+template <int D, int ROWS = BN>
 __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
                                                 long long row_stride, int row0, int limit) {
   constexpr int PER_ROW = D / 8;
-  for (int i = threadIdx.x; i < BN * PER_ROW; i += NTHREADS) {
+  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += NTHREADS) {
     const int r = i / PER_ROW;
     const int c = (i % PER_ROW) * 8;
     const bool valid = row0 + r < limit;
@@ -267,7 +267,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma16816(acc[j], pa, ld_pair(vc, vc + LDH), ld_pair(vc + 8 * LDH, vc + 9 * LDH));
       }
     }
-    __syncthreads();  // this stage is refilled by the copy issued two tiles on
+    __syncthreads();  // this stage is refilled by the copy started two tiles on
   }
 
   // Epilogue: sum each row over its four lanes, write O / l in bf16 and
@@ -315,6 +315,425 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Backward: kernels B2 (dQ) and B4 (dK, dV)
+//
+// Replace the Pallas TPU kernels `_dq_kernel` / `_dq_kernel_bias` and
+// `_dkv_kernel` / `_dkv_kernel_bias` (diffsensei_tpu/ops/flash_attention.py:196,
+// 252, 258, 322; pallas_calls at :379 and :417, called from `_backward:328`).
+// With P = exp(scale Q K^T + bias - lse) recomputed from the forward's lse and
+// delta = rowsum(dO o O):
+//   dS = P o (dO V^T - delta),  dQ = scale dS K,  dK = scale dS^T Q,  dV = P^T dO.
+// B2 does three products per score and B4 four, so at the UNet's shapes both
+// are compute bound, like B1. The design keeps B1's: 4 warps of 16 rows,
+// mma.sync m16n8k16 with bf16 operands and fp32 accumulators, scores and
+// probabilities in registers (an accumulator tile is the next product's A
+// operand), cp.async double buffering of the streamed tiles. Each block owns
+// its output rows and sums over the other axis in a loop, so there are no
+// float atomics: two calls give the same bits.
+//   * B2: one block per (64-row q tile, head, batch) streams K/V tiles. It
+//     also computes delta for its rows (the TPU code does it in XLA first)
+//     and writes it out for B4, which runs after it on the same stream.
+//   * B4: one block per (64-key tile, head, batch) streams Q/dO tiles with
+//     their lse and delta; each warp owns 16 keys, so S^T = K Q^T puts the
+//     keys on the accumulator rows and P^T, dS^T feed dV and dK directly.
+// P and dS are rounded to bf16 for the tensor cores (the TPU dQ kernel also
+// takes dS in bf16; its dK/dV products are fp32). Ragged tails and causal
+// blocks are masked as in B1, the bias read through its strides; the bias
+// gets no gradient. head_dim 128 halves the streamed tile to keep registers.
+// ---------------------------------------------------------------------------
+template <int D>
+struct BwdCfg {
+  static constexpr int LDH = D + 8;
+  static constexpr int TILE = D == 128 ? 32 : 64;  // streamed rows per step
+};
+
+// Element strides (batch, head, row) of every operand; bias strides of a
+// broadcast dim are 0.
+struct BwdStrides {
+  long long q[3], k[3], v[3], o[3], dout[3], dq[3], dk[3], dv[3], bias[3];
+};
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
+  return x;
+}
+
+// A fragments (16 rows x D) of a row-major tile in shared memory, rows r0..r0+15.
+template <int D>
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4], const bf16* tile,
+                                             int r0, int g, int t) {
+  constexpr int LDH = BwdCfg<D>::LDH;
+  const bf16* p = tile + (r0 + g) * LDH + 2 * t;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    a[kk][0] = ld_u32(p + kk * 16);
+    a[kk][1] = ld_u32(p + 8 * LDH + kk * 16);
+    a[kk][2] = ld_u32(p + kk * 16 + 8);
+    a[kk][3] = ld_u32(p + 8 * LDH + kk * 16 + 8);
+  }
+}
+
+// acc[n] (16 x 8 per n) += A (16 x D) B^T, B's rows n*8.. in a row-major tile.
+template <int D, int NT>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const uint32_t (&a)[D / 16][4],
+                                        const bf16* tile, int g, int t) {
+  constexpr int LDH = BwdCfg<D>::LDH;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    const bf16* r = tile + (n * 8 + g) * LDH + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      mma16816(acc[n], a[kk], ld_u32(r + kk * 16), ld_u32(r + kk * 16 + 8));
+    }
+  }
+}
+
+// out (16 x D) += X (16 x K, fp32 accumulator tiles, rounded to bf16) B, with B
+// the row-major tile [K, D]: the accumulator layout is the A operand layout.
+template <int D, int NT>
+__device__ __forceinline__ void mma_xb(float (&out)[D / 8][4], const float (&x)[NT][4],
+                                       const bf16* tile, int g, int t) {
+  constexpr int LDH = BwdCfg<D>::LDH;
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    uint32_t xa[4];
+    xa[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+    xa[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+    xa[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    xa[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+    const bf16* r = tile + (kk * 16 + 2 * t) * LDH + g;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const bf16* c = r + j * 8;
+      mma16816(out[j], xa, ld_pair(c, c + LDH), ld_pair(c + 8 * LDH, c + 9 * LDH));
+    }
+  }
+}
+
+// Store 16 x D fp32 accumulators (times `mul`) as bf16 rows row0, row0 + 8.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* base, long long row_stride, int row0,
+                                           int limit, const float (&acc)[D / 8][4],
+                                           float mul, int t) {
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int r = row0 + 8 * rh;
+    if (r >= limit) continue;
+    bf16* out = base + (long long)r * row_stride + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(out + j * 8) =
+          pack_bf16(acc[j][2 * rh] * mul, acc[j][2 * rh + 1] * mul);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(bf16) * (2 * BM + 4 * BwdCfg<D>::TILE) * BwdCfg<D>::LDH + sizeof(float) * BM;
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ o,
+                    const bf16* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ bias, bf16* __restrict__ dq,
+                    float* __restrict__ delta, int H, int Sq, int Sk, BwdStrides st,
+                    int causal, float sm_scale) {
+  constexpr int LDH = BwdCfg<D>::LDH;
+  constexpr int BK = BwdCfg<D>::TILE;  // keys per K/V tile
+  constexpr int TILE = BK * LDH;
+  constexpr int NT = BK / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sdO = sQ + BM * LDH;
+  bf16* sKV = sdO + BM * LDH;  // stage s: K at sKV + 2s*TILE, V at sKV + (2s+1)*TILE
+  float* sDelta = reinterpret_cast<float*>(sKV + 4 * TILE);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int q_start = blockIdx.x * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+
+  const bf16* qp = q + b * st.q[0] + h * st.q[1];
+  const bf16* kp = k + b * st.k[0] + h * st.k[1];
+  const bf16* vp = v + b * st.v[0] + h * st.v[1];
+  const bf16* op = o + b * st.o[0] + h * st.o[1];
+  const bf16* dop = dout + b * st.dout[0] + h * st.dout[1];
+  const float* bp = bias == nullptr ? nullptr : bias + b * st.bias[0] + h * st.bias[1];
+  const long long stat = ((long long)b * H + h) * Sq;  // lse / delta row offset
+
+  int n_tiles = (Sk + BK - 1) / BK;
+  if (causal) {
+    const int last = (q_start + BM - 1) / BK + 1;
+    n_tiles = n_tiles < last ? n_tiles : last;
+  }
+
+  load_tile_async<D, BM>(sQ, qp, st.q[2], q_start, Sq);
+  load_tile_async<D, BM>(sdO, dop, st.dout[2], q_start, Sq);
+  load_tile_async<D, BK>(sKV, kp, st.k[2], 0, Sk);
+  load_tile_async<D, BK>(sKV + TILE, vp, st.v[2], 0, Sk);
+  cp_async_commit();
+
+  // delta = rowsum(dO o O) in fp32 for the block's rows, one warp a row
+  for (int r = warp; r < BM; r += NWARPS) {
+    const int qi = q_start + r;
+    float acc = 0.f;
+    if (qi < Sq) {
+      const bf16* orow = op + (long long)qi * st.o[2];
+      const bf16* drow = dop + (long long)qi * st.dout[2];
+      for (int c = lane; c < D; c += 32) {
+        acc += __bfloat162float(orow[c]) * __bfloat162float(drow[c]);
+      }
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      sDelta[r] = acc;
+      if (qi < Sq) delta[stat + qi] = acc;
+    }
+  }
+
+  const float scale2 = sm_scale * LOG2E;
+  const int row0 = q_start + warp * 16 + g;  // this lane's rows: row0, row0 + 8
+  float lse2[2], dl[2];
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  uint32_t qa[D / 16][4], da[D / 16][4];
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int stage = tile & 1;
+    if (tile + 1 < n_tiles) {
+      bf16* next = sKV + 2 * (stage ^ 1) * TILE;
+      load_tile_async<D, BK>(next, kp, st.k[2], (tile + 1) * BK, Sk);
+      load_tile_async<D, BK>(next + TILE, vp, st.v[2], (tile + 1) * BK, Sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* sK = sKV + 2 * stage * TILE;
+    const bf16* sV = sK + TILE;
+    const int k_start = tile * BK;
+
+    if (tile == 0) {
+      load_a_frags<D>(qa, sQ, warp * 16, g, t);
+      load_a_frags<D>(da, sdO, warp * 16, g, t);
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const int qi = row0 + 8 * rh;
+        lse2[rh] = qi < Sq ? lse[stat + qi] * LOG2E : 0.f;
+        dl[rh] = sDelta[warp * 16 + g + 8 * rh];
+      }
+    }
+
+    float s[NT][4], dp[NT][4];
+    mma_abt<D, NT>(s, qa, sK, g, t);   // S = Q K^T
+    mma_abt<D, NT>(dp, da, sV, g, t);  // dP = dO V^T
+
+    // dS = P o (dP - delta), P = exp(scale S + bias - lse), 0 where masked
+    const bool full = k_start + BK <= Sk && q_start + BM <= Sq && !causal && bp == nullptr;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rh = e >> 1;
+        float val = s[n][e] * scale2;
+        bool ok = true;
+        if (!full) {
+          const int qi = row0 + 8 * rh;
+          const int kj = k_start + n * 8 + 2 * t + (e & 1);
+          ok = qi < Sq && kj < Sk && (!causal || kj <= qi);
+          if (ok && bp != nullptr) val += bp[(long long)qi * st.bias[2] + kj] * LOG2E;
+        }
+        const float p = ok ? exp2f(val - lse2[rh]) : 0.f;
+        s[n][e] = p * (dp[n][e] - dl[rh]);
+      }
+    }
+    mma_xb<D, NT>(acc, s, sK, g, t);  // dQ += dS K
+    __syncthreads();  // this stage is refilled by the copy started two tiles on
+  }
+
+  store_rows<D>(dq + b * st.dq[0] + h * st.dq[1], st.dq[2], row0, Sq, acc, sm_scale, t);
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return sizeof(bf16) * (2 * BN + 4 * BwdCfg<D>::TILE) * BwdCfg<D>::LDH +
+         sizeof(float) * 4 * BwdCfg<D>::TILE;
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const float* __restrict__ bias, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int H, int Sq, int Sk, BwdStrides st,
+                     int causal, float sm_scale) {
+  constexpr int LDH = BwdCfg<D>::LDH;
+  constexpr int BQ = BwdCfg<D>::TILE;  // q rows per Q/dO tile
+  constexpr int TILE = BQ * LDH;
+  constexpr int NT = BQ / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + BN * LDH;
+  bf16* sQD = sV + BN * LDH;  // stage s: Q at sQD + 2s*TILE, dO at sQD + (2s+1)*TILE
+  float* sStat = reinterpret_cast<float*>(sQD + 4 * TILE);  // stage s: lse2, delta
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int k_start = blockIdx.x * BN;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+
+  const bf16* qp = q + b * st.q[0] + h * st.q[1];
+  const bf16* kp = k + b * st.k[0] + h * st.k[1];
+  const bf16* vp = v + b * st.v[0] + h * st.v[1];
+  const bf16* dop = dout + b * st.dout[0] + h * st.dout[1];
+  const float* bp = bias == nullptr ? nullptr : bias + b * st.bias[0] + h * st.bias[1];
+  const long long stat = ((long long)b * H + h) * Sq;
+
+  // causal: q tiles whose last row lies above the block's first key are all masked
+  const int n_q = (Sq + BQ - 1) / BQ;
+  const int first = causal ? k_start / BQ : 0;
+
+  auto load_stage = [&](int stage, int it) {
+    bf16* dst = sQD + 2 * stage * TILE;
+    load_tile_async<D, BQ>(dst, qp, st.q[2], it * BQ, Sq);
+    load_tile_async<D, BQ>(dst + TILE, dop, st.dout[2], it * BQ, Sq);
+    float* ss = sStat + 2 * stage * BQ;
+    for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
+      const int qi = it * BQ + i;
+      ss[i] = qi < Sq ? lse[stat + qi] * LOG2E : 0.f;
+      ss[BQ + i] = qi < Sq ? delta[stat + qi] : 0.f;
+    }
+  };
+
+  load_tile_async<D, BN>(sK, kp, st.k[2], k_start, Sk);
+  load_tile_async<D, BN>(sV, vp, st.v[2], k_start, Sk);
+  if (first < n_q) load_stage(0, first);
+  cp_async_commit();
+
+  const float scale2 = sm_scale * LOG2E;
+  const int key0 = k_start + warp * 16 + g;  // this lane's keys: key0, key0 + 8
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    dk_acc[j][0] = dk_acc[j][1] = dk_acc[j][2] = dk_acc[j][3] = 0.f;
+    dv_acc[j][0] = dv_acc[j][1] = dv_acc[j][2] = dv_acc[j][3] = 0.f;
+  }
+  uint32_t ka[D / 16][4], va[D / 16][4];
+
+  for (int it = first; it < n_q; ++it) {
+    const int stage = (it - first) & 1;
+    if (it + 1 < n_q) {
+      load_stage(stage ^ 1, it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* sQ = sQD + 2 * stage * TILE;
+    const bf16* sdO = sQ + TILE;
+    const float* sL = sStat + 2 * stage * BQ;
+    const float* sD = sL + BQ;
+    const int q_start = it * BQ;
+
+    if (it == first) {
+      load_a_frags<D>(ka, sK, warp * 16, g, t);
+      load_a_frags<D>(va, sV, warp * 16, g, t);
+    }
+
+    float s[NT][4], dp[NT][4];
+    mma_abt<D, NT>(s, ka, sQ, g, t);    // S^T = K Q^T (keys on rows)
+    mma_abt<D, NT>(dp, va, sdO, g, t);  // dP^T = V dO^T
+
+    const bool full = k_start + BN <= Sk && q_start + BQ <= Sq && !causal && bp == nullptr;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = key0 + 8 * (e >> 1);
+        const int ci = n * 8 + 2 * t + (e & 1);  // q row within the tile
+        float val = s[n][e] * scale2;
+        bool ok = true;
+        if (!full) {
+          const int qi = q_start + ci;
+          ok = qi < Sq && kj < Sk && (!causal || kj <= qi);
+          if (ok && bp != nullptr) val += bp[(long long)qi * st.bias[2] + kj] * LOG2E;
+        }
+        const float p = ok ? exp2f(val - sL[ci]) : 0.f;
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - sD[ci]);
+      }
+    }
+    mma_xb<D, NT>(dv_acc, s, sdO, g, t);  // dV += P^T dO
+    mma_xb<D, NT>(dk_acc, dp, sQ, g, t);  // dK += dS^T Q
+    __syncthreads();  // this stage is refilled by the copy started two tiles on
+  }
+  cp_async_wait<0>();  // a block with no q tile still has its K/V copy in flight
+
+  store_rows<D>(dk + b * st.dk[0] + h * st.dk[1], st.dk[2], key0, Sk, dk_acc, sm_scale, t);
+  store_rows<D>(dv + b * st.dv[0] + h * st.dv[1], st.dv[2], key0, Sk, dv_acc, 1.f, t);
+}
+
+BwdStrides bwd_strides(const long long* s) {
+  BwdStrides st;
+  long long* dst[9] = {st.q, st.k, st.v, st.o, st.dout, st.dq, st.dk, st.dv, st.bias};
+  for (int i = 0; i < 9; ++i) {
+    for (int j = 0; j < 3; ++j) dst[i][j] = s[3 * i + j];
+  }
+  return st;
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, const void* lse, const void* bias, void* dq,
+                      void* delta, int B, int H, int Sq, int Sk, const BwdStrides& st,
+                      int causal, float sm_scale, cudaStream_t stream) {
+  const size_t smem = dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + BM - 1) / BM, H, B);
+  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(bias),
+      static_cast<bf16*>(dq), static_cast<float*>(delta), H, Sq, Sk, st, causal, sm_scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, const void* bias, void* dk,
+                       void* dv, int B, int H, int Sq, int Sk, const BwdStrides& st,
+                       int causal, float sm_scale, cudaStream_t stream) {
+  const size_t smem = dkv_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sk + BN - 1) / BN, H, B);
+  flash_bwd_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const float*>(bias),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq, Sk, st, causal, sm_scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry point bound with ctypes. `strides` holds 15 element strides:
@@ -327,5 +746,31 @@ extern "C" int diffsensei_flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return (int)launch<64>(q, k, v, bias, o, lse, B, H, Sq, Sk, strides, causal, sm_scale, s);
   if (D == 128) return (int)launch<128>(q, k, v, bias, o, lse, B, H, Sq, Sk, strides, causal, sm_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// C entry points of the backward. `strides` holds 27 element strides, (b, h, s)
+// of q, k, v, o, dout, dq, dk, dv and bias, in that order. The dQ kernel also
+// writes delta [B, H, Sq] (fp32), which the dK/dV kernel reads: launch them in
+// that order on one stream. Each returns the cudaError_t of its launch.
+extern "C" int diffsensei_flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const void* lse, const void* bias, void* dq, void* delta, int B, int H, int Sq,
+    int Sk, int D, const long long* strides, int causal, float sm_scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdStrides st = bwd_strides(strides);
+  if (D == 64) return (int)launch_dq<64>(q, k, v, o, dout, lse, bias, dq, delta, B, H, Sq, Sk, st, causal, sm_scale, s);
+  if (D == 128) return (int)launch_dq<128>(q, k, v, o, dout, lse, bias, dq, delta, B, H, Sq, Sk, st, causal, sm_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int diffsensei_flash_attention_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout, const void* lse,
+    const void* delta, const void* bias, void* dk, void* dv, int B, int H, int Sq, int Sk,
+    int D, const long long* strides, int causal, float sm_scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdStrides st = bwd_strides(strides);
+  if (D == 64) return (int)launch_dkv<64>(q, k, v, dout, lse, delta, bias, dk, dv, B, H, Sq, Sk, st, causal, sm_scale, s);
+  if (D == 128) return (int)launch_dkv<128>(q, k, v, dout, lse, delta, bias, dk, dv, B, H, Sq, Sk, st, causal, sm_scale, s);
   return (int)cudaErrorInvalidValue;
 }

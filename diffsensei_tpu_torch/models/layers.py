@@ -5,6 +5,11 @@ Activations are NHWC ``[B, H, W, C]`` at every public boundary, as in the JAX
 package. Convolutions see them as ``channels_last`` NCHW views, which cost no
 copy. Parameter names are the diffusers ones, so a diffusers or DiffSensei
 state dict loads as it is.
+
+Every layer computes in its input's dtype and casts its parameters to it at
+use, as flax separates ``param_dtype`` from ``dtype``: training keeps the
+trainable parameters in fp32 inside a bf16 stack, and their gradients reach
+them in fp32. Where the dtypes already agree the cast is a no-op.
 """
 
 from __future__ import annotations
@@ -19,11 +24,32 @@ from torch import nn
 from diffsensei_tpu_torch.ops.groupnorm import groupnorm_silu
 
 
+def _cast(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if p is None else p.to(dtype)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.normalized_shape, _cast(self.weight, x.dtype),
+                            _cast(self.bias, x.dtype), self.eps)
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` on NHWC tensors (a ``channels_last`` view inside)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        y = self._conv_forward(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
+                               _cast(self.bias, x.dtype))
+        return y.permute(0, 2, 3, 1)
 
 
 def Conv3x3(in_channels: int, out_channels: int, **kw) -> Conv2d:
@@ -36,12 +62,15 @@ class GroupNorm(nn.GroupNorm):
     """``nn.GroupNorm`` on NHWC tensors (plain PyTorch, no kernel)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        y = F.group_norm(x.permute(0, 3, 1, 2), self.num_groups, _cast(self.weight, x.dtype),
+                         _cast(self.bias, x.dtype), self.eps)
+        return y.permute(0, 2, 3, 1)
 
 
 class FusedGroupNormSiLU(nn.Module):
     """GroupNorm + SiLU through kernel B3 (``ops/groupnorm.py``); the
-    parameter names are ``nn.GroupNorm``'s."""
+    parameter names are ``nn.GroupNorm``'s. Kernel and twin read the scale
+    and shift in fp32 whatever their dtype, so they need no cast."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
                  dtype=None, device=None):
@@ -76,8 +105,8 @@ class TimestepEmbedding(nn.Module):
 
     def __init__(self, in_dim: int, out_dim: int, dtype=None, device=None):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, out_dim, dtype=dtype, device=device)
-        self.linear_2 = nn.Linear(out_dim, out_dim, dtype=dtype, device=device)
+        self.linear_1 = Linear(in_dim, out_dim, dtype=dtype, device=device)
+        self.linear_2 = Linear(out_dim, out_dim, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(x)))
@@ -95,7 +124,7 @@ class ResnetBlock2D(nn.Module):
         kw = dict(dtype=dtype, device=device)
         self.norm1 = FusedGroupNormSiLU(norm_num_groups, in_channels, norm_eps, **kw)
         self.conv1 = Conv3x3(in_channels, out_channels, **kw)
-        self.time_emb_proj = (nn.Linear(temb_channels, out_channels, **kw)
+        self.time_emb_proj = (Linear(temb_channels, out_channels, **kw)
                               if temb_channels is not None else None)
         self.norm2 = FusedGroupNormSiLU(norm_num_groups, out_channels, norm_eps, **kw)
         self.conv2 = Conv3x3(out_channels, out_channels, **kw)
@@ -154,10 +183,10 @@ class GEGLUFeedForward(nn.Module):
         super().__init__()
         inner = dim * mult
         geglu = nn.Module()
-        geglu.proj = nn.Linear(dim, inner * 2, dtype=dtype, device=device)
+        geglu.proj = Linear(dim, inner * 2, dtype=dtype, device=device)
         # net.1 is diffusers' dropout slot: no parameters, identity at inference
         self.net = nn.ModuleList([geglu, nn.Identity(),
-                                  nn.Linear(inner, dim, dtype=dtype, device=device)])
+                                  Linear(inner, dim, dtype=dtype, device=device)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.net[0].proj(x).chunk(2, dim=-1)

@@ -1,8 +1,10 @@
-"""Euler discrete sampling (port of ``diffsensei_tpu/models/schedulers.py``).
+"""Euler discrete sampling and the training-time DDPM forward process (port
+of ``diffsensei_tpu/models/schedulers.py``).
 
 The tables are built in numpy exactly as the JAX package builds them and
 held as fp32 tensors; ``scale_model_input`` and ``step`` are indexed by the
-loop counter. DDIM, DDPM and DPM-Solver++ wait for a later slice.
+loop counter. ``DDPMSchedule`` noises latents for the train steps. The DDIM
+and DPM-Solver++ samplers wait for a later slice.
 """
 
 from __future__ import annotations
@@ -22,6 +24,36 @@ def _alphas_cumprod(num_train_timesteps: int = NUM_TRAIN_TIMESTEPS) -> np.ndarra
     betas = np.linspace(BETA_START**0.5, BETA_END**0.5, num_train_timesteps,
                         dtype=np.float64) ** 2
     return np.cumprod(1.0 - betas)
+
+
+class DDPMSchedule:
+    """Forward-process tables (``schedulers.py:36``); the train steps noise
+    latents with it."""
+
+    def __init__(self, num_train_timesteps: int = NUM_TRAIN_TIMESTEPS):
+        self.num_train_timesteps = num_train_timesteps
+        acp = _alphas_cumprod(num_train_timesteps)
+        self._sqrt_acp = torch.tensor(np.sqrt(acp), dtype=torch.float32)
+        self._sqrt_1macp = torch.tensor(np.sqrt(1.0 - acp), dtype=torch.float32)
+
+    def _coefs(self, sample: torch.Tensor, timesteps: torch.Tensor):
+        shape = (-1,) + (1,) * (sample.dim() - 1)
+        t = timesteps.long().to(sample.device)
+        a = self._sqrt_acp.to(sample.device)[t].reshape(shape).to(sample.dtype)
+        b = self._sqrt_1macp.to(sample.device)[t].reshape(shape).to(sample.dtype)
+        return a, b
+
+    def add_noise(self, sample: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        """x_t = sqrt(acp_t) x_0 + sqrt(1 - acp_t) eps (per-batch timesteps)."""
+        a, b = self._coefs(sample, timesteps)
+        return a * sample + b * noise
+
+    def velocity(self, sample: torch.Tensor, noise: torch.Tensor,
+                 timesteps: torch.Tensor) -> torch.Tensor:
+        """v-prediction target: v = sqrt(acp) eps - sqrt(1 - acp) x_0."""
+        a, b = self._coefs(sample, timesteps)
+        return a * noise - b * sample
 
 
 @dataclasses.dataclass(frozen=True)

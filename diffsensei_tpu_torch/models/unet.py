@@ -9,9 +9,15 @@ boxes. Parameter names are diffusers' ``UNet2DConditionModel`` names, with the
 IP projections under ``attn2.processor.to_{k,v}_ip`` as the released
 DiffSensei ``pytorch_model.bin`` stores them, plus ``dialog_bbox_embedding``.
 
-Spatial self-attention with at least 1024 tokens runs on kernel B1 and every
-resnet GroupNorm+SiLU on kernel B3 (through ``ops/attention.py`` and
-``models/layers.py``). DeepCache, remat and context parallelism wait for later
+Spatial self-attention with at least 1024 tokens runs on kernel B1 (B2 and
+B4 in the backward) and every resnet GroupNorm+SiLU on kernel B3 (through
+``ops/attention.py`` and ``models/layers.py``).
+
+Training: ``enable_remat`` checkpoints each ``ResnetBlock2D`` and each
+transformer stack (``torch.utils.checkpoint``, full recompute, the JAX
+``remat_blocks`` with policy None), and ``compute_dtype`` lets fp32 trainable
+parameters sit in a bf16 UNet: every layer casts its parameters to the
+activations' dtype at use. DeepCache and context parallelism wait for later
 slices.
 """
 
@@ -21,10 +27,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from diffsensei_tpu_torch.core.config import UNetConfig
 from diffsensei_tpu_torch.models.layers import (
-    Conv2d, Downsample2D, GEGLUFeedForward, GroupNorm, ResnetBlock2D,
+    Conv2d, Downsample2D, GEGLUFeedForward, GroupNorm, LayerNorm, Linear, ResnetBlock2D,
     TimestepEmbedding, Upsample2D, timestep_embedding)
 from diffsensei_tpu_torch.models.lora import LoRADense
 from diffsensei_tpu_torch.ops.attention import multi_head_attention
@@ -73,8 +80,8 @@ class MangaCrossAttention(nn.Module):
         self.to_v = LoRADense(context_dim, dim, bias=False, **kw)
         self.to_out = nn.ModuleList([LoRADense(dim, dim, **kw)])
         self.processor = nn.Module()
-        self.processor.to_k_ip = nn.Linear(context_dim, dim, bias=False, **kw)
-        self.processor.to_v_ip = nn.Linear(context_dim, dim, bias=False, **kw)
+        self.processor.to_k_ip = Linear(context_dim, dim, bias=False, **kw)
+        self.processor.to_v_ip = Linear(context_dim, dim, bias=False, **kw)
 
     def forward(self, x: torch.Tensor, ctx_text: torch.Tensor,
                 ctx_ip: Optional[torch.Tensor] = None,
@@ -100,11 +107,11 @@ class BasicTransformerBlock(nn.Module):
                  device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5, **kw)
+        self.norm1 = LayerNorm(dim, eps=1e-5, **kw)
         self.attn1 = SelfAttention(dim, heads, **kw)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5, **kw)
+        self.norm2 = LayerNorm(dim, eps=1e-5, **kw)
         self.attn2 = MangaCrossAttention(dim, context_dim, heads, **kw)
-        self.norm3 = nn.LayerNorm(dim, eps=1e-5, **kw)
+        self.norm3 = LayerNorm(dim, eps=1e-5, **kw)
         self.ff = GEGLUFeedForward(dim, **kw)
 
     def forward(self, x, ctx_text, ctx_ip, ip_bias, ip_scale):
@@ -121,11 +128,11 @@ class Transformer2D(nn.Module):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.norm = GroupNorm(norm_num_groups, channels, eps=1e-6, **kw)
-        self.proj_in = nn.Linear(channels, channels, **kw)
+        self.proj_in = Linear(channels, channels, **kw)
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(channels, context_dim, heads, **kw)
              for _ in range(num_layers)])
-        self.proj_out = nn.Linear(channels, channels, **kw)
+        self.proj_out = Linear(channels, channels, **kw)
 
     def forward(self, x, ctx_text, ctx_ip, ip_bias, ip_scale):
         b, h, w, c = x.shape
@@ -216,10 +223,29 @@ class UNetMangaModel(nn.Module):
 
         self.conv_norm_out = GroupNorm(groups, chans[0], eps=1e-5, **kw)
         self.conv_out = Conv2d(chans[0], cfg.out_channels, 3, padding=1, **kw)
+        self.compute_dtype: Optional[torch.dtype] = None
+        self.remat = False
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.conv_in.weight.dtype
+        """The compute dtype: ``compute_dtype`` when set, else the weights'."""
+        return self.compute_dtype or self.conv_in.weight.dtype
+
+    def enable_remat(self, policy: Optional[str] = None) -> None:
+        """Recompute each resnet block and transformer stack in the backward
+        instead of keeping their activations (the JAX ``remat_blocks`` with
+        the default policy, full recompute). The JAX package's named policies
+        (``dots``, ``attn``, ``dots_attn``, ``dots_deepest``) save chosen
+        intermediates; they are not ported yet."""
+        if policy is not None:
+            raise NotImplementedError(f"remat policy {policy!r} is not ported yet "
+                                      "(only full recompute, policy None)")
+        self.remat = True
+
+    def _block(self, block: nn.Module, *args):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, pooled_text_embeds: torch.Tensor,
@@ -250,13 +276,13 @@ class UNetMangaModel(nn.Module):
             bias = None
             if ip_attn_bias is not None and ctx_ip is not None:
                 bias = ip_attn_bias.get(level)
-            return attn(x, ctx_text, ctx_ip, bias, ip_scale)
+            return self._block(attn, x, ctx_text, ctx_ip, bias, ip_scale)
 
         n = len(cfg.block_out_channels)
         skips = [x]
         for level, stage in enumerate(self.down_blocks):
             for j, resnet in enumerate(stage.resnets):
-                x = resnet(x, temb)
+                x = self._block(resnet, x, temb)
                 if len(stage.attentions):
                     x = attend(stage.attentions[j], x, level)
                 skips.append(x)
@@ -265,14 +291,14 @@ class UNetMangaModel(nn.Module):
                 skips.append(x)
 
         mid = self.mid_block
-        x = mid.resnets[0](x, temb)
+        x = self._block(mid.resnets[0], x, temb)
         x = attend(mid.attentions[0], x, n - 1)
-        x = mid.resnets[1](x, temb)
+        x = self._block(mid.resnets[1], x, temb)
 
         for rev, stage in enumerate(self.up_blocks):
             level = n - 1 - rev
             for j, resnet in enumerate(stage.resnets):
-                x = resnet(torch.cat([x, skips.pop()], dim=-1), temb)
+                x = self._block(resnet, torch.cat([x, skips.pop()], dim=-1), temb)
                 if len(stage.attentions):
                     x = attend(stage.attentions[j], x, level)
             if level > 0:

@@ -1,10 +1,11 @@
-"""SDXL VAE decoder in fp32 (port of ``diffsensei_tpu/models/vae.py``).
+"""SDXL VAE in fp32 (port of ``diffsensei_tpu/models/vae.py``).
 
-The slice decodes only: ``Decoder`` and ``AutoencoderKL.decode``. Parameter
-names are diffusers' ``AutoencoderKL`` names; a full VAE state dict loads
-through ``AutoencoderKL.load_decoder_state_dict``, which sets the encoder
-keys aside. The encoder, ``encode`` and the tiled decode above 1024² wait for a
-later slice.
+``AutoencoderKL.decode`` serves panels; ``encode`` and ``sample_latent`` turn
+training panels into latents (``scripts/train/train.py:339-341`` in the
+reference: fp32 encode, reparameterized sample, times the scaling factor).
+Parameter names are diffusers' ``AutoencoderKL`` names, so a full VAE state
+dict loads as it is; ``load_decoder_state_dict`` loads only the decode half.
+The tiled decode above 1024² waits for a later slice.
 
 The resnets' GroupNorm+SiLU runs on kernel B3. The mid-block attention stays
 plain math: one head over (H/8)*(W/8) tokens, about 1 GiB of fp32 scores at
@@ -13,7 +14,7 @@ plain math: one head over (H/8)*(W/8) tokens, about 1 GiB of fp32 scores at
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,7 +22,7 @@ from torch import nn
 
 from diffsensei_tpu_torch.core.config import VAEConfig
 from diffsensei_tpu_torch.models.layers import (
-    Conv2d, GroupNorm, ResnetBlock2D, Upsample2D)
+    Conv2d, Downsample2D, GroupNorm, ResnetBlock2D, Upsample2D)
 
 
 class VAEAttention(nn.Module):
@@ -45,6 +46,48 @@ class VAEAttention(nn.Module):
         p = torch.softmax(s, dim=-1).to(v.dtype)
         out = self.to_out[0](torch.matmul(p, v))
         return out.reshape(b, h, w, c) + x
+
+
+class Encoder(nn.Module):
+    """Image ``[B, H, W, 3]`` -> moments ``[B, H/8, W/8, 2 * latent_channels]``."""
+
+    def __init__(self, config: VAEConfig, dtype=None, device=None):
+        super().__init__()
+        cfg = config
+        kw = dict(dtype=dtype, device=device)
+        groups = cfg.norm_num_groups
+        chans = cfg.block_out_channels
+        self.conv_in = Conv2d(cfg.in_channels, chans[0], 3, padding=1, **kw)
+        self.down_blocks = nn.ModuleList()
+        prev = chans[0]
+        for level, ch in enumerate(chans):
+            stage = nn.Module()
+            stage.resnets = nn.ModuleList()
+            for _ in range(cfg.layers_per_block):
+                stage.resnets.append(ResnetBlock2D(prev, ch, groups, norm_eps=1e-6, **kw))
+                prev = ch
+            if level < len(chans) - 1:
+                stage.downsamplers = nn.ModuleList([Downsample2D(ch, **kw)])
+            self.down_blocks.append(stage)
+        mid = chans[-1]
+        self.mid_block = nn.Module()
+        self.mid_block.resnets = nn.ModuleList(
+            [ResnetBlock2D(mid, mid, groups, norm_eps=1e-6, **kw) for _ in range(2)])
+        self.mid_block.attentions = nn.ModuleList([VAEAttention(mid, groups, **kw)])
+        self.conv_norm_out = GroupNorm(groups, mid, eps=1e-6, **kw)
+        self.conv_out = Conv2d(mid, 2 * cfg.latent_channels, 3, padding=1, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv_in(x)
+        for stage in self.down_blocks:
+            for resnet in stage.resnets:
+                x = resnet(x)
+            if hasattr(stage, "downsamplers"):
+                x = stage.downsamplers[0](x)
+        x = self.mid_block.resnets[0](x)
+        x = self.mid_block.attentions[0](x)
+        x = self.mid_block.resnets[1](x)
+        return self.conv_out(F.silu(self.conv_norm_out(x)))
 
 
 class Decoder(nn.Module):
@@ -88,7 +131,7 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """The decode half of the SDXL VAE, fp32 by default."""
+    """The SDXL VAE, fp32 by default."""
 
     # diffusers keys that belong to the encoder half
     ENCODER_PREFIXES = ("encoder.", "quant_conv.")
@@ -97,9 +140,18 @@ class AutoencoderKL(nn.Module):
         super().__init__()
         self.config = config
         kw = dict(dtype=dtype, device=device)
+        lc = config.latent_channels
+        self.encoder = Encoder(config, **kw)
+        self.quant_conv = Conv2d(2 * lc, 2 * lc, 1, **kw)
         self.decoder = Decoder(config, **kw)
-        self.post_quant_conv = Conv2d(config.latent_channels, config.latent_channels,
-                                      1, **kw)
+        self.post_quant_conv = Conv2d(lc, lc, 1, **kw)
+
+    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Image ``[B, H, W, 3]`` in [-1, 1] -> ``(mean, logvar)``, each
+        ``[B, H/8, W/8, latent_channels]``, logvar clipped to [-30, 20]."""
+        moments = self.quant_conv(self.encoder(x.to(self.quant_conv.weight.dtype)))
+        mean, logvar = moments.chunk(2, dim=-1)
+        return mean, torch.clamp(logvar, -30.0, 20.0)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """``z [B, h, w, latent_channels]`` (already divided by the scaling
@@ -107,9 +159,21 @@ class AutoencoderKL(nn.Module):
         return self.decoder(self.post_quant_conv(z.to(self.post_quant_conv.weight.dtype)))
 
     def load_decoder_state_dict(self, state_dict: Dict[str, torch.Tensor]) -> List[str]:
-        """Load a full diffusers ``AutoencoderKL`` state dict strictly into the
-        decode half; returns the encoder keys that were set aside."""
+        """Load the decode half of a full diffusers ``AutoencoderKL`` state
+        dict strictly (every decoder key, no unknown key); returns the encoder
+        keys that were set aside."""
         skipped = [k for k in state_dict if k.startswith(self.ENCODER_PREFIXES)]
-        self.load_state_dict({k: v for k, v in state_dict.items()
-                              if not k.startswith(self.ENCODER_PREFIXES)})
+        missing, unexpected = self.load_state_dict(
+            {k: v for k, v in state_dict.items() if k not in skipped}, strict=False)
+        missing = [k for k in missing if not k.startswith(self.ENCODER_PREFIXES)]
+        if missing or unexpected:
+            raise RuntimeError(f"VAE decoder state dict: missing {missing}, "
+                               f"unexpected {unexpected}")
         return skipped
+
+
+def sample_latent(mean: torch.Tensor, logvar: torch.Tensor, noise: torch.Tensor,
+                  scaling_factor: float) -> torch.Tensor:
+    """Reparameterized latent sample scaled for the diffusion space; ``noise``
+    is the standard-normal draw (shape of ``mean``)."""
+    return (mean + torch.exp(0.5 * logvar) * noise) * scaling_factor

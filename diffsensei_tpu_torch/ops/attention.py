@@ -1,6 +1,7 @@
 """Attention dispatcher (port of ``diffsensei_tpu/ops/attention.py``).
 
-Long spatial self-attention goes to the flash kernel B1; everything else
+Long spatial self-attention goes to the flash kernel B1, with B2 and B4 as
+its backward (``FlashAttentionFn``); everything else
 (77 text tokens, 80 IP tokens, 257 image patches, perceiver latents) is the
 plain einsum-softmax-einsum that XLA ran on the TPU. The rule depends on the
 inputs' device, shape and dtype only.
@@ -38,7 +39,8 @@ def uses_flash(q: torch.Tensor, k: torch.Tensor) -> bool:
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bias: Optional[torch.Tensor] = None, causal: bool = False,
                          sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Attention over ``[batch, heads, seq, head_dim]``; picks the path by shape."""
+    """Attention over ``[batch, heads, seq, head_dim]``; picks the path by
+    shape. Both paths are differentiable in q, k and v."""
     if uses_flash(q, k):
         return flash_attention(q, k, v, None if bias is None else bias.float(),
                                causal=causal, sm_scale=sm_scale)[0]

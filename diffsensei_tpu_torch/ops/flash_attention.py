@@ -1,18 +1,27 @@
-"""Flash-attention forward: kernel B1 (CUDA C++, ``csrc/flash_attention.cu``).
+"""Flash attention: forward kernel B1 and backward kernels B2 (dQ) and B4
+(dK/dV), CUDA C++ in ``csrc/flash_attention.cu``.
 
 Port of the Pallas TPU forward ``_fwd_kernel`` / ``_fwd_kernel_bias``
-(``diffsensei_tpu/ops/flash_attention.py:59,124``, entry ``flash_attention:480``).
-It returns ``(o, lse)``: the attention output in q's dtype and the fp32 row
-log-sum-exp ``[B, H, Sq]``, which the ring attention and the backward of later
-slices need.
+(``diffsensei_tpu/ops/flash_attention.py:59,124``, entry ``flash_attention:480``)
+and backward ``_dq_kernel`` / ``_dkv_kernel`` and their ``_bias`` variants
+(``:196,252,258,322``, called from ``_backward:328``). The forward returns
+``(o, lse)``: the attention output in q's dtype and the fp32 row log-sum-exp
+``[B, H, Sq]``. When an input requires a gradient it runs through
+``FlashAttentionFn``, which saves ``(q, k, v, bias, o, lse)`` as the JAX
+``_attach_fwd`` does and whose backward recomputes the probabilities from the
+lse; the bias gets no gradient.
 
 On the card the UNet's spatial self-attention (S = 1024..4096, head_dim 64)
-is compute bound; the kernel keeps every score and probability on chip and
-reads Q, K and V once per q tile. See the source for the design.
+is compute bound; the kernels keep every score and probability on chip and
+read each operand once per tile. See the source for the design.
 
-``flash_attention`` runs the kernel for CUDA tensors and the plain PyTorch
-twin ``flash_attention_ref`` for CPU tensors; any other device, or a CUDA
-input the kernel does not take, raises. ``launches`` counts kernel launches.
+``flash_attention`` (B1), ``flash_attention_bwd_dq`` (B2) and
+``flash_attention_bwd_dkv`` (B4) run their kernels for CUDA tensors and the
+plain PyTorch twins (``flash_attention_ref``, ``flash_attention_bwd_dq_ref``,
+``flash_attention_bwd_dkv_ref``) for CPU tensors; any other device, or a CUDA
+input the kernels do not take, raises. ``flash_attention_bwd`` runs B2 then B4.
+``launches``, ``bwd_dq_launches`` and ``bwd_dkv_launches`` count kernel
+launches.
 """
 
 from __future__ import annotations
@@ -29,6 +38,8 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 
 launches = 0
+bwd_dq_launches = 0
+bwd_dkv_launches = 0
 
 
 def attention_scores(q: torch.Tensor, k: torch.Tensor,
@@ -61,14 +72,64 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p, v), lse
 
 
+def _probs_and_ds(q, k, v, bias, lse, delta, do, causal, scale):
+    """P recomputed from the lse (exactly 0 where causal set -1e30) and
+    dS = P o (dO V^T - delta), in fp32."""
+    p = torch.exp(attention_scores(q, k, bias, causal, scale) - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return p, p * (dp - delta[..., None])
+
+
+def flash_attention_bwd_dq_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               bias: Optional[torch.Tensor], o: torch.Tensor,
+                               lse: torch.Tensor, do: torch.Tensor, causal: bool = False,
+                               sm_scale: Optional[float] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of B2: ``(dq, delta)`` with ``delta = rowsum(dO o O)`` in
+    fp32 ``[B, H, Sq]``; dS is cast to k's dtype before the product, as in
+    ``_dq_kernel``."""
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    delta = (do.float() * o.float()).sum(dim=-1)
+    _, ds = _probs_and_ds(q, k, v, bias, lse, delta, do, causal, scale)
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * scale
+    return dq.to(q.dtype), delta
+
+
+def flash_attention_bwd_dkv_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                bias: Optional[torch.Tensor], lse: torch.Tensor,
+                                delta: torch.Tensor, do: torch.Tensor, causal: bool = False,
+                                sm_scale: Optional[float] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of B4: ``(dk, dv)``, both products in fp32 as in
+    ``_dkv_kernel``."""
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    p, ds = _probs_and_ds(q, k, v, bias, lse, delta, do, causal, scale)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    dv = torch.matmul(p.transpose(-1, -2), do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            bias: Optional[torch.Tensor], o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, causal: bool = False,
+                            sm_scale: Optional[float] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of the backward, the math of the JAX ``_backward``:
+    ``(dq, dk, dv)`` in the inputs' dtypes, the bias without gradient."""
+    dq, delta = flash_attention_bwd_dq_ref(q, k, v, bias, o, lse, do, causal, sm_scale)
+    dk, dv = flash_attention_bwd_dkv_ref(q, k, v, bias, lse, delta, do, causal, sm_scale)
+    return dq, dk, dv
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build.cuda_library("flash_attention.cu")))
-    fn = lib.diffsensei_flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-                      ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    tail = [strides, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    for name, pointers, ints in (("fwd", 6, 5), ("bwd_dq", 9, 5), ("bwd_dkv", 9, 5)):
+        fn = getattr(lib, f"diffsensei_flash_attention_{name}")
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + tail
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -87,8 +148,8 @@ def _check_qkv(name: str, t: torch.Tensor, device: torch.device) -> None:
                          f"strides {t.stride()}")
 
 
-def _flash_cuda(q, k, v, bias, causal, sm_scale):
-    global launches
+def _check_call(q, k, v, bias):
+    """Validate the operands of a kernel call; return the bias strides."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -99,19 +160,32 @@ def _flash_cuda(q, k, v, bias, causal, sm_scale):
     if d not in HEAD_DIMS or sq < 1 or sk < 1 or b > 65535 or h > 65535:
         raise ValueError(f"flash_attention: unsupported shape {tuple(q.shape)} "
                          f"with {sk} keys (head_dim must be one of {HEAD_DIMS})")
-    bias_strides = (0, 0, 0)
-    if bias is not None:
-        if (bias.device != q.device or bias.dtype != torch.float32 or bias.dim() != 4
-                or bias.shape[0] not in (1, b) or bias.shape[1] not in (1, h)
-                or tuple(bias.shape[2:]) != (sq, sk) or bias.stride(-1) != 1):
-            raise ValueError(f"flash_attention: bias must be float32 "
-                             f"[B|1, H|1, {sq}, {sk}] with unit last stride, got "
-                             f"{bias.dtype} {tuple(bias.shape)}")
-        bias_strides = (bias.stride(0) if bias.shape[0] == b else 0,
-                        bias.stride(1) if bias.shape[1] == h else 0,
-                        bias.stride(2))
-    # O is laid out [B, Sq, H, D] so that merging the heads afterwards is free
-    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if bias is None:
+        return (0, 0, 0)
+    if (bias.device != q.device or bias.dtype != torch.float32 or bias.dim() != 4
+            or bias.shape[0] not in (1, b) or bias.shape[1] not in (1, h)
+            or tuple(bias.shape[2:]) != (sq, sk) or bias.stride(-1) != 1):
+        raise ValueError(f"flash_attention: bias must be float32 "
+                         f"[B|1, H|1, {sq}, {sk}] with unit last stride, got "
+                         f"{bias.dtype} {tuple(bias.shape)}")
+    return (bias.stride(0) if bias.shape[0] == b else 0,
+            bias.stride(1) if bias.shape[1] == h else 0,
+            bias.stride(2))
+
+
+def _heads_merged_like(t: torch.Tensor) -> torch.Tensor:
+    """An empty ``[B, H, S, D]`` tensor laid out ``[B, S, H, D]``, so that
+    merging the heads afterwards is free."""
+    b, h, s, d = t.shape
+    return torch.empty((b, s, h, d), dtype=t.dtype, device=t.device).transpose(1, 2)
+
+
+def _flash_cuda(q, k, v, bias, causal, sm_scale):
+    global launches
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    bias_strides = _check_call(q, k, v, bias)
+    o = _heads_merged_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k.stride()[:3],
                                         *v.stride()[:3], *o.stride()[:3],
@@ -130,19 +204,173 @@ def _flash_cuda(q, k, v, bias, causal, sm_scale):
     return o, lse
 
 
+def _check_stat(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
+    b, h, sq, _ = q.shape
+    if (t.dtype != torch.float32 or tuple(t.shape) != (b, h, sq) or not t.is_contiguous()
+            or t.device != q.device):
+        raise ValueError(f"flash_attention_bwd: {name} must be contiguous float32 "
+                         f"[{b}, {h}, {sq}] on {q.device}, got {t.dtype} {tuple(t.shape)}")
+
+
+def _check_bwd_call(q, k, v, bias, lse, named):
+    """Validate a backward kernel's operands (``named``: the tensors shaped
+    like q); return the bias strides."""
+    bias_strides = _check_call(q, k, v, bias)
+    for name, t in named:
+        _check_qkv(name, t, q.device)
+        if t.shape != q.shape:
+            raise ValueError(f"flash_attention_bwd: {name} shape {tuple(t.shape)} != "
+                             f"q {tuple(q.shape)}")
+    _check_stat("lse", lse, q)
+    return bias_strides
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where the kernels can read it, else a contiguous copy (an
+    output gradient may come in any layout)."""
+    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+        return t.contiguous()
+    return t
+
+
+def _bwd_strides(q, k, v, o, do, dq, dk, dv, bias_strides):
+    return (ctypes.c_longlong * 27)(
+        *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]), *bias_strides)
+
+
+def _bwd_dq_cuda(q, k, v, bias, o, lse, do, causal, sm_scale):
+    global bwd_dq_launches
+    b, h, sq, d = q.shape
+    do = _aligned(do)
+    bias_strides = _check_bwd_call(q, k, v, bias, lse, (("o", o), ("do", do)))
+    dq = _heads_merged_like(q)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # the dk/dv slots of the strides are unused by this kernel
+    strides = _bwd_strides(q, k, v, o, do, dq, k, v, bias_strides)
+    with torch.cuda.device(q.device):
+        err = _library().diffsensei_flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), None if bias is None else bias.data_ptr(), dq.data_ptr(),
+            delta.data_ptr(), b, h, sq, k.shape[2], d, strides, int(causal), float(sm_scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention dQ kernel launch failed: cudaError {err}")
+    bwd_dq_launches += 1
+    return dq, delta
+
+
+def _bwd_dkv_cuda(q, k, v, bias, lse, delta, do, causal, sm_scale):
+    global bwd_dkv_launches
+    b, h, sq, d = q.shape
+    do = _aligned(do)
+    bias_strides = _check_bwd_call(q, k, v, bias, lse, (("do", do),))
+    _check_stat("delta", delta, q)
+    dk, dv = _heads_merged_like(k), _heads_merged_like(v)
+    # the o/dq slots of the strides are unused by this kernel
+    strides = _bwd_strides(q, k, v, q, do, q, dk, dv, bias_strides)
+    with torch.cuda.device(q.device):
+        err = _library().diffsensei_flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), None if bias is None else bias.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, h, sq, k.shape[2], d, strides, int(causal), float(sm_scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention dK/dV kernel launch failed: cudaError {err}")
+    bwd_dkv_launches += 1
+    return dk, dv
+
+
+def _device_rule(name: str, q: torch.Tensor) -> bool:
+    """True for a CPU tensor (plain twin), False for CUDA (kernel); raises
+    for any other device."""
+    if q.device.type == "cpu":
+        return True
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    return False
+
+
+def _forward(q, k, v, bias, causal, sm_scale):
+    if _device_rule("flash_attention", q):
+        return flash_attention_ref(q, k, v, bias, causal, sm_scale)
+    return _flash_cuda(q, k, v, bias, causal, sm_scale)
+
+
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: Optional[torch.Tensor], o: torch.Tensor, lse: torch.Tensor,
+                           do: torch.Tensor, *, causal: bool = False,
+                           sm_scale: Optional[float] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dq, delta)``: kernel B2 on CUDA, its plain twin on the CPU."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if _device_rule("flash_attention_bwd_dq", q):
+        return flash_attention_bwd_dq_ref(q, k, v, bias, o, lse, do, causal, sm_scale)
+    return _bwd_dq_cuda(q, k, v, bias, o, lse, do, causal, sm_scale)
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            bias: Optional[torch.Tensor], lse: torch.Tensor,
+                            delta: torch.Tensor, do: torch.Tensor, *, causal: bool = False,
+                            sm_scale: Optional[float] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv)`` from B2's ``delta``: kernel B4 on CUDA (on the stream B2
+    ran on), its plain twin on the CPU."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if _device_rule("flash_attention_bwd_dkv", q):
+        return flash_attention_bwd_dkv_ref(q, k, v, bias, lse, delta, do, causal, sm_scale)
+    return _bwd_dkv_cuda(q, k, v, bias, lse, delta, do, causal, sm_scale)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: Optional[torch.Tensor], o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = False,
+                        sm_scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients ``(dq, dk, dv)`` of ``o = flash_attention(q, k, v, bias)[0]``
+    for the output gradient ``do``, from the forward's ``o`` and ``lse``: B2
+    then B4."""
+    kw = dict(causal=causal, sm_scale=sm_scale)
+    dq, delta = flash_attention_bwd_dq(q, k, v, bias, o, lse, do, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, bias, lse, delta, do, **kw)
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``(o, lse)`` with B1 as the forward and B2 + B4 as the backward (the
+    plain twins on the CPU). The residuals are ``(q, k, v, bias, o, lse)``, as
+    the JAX ``_attach_fwd`` keeps them; lse takes no gradient, nor does the
+    bias."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, sm_scale):
+        o, lse = _forward(q, k, v, bias, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, bias, o, lse, do,
+                                         causal=ctx.causal, sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None, *, causal: bool = False,
                     sm_scale: Optional[float] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention over ``[B, H, S, D]``; returns ``(o, lse)``.
+    """Attention over ``[B, H, S, D]``; returns ``(o, lse)``, differentiable
+    in q, k and v through ``FlashAttentionFn``.
 
     ``bias`` may be ``[B|1, H|1, Sq, Sk]``; broadcast dims are read through a
-    zero stride, never expanded. On CUDA the kernel takes bfloat16 q/k/v with
+    zero stride, never expanded. On CUDA the kernels take bfloat16 q/k/v with
     head_dim 64 or 128 and a float32 bias."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, bias, causal, sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    return _flash_cuda(q, k, v, bias, causal, sm_scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, bias, causal, sm_scale)
+    return _forward(q, k, v, bias, causal, sm_scale)

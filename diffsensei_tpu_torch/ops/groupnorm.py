@@ -13,7 +13,10 @@ sample of any size fits; see the source for the design.
 ``groupnorm_silu`` runs the kernel for CUDA tensors and the plain twin
 ``groupnorm_silu_ref`` for CPU tensors; any other device, or a CUDA input the
 kernel does not take, raises. ``launches`` counts wrapper calls that launched
-the kernel passes.
+the kernel passes. When an input requires a gradient the call goes through
+``GroupNormSiLUFn``, whose backward recomputes the twin and takes its VJP, as
+the JAX ``_fused_bwd`` (``groupnorm.py:102``) does: there is no backward
+kernel, on the TPU either.
 """
 
 from __future__ import annotations
@@ -99,11 +102,42 @@ def _groupnorm_silu_cuda(x, scale, bias, num_groups, eps):
     return y
 
 
-def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                   num_groups: int, eps: float = 1e-5) -> torch.Tensor:
-    """Fused GroupNorm + SiLU over NHWC ``x [B, H, W, C]``."""
+def _forward(x, scale, bias, num_groups, eps):
     if x.device.type == "cpu":
         return groupnorm_silu_ref(x, scale, bias, num_groups, eps)
     if x.device.type != "cuda":
         raise ValueError(f"groupnorm_silu: no kernel for device {x.device}")
     return _groupnorm_silu_cuda(x, scale, bias, num_groups, eps)
+
+
+class GroupNormSiLUFn(torch.autograd.Function):
+    """B3 forward (the twin on the CPU); the backward is the VJP of
+    ``groupnorm_silu_ref`` recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.num_groups, ctx.eps = num_groups, eps
+        return _forward(x, scale, bias, num_groups, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        wanted = [i for i in range(3) if ctx.needs_input_grad[i]]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(saved)]
+            y = groupnorm_silu_ref(*inputs, ctx.num_groups, ctx.eps)
+            grads = torch.autograd.grad(y, [inputs[i] for i in wanted], g)
+        out = [None] * 3
+        for i, grad in zip(wanted, grads):
+            out[i] = grad
+        return (*out, None, None)
+
+
+def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   num_groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """Fused GroupNorm + SiLU over NHWC ``x [B, H, W, C]``; differentiable in
+    all three tensors."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
+        return GroupNormSiLUFn.apply(x, scale, bias, num_groups, eps)
+    return _forward(x, scale, bias, num_groups, eps)

@@ -1,0 +1,190 @@
+"""Training entry point: ``python -m diffsensei_tpu_torch.train.cli --config <yaml>``
+(port of ``diffsensei_tpu/train/cli.py``).
+
+The YAML schema is the JAX CLI's (``configs/train/*.yaml``): ``stage``, the
+``model`` / ``train_data`` / ``optimizer`` / ``lr_scheduler`` / ``trainer``
+groups. It runs on the card unless ``--device cpu`` asks for the CPU, where
+every kernel wrapper takes its plain twin.
+
+Ported: stages ``t2i`` (1) and ``condition`` (2), the presets ``tiny`` and
+``sdxl`` with ``init: random``, per-block remat (``model.remat``), gradient
+accumulation, checkpoints and resume. Refused with an error rather than
+ignored: ``stage: mllm`` (stage 3), a ``weights:`` group (the checkpoint
+loaders of ``utils/load.py``), ``unet_trained_parameters: lora`` (LoRA
+adapters), ``param_dtype`` other than float32, tokenizer files, and
+``trainer.parallel: fsdp`` (multi-GPU layouts).
+"""
+
+from __future__ import annotations
+
+import argparse
+import zlib
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from diffsensei_tpu_torch.core.config import load_yaml_config
+from diffsensei_tpu_torch.data.bucket_dataset import (
+    BucketDatasetConfig, MangaTrainSizeBucketDataset)
+from diffsensei_tpu_torch.data.loader import PrefetchLoader
+from diffsensei_tpu_torch.models.schedulers import DDPMSchedule
+from diffsensei_tpu_torch.pipelines.pipeline import PipelineModules
+from diffsensei_tpu_torch.train.diffusion import (
+    FrozenDiffusionStack, Stage2Config, TrainState, make_stage1_step, make_stage2_step)
+from diffsensei_tpu_torch.train.optim import (
+    make_lr_schedule, make_optimizer, partition_params, unet_trainable_mask)
+from diffsensei_tpu_torch.train.runner import RunConfig, run_training
+
+
+def hash_tokenizer(vocab_size: int = 49408, length: int = 77) -> Callable[[str], np.ndarray]:
+    """Stand-in tokenizer for runs without CLIP vocabulary files: bos, one id a
+    word, eos, zero padding. The JAX CLI's uses Python's ``hash``, which
+    changes from process to process; this one uses CRC-32, so a resumed run
+    sees the ids the first one saw."""
+    def tok(text: str) -> np.ndarray:
+        words = text.split()[: length - 2]
+        ids = np.zeros((length,), np.int32)
+        ids[0] = vocab_size - 2
+        for i, word in enumerate(words):
+            ids[i + 1] = zlib.crc32(word.encode()) % (vocab_size - 3) + 1
+        ids[len(words) + 1] = vocab_size - 1
+        return ids
+    return tok
+
+
+def build_models(model_cfg: Dict[str, Any], device="cuda", seed: int = 0) -> PipelineModules:
+    """The diffusion stack of the ``model:`` group, random flax-like weights
+    from ``seed``."""
+    if model_cfg.get("unet_trained_parameters") == "lora":
+        raise NotImplementedError("unet_trained_parameters: lora needs the LoRA adapters, "
+                                  "which are not ported yet")
+    if model_cfg.get("param_dtype", "float32") != "float32":
+        raise NotImplementedError("param_dtype: only float32 trainables are ported")
+    preset = model_cfg.get("preset", "tiny")
+    init = model_cfg.get("init", "random" if preset == "tiny" else "zeros")
+    if init != "random":
+        raise NotImplementedError(f"init: {init} needs a weights: group, which is not "
+                                  "ported yet; use init: random")
+    if preset == "tiny":
+        mods = PipelineModules.tiny(device=device, seed=seed)
+    elif preset == "sdxl":
+        mods = PipelineModules.sdxl(device=device, seed=seed)
+    else:
+        raise ValueError(f"unknown model preset {preset}")
+    if model_cfg.get("remat", False):
+        mods.unet.enable_remat(model_cfg.get("remat_policy"))
+    return mods
+
+
+def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> TrainState:
+    """Run the config's training; ``on_step(step, metrics)`` sees every step."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--max_train_steps", type=int, default=None)
+    parser.add_argument("--log_dir", default=None)
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+
+    cfg = load_yaml_config(args.config)
+    stage = cfg.get("stage", "condition")
+    if stage == "mllm":
+        raise NotImplementedError("stage 3: ROADMAP slice 4b")
+    if stage not in ("t2i", "condition"):
+        raise ValueError(f"unknown stage {stage}")
+    if cfg.get("weights"):
+        raise NotImplementedError("the weights: group needs utils/load.py, which is not "
+                                  "ported yet; remove it and set model.init: random")
+    trainer = dict(cfg.get("trainer", {}))
+    if trainer.get("parallel", "dp") != "dp":
+        raise NotImplementedError(f"trainer.parallel: {trainer['parallel']} waits for the "
+                                  "multi-GPU slice")
+    if args.max_train_steps is not None:
+        trainer["max_train_steps"] = args.max_train_steps
+    if args.log_dir is not None:
+        trainer["log_dir"] = args.log_dir
+    if args.resume:
+        trainer["resume"] = True
+    device = torch.device(args.device)
+    seed = int(trainer.get("seed", 0))
+    max_steps = int(trainer.get("max_train_steps", 1000))
+
+    mcfg = dict(cfg.get("model", {}))
+    modules = build_models(mcfg, device, seed)
+    manga = modules.manga
+
+    # data ------------------------------------------------------------------
+    td = dict(cfg.get("train_data", {}))
+    if td.get("tokenizer_path") or td.get("tokenizer_2_path"):
+        raise NotImplementedError("tokenizer files are not supported yet")
+    ds_cfg = BucketDatasetConfig(
+        t_drop_rate=td.get("t_drop_rate", 0.05), i_drop_rate=td.get("i_drop_rate", 0.05),
+        max_num_ips=manga.max_num_ips, max_num_ip_sources=td.get("max_num_ip_sources", 1),
+        max_num_dialogs=manga.max_num_dialogs, mask_dialog=td.get("mask_dialog", False),
+        ip_self_condition_rate=td.get("ip_self_condition_rate", 0.5),
+        ip_flip_rate=td.get("ip_flip_rate", 0.5), batch_size=td.get("batch_size", 8))
+    dataset = MangaTrainSizeBucketDataset(
+        ann_path=td["ann_path"], image_root=td.get("image_root", ""),
+        tokenize=hash_tokenizer(modules.text_encoder.config.vocab_size),
+        tokenize_2=hash_tokenizer(modules.text_encoder_2.config.vocab_size), config=ds_cfg)
+    num_workers = int(td.get("num_workers", 8))
+
+    def batches_from(step: int):
+        """The stream from its ``step``-th batch: epoch ``e`` shuffled by
+        ``seed + e``, as the JAX loader seeds it."""
+        first, skip = divmod(step, dataset.num_batches())
+        return PrefetchLoader(
+            lambda e: dataset.batches(shuffle=True, seed=seed + e, num_workers=num_workers,
+                                      skip=skip if e == first else 0),
+            device=device, first_epoch=first)
+
+    # frozen stack, trainables, step -----------------------------------------
+    frozen = FrozenDiffusionStack(
+        vae=modules.vae, text_encoder=modules.text_encoder,
+        text_encoder_2=modules.text_encoder_2, image_encoder=modules.image_encoder,
+        magi_encoder=modules.magi_encoder, vae_scaling=modules.vae.config.scaling_factor)
+    schedule = DDPMSchedule()
+    if stage == "t2i":
+        step_fn = make_stage1_step(modules.unet, schedule)
+        mode = mcfg.get("unet_trained_parameters", "full")
+    else:
+        step_fn = make_stage2_step(modules.unet, modules.resampler, schedule, Stage2Config(
+            manga=manga, ip_contrastive=mcfg.get("ip_contrastive_loss"),
+            ip_contrastive_weight=mcfg.get("ip_contrastive_loss_weight", 0.1)))
+        mode = mcfg.get("unet_trained_parameters", "new")
+    trainable, _ = partition_params(modules.unet, unet_trainable_mask(modules.unet, mode))
+    params = {f"unet.{k}": p for k, p in trainable.items()}
+    if stage == "condition":
+        res = modules.resampler
+        trainable, _ = partition_params(res, {k: True for k, _ in res.named_parameters()})
+        params.update({f"resampler.{k}": p for k, p in trainable.items()})
+
+    opt_cfg = dict(cfg.get("optimizer", {}))
+    lr_cfg = dict(cfg.get("lr_scheduler", {}))
+    lr = make_lr_schedule(lr_cfg.get("name", "constant_with_warmup"),
+                          float(opt_cfg.get("lr", 1e-4)),
+                          num_warmup_steps=int(lr_cfg.get("num_warmup_steps", 0)),
+                          num_training_steps=max_steps,
+                          min_lr_ratio=float(lr_cfg.get("min_lr_ratio", 0.0)))
+    optimizer = make_optimizer(params.values(), lr,
+                               weight_decay=float(opt_cfg.get("weight_decay", 1e-2)),
+                               max_grad_norm=opt_cfg.get("max_grad_norm", 1.0),
+                               accumulate=int(trainer.get("gradient_accumulation_steps", 1)))
+    state = TrainState(params, optimizer)
+
+    run_cfg = RunConfig(
+        max_train_steps=max_steps, log_dir=trainer.get("log_dir", "logs/run"),
+        log_every=int(trainer.get("log_every", 50)),
+        checkpoint_every=int(trainer.get("checkpoint_every",
+                                         trainer.get("checkpointing_interval", 1000))),
+        checkpoint_steps=tuple(trainer.get("checkpointing_steps", ()) or ()),
+        checkpoints_total_limit=trainer.get("checkpoints_total_limit", 5),
+        seed=seed, resume=bool(trainer.get("resume", False)),
+        memory_log_every=int(trainer.get("memory_log_every", 500)))
+    return run_training(step_fn, state, batches_from, run_cfg, frozen=frozen, device=device,
+                        on_step=on_step)
+
+
+if __name__ == "__main__":
+    main()

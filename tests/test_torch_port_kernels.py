@@ -52,6 +52,79 @@ def test_flash_kernel_matches_plain_on_card(cuda, b, h, sq, sk, d, causal, with_
     assert (lse - rlse).abs().max().item() <= 1e-3
 
 
+def _rel(got, want):
+    return ((got.float() - want).norm() / want.norm()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,bias_shape", [
+    (1, 10, 4096, 4096, 64, False, None),     # UNet level 1 at 1024², batch 1
+    (1, 20, 1024, 1024, 64, False, None),     # UNet level 2
+    (1, 4, 1100, 1300, 64, False, "b"),       # ragged tails, bias broadcast over heads
+    (2, 3, 100, 130, 64, False, "bh"),        # bias broadcast over batch and heads
+    (1, 4, 1100, 1100, 64, True, None),       # causal
+    (1, 2, 200, 130, 64, True, None),         # causal with Sq > Sk
+    (1, 2, 130, 300, 64, True, None),         # causal with Sq < Sk
+    (1, 4, 1024, 1024, 128, False, None),     # head_dim 128
+    (2, 2, 130, 70, 128, True, "b"),          # head_dim 128, causal, bias, tails
+    (1, 3, 37, 45, 64, False, None),          # one partial tile each way
+])
+def test_flash_backward_kernels_match_plain_on_card(cuda, b, h, sq, sk, d, causal,
+                                                    bias_shape):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    mk = lambda s: torch.randn((b, h, s, d), generator=g, device=cuda).bfloat16()
+    q, k, v, do = mk(sq), mk(sk), mk(sk), mk(sq)
+    bias = None
+    if bias_shape is not None:
+        shape = (b, 1, sq, sk) if bias_shape == "b" else (1, 1, sq, sk)
+        bias = torch.where(torch.rand(shape, generator=g, device=cuda) > 0.3, 0.0, -10000.0)
+    o, lse = tfa.flash_attention(q, k, v, bias, causal=causal)
+    before = (tfa.bwd_dq_launches, tfa.bwd_dkv_launches)
+    got = tfa.flash_attention_bwd(q, k, v, bias, o, lse, do, causal=causal)
+    again = tfa.flash_attention_bwd(q, k, v, bias, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (tfa.bwd_dq_launches, tfa.bwd_dkv_launches) == (before[0] + 2, before[1] + 2)
+    want = tfa.flash_attention_bwd_ref(q.float(), k.float(), v.float(), bias, o.float(),
+                                       lse, do.float(), causal)
+    for name, x, y, z in zip(("dq", "dk", "dv"), got, again, want):
+        assert x.dtype == torch.bfloat16 and x.shape == z.shape, name
+        assert torch.equal(x, y), f"{name}: two calls differ"   # no float atomics
+        assert _rel(x, z) <= 2e-2, f"{name}: relative error {_rel(x, z)}"
+
+
+@pytest.mark.gpu
+def test_flash_autograd_uses_the_backward_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn((1, 2, 1024, 64), generator=g, device=cuda).bfloat16()
+               .requires_grad_() for _ in range(3))
+    before = (tfa.launches, tfa.bwd_dq_launches, tfa.bwd_dkv_launches)
+    out = tatt.multi_head_attention(q, k, v)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (tfa.launches, tfa.bwd_dq_launches, tfa.bwd_dkv_launches) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1)
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    tatt.attention_ref(qf, kf, vf).square().sum().backward()
+    for x, y in ((q, qf), (k, kf), (v, vf)):
+        assert _rel(x.grad, y.grad) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_groupnorm_autograd_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = (torch.randn((1, 32, 32, 320), generator=g, device=cuda)).bfloat16().requires_grad_()
+    scale = torch.randn(320, generator=g, device=cuda).bfloat16().requires_grad_()
+    bias = torch.randn(320, generator=g, device=cuda).bfloat16()
+    before = tgn.launches
+    tgn.groupnorm_silu(x, scale, bias, 32).float().square().sum().backward()
+    assert tgn.launches == before + 1
+    xf, sf = x.detach().requires_grad_(), scale.detach().requires_grad_()
+    tgn.groupnorm_silu_ref(xf, sf, bias, 32).float().square().sum().backward()
+    assert bias.grad is None
+    torch.testing.assert_close(x.grad, xf.grad)
+    torch.testing.assert_close(scale.grad, sf.grad)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,dtype,eps", [
     ((2, 128, 128, 320), torch.bfloat16, 1e-5),
