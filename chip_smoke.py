@@ -6,8 +6,8 @@
 Run from the root of the repository. Phases, one JSON line each:
 
 1. device: the card, its power limit, the TF32 switches (both off);
-2. build: kernels B1, B2 and B4 (one CUDA C++ source) and B6 (CUDA C++),
-   one nvcc each, started together, and B3 (Triton) from
+2. build: kernels B1, B2 and B4 (one CUDA C++ source), B5 and B6 (CUDA
+   C++), one nvcc each, started together, and B3 (Triton) from
    ``diffsensei_tpu_torch/csrc``;
 3. flash_attention: B1 against its plain twin at the UNet's shapes, with times
    beside the plain twin and ``F.scaled_dot_product_attention``;
@@ -33,16 +33,28 @@ Run from the root of the repository. Phases, one JSON line each:
 12. train: 6 stage-2 steps through the port's train CLI on
    ``configs/train/condition.yaml`` at full SDXL width (random weights,
    synthetic MangaZero pages from a numpy seed, the 1024² bucket, batch 1),
-   one line a step; profile_train: ``torch.profiler`` over one of them.
+   one line a step; profile_train: ``torch.profiler`` over one of them;
+13. dual_cross_attention (after phase 5): B5 against its plain twin at the
+   UNet's cross-attention shapes, with times beside the twin and two
+   ``F.scaled_dot_product_attention`` calls;
+14. reference_train_mllm (after phase 11): one stage-3 loss and backward on a
+   cut-down stack with a 2-layer SEED-X-width LLaMA, bf16 on the card against
+   fp32 on the CPU;
+15. train_mllm: 4 stage-3 steps through the train CLI on
+   ``configs/train/mllm.yaml`` at full SDXL and SEED-X width and depth (the
+   13B LLaMA in bf16 with fp32 LoRA, embeddings, norms and resamplers), one
+   line a step, checkpoints, the trainables moved and the frozen weights
+   bit-equal (checksums kept on the host); profile_train_mllm over one step.
 
 The kernels' launch counts are set to 0 before each served or trained path
-and checked after it. Then the kernels line, the card's ``nvidia-smi`` line and, last,
+and checked after it (every kernel, every path). Then the kernels line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. Needs one CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -67,6 +79,39 @@ def bound(nbytes: float, ops: float) -> dict:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "groupnorm", "dual", "int4")
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count (B1, B2, B4, B3, B5, B6)."""
+    from diffsensei_tpu_torch.ops import dual_cross_attention as dca
+    from diffsensei_tpu_torch.ops import flash_attention as fa, groupnorm as gn
+    from diffsensei_tpu_torch.ops import int4_matmul as i4
+
+    return dict(flash_fwd=fa.launches, flash_dq=fa.bwd_dq_launches,
+                flash_dkv=fa.bwd_dkv_launches, groupnorm=gn.launches, dual=dca.launches,
+                int4=i4.launches)
+
+
+def reset_counts() -> None:
+    from diffsensei_tpu_torch.ops import dual_cross_attention as dca
+    from diffsensei_tpu_torch.ops import flash_attention as fa, groupnorm as gn
+    from diffsensei_tpu_torch.ops import int4_matmul as i4
+
+    fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    gn.launches = dca.launches = i4.launches = 0
+
+
+def since(before: dict) -> dict:
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in KERNELS}
+
+
+def expect(**counts) -> dict:
+    """A full launch-count dict: the kernels not named launched 0 times."""
+    return {k: counts.get(k, 0) for k in KERNELS}
 
 
 def nvidia_smi_line() -> str:
@@ -341,6 +386,62 @@ def check_flash_bwd(device):
     return dq_row, dkv_row
 
 
+DUAL_CASES = [  # (B, H, S, D, text keys, IP keys, bias shape)
+    (2, 10, 4096, 64, 77, 80, "b"),    # UNet level 1 at 1024², the CFG batch
+    (2, 20, 1024, 64, 77, 80, "b"),    # level 2
+    (2, 10, 4032, 64, 77, 80, "b"),    # level 1 of the 768x1344 bucket: an odd q tail
+    (2, 20, 1008, 64, 77, 80, "1"),    # level 2 there, a [1, 1, S, 80] broadcast bias
+]
+
+
+def check_dual(device) -> dict:
+    """B5 against the fp32 math of its plain twin on the same bf16 inputs:
+    o_text and o_ip within 2e-2, two calls bit-equal. Times beside the twin's
+    and two ``F.scaled_dot_product_attention`` calls (the IP one with the
+    bias as a bf16 ``attn_mask``)."""
+    import torch
+    import torch.nn.functional as F
+    from diffsensei_tpu_torch.ops import dual_cross_attention as dca
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    rows = []
+    for b, h, sq, d, nt, ni, bias_kind in DUAL_CASES:
+        mk = lambda s: torch.randn((b, h, s, d), generator=gen, device=device).bfloat16()
+        q, kt, vt, ki, vi = mk(sq), mk(nt), mk(nt), mk(ni), mk(ni)
+        shape = (b if bias_kind == "b" else 1, 1, sq, ni)
+        bias = torch.where(torch.rand(shape, generator=gen, device=device) > 0.4, 0.0, -10000.0)
+        got = dca.dual_cross_attention(q, kt, vt, ki, vi, bias)
+        again = dca.dual_cross_attention(q, kt, vt, ki, vi, bias)
+        torch.cuda.synchronize()
+        want = dca.dual_cross_attention_ref(q.float(), kt.float(), vt.float(), ki.float(),
+                                            vi.float(), bias)
+        errs = [(g.float() - w).abs().max().item() for g, w in zip(got, want)]
+        mask = bias.bfloat16()
+        row = dict(shape=[b, h, sq, d], keys=[nt, ni], bias=list(shape),
+                   max_abs_err_text=errs[0], max_abs_err_ip=errs[1],
+                   bit_equal=all(torch.equal(x, y) for x, y in zip(got, again)),
+                   ms=cuda_ms(lambda: dca.dual_cross_attention(q, kt, vt, ki, vi, bias)),
+                   plain_ms=cuda_ms(lambda: dca.dual_cross_attention_ref(q, kt, vt, ki, vi,
+                                                                         bias)),
+                   sdpa_ms=cuda_ms(lambda: (F.scaled_dot_product_attention(q, kt, vt),
+                                            F.scaled_dot_product_attention(q, ki, vi,
+                                                                           attn_mask=mask))),
+                   # q, both key/value sets and the fp32 bias read once, two outputs
+                   # written; QK^T and PV over both key sets
+                   **bound(2 * b * h * d * (3 * sq + 2 * (nt + ni)) + 4 * bias.numel(),
+                           4 * b * h * sq * (nt + ni) * d))
+        rows.append(row)
+        emit({"phase": "dual_cross_attention", **row})
+        if not (max(errs) <= 2e-2 and row["bit_equal"]):
+            raise AssertionError(f"dual_cross_attention disagrees with its plain twin: {row}")
+        del q, kt, vt, ki, vi, bias, got, again, want, mask
+    main = rows[0]
+    return dict(max_abs_err=max(max(r["max_abs_err_text"], r["max_abs_err_ip"]) for r in rows),
+                library_ms=main["sdpa_ms"],
+                library_call="two scaled_dot_product_attention calls (text; IP with the bias)",
+                **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+
+
 # ---------------------------------------------------------------------------
 # the modules on the card against the CPU on a small input
 # ---------------------------------------------------------------------------
@@ -349,7 +450,6 @@ def check_reference(device) -> None:
     from diffsensei_tpu_torch.core.config import UNetConfig, VAEConfig
     from diffsensei_tpu_torch.models.unet import UNetMangaModel
     from diffsensei_tpu_torch.models.vae import AutoencoderKL
-    from diffsensei_tpu_torch.ops import flash_attention as fa, groupnorm as gn
     from diffsensei_tpu_torch.utils.init import init_flax_like_
 
     # SDXL widths and heads, depth cut: a 64x64 latent gives 1024 tokens at level 1
@@ -370,14 +470,16 @@ def check_reference(device) -> None:
     with torch.inference_mode():
         want = unet(**cpu_in).float()
         unet_gpu = unet.to(device=device, dtype=torch.bfloat16)
-        fa.launches = gn.launches = 0
+        reset_counts()
         got = unet_gpu(**{k: v.to(device) for k, v in cpu_in.items()}).float().cpu()
         torch.cuda.synchronize()
     rel = ((got - want).abs().max() / want.abs().max()).item()
-    row = dict(module="unet_320_640_bf16", max_rel_err=rel, bound=5e-2,
-               flash_launches=fa.launches, groupnorm_launches=gn.launches)
+    launches = launch_counts()
+    row = dict(module="unet_320_640_bf16", max_rel_err=rel, bound=5e-2, launches=launches)
     emit({"phase": "reference", **row})
-    if not (rel <= 5e-2 and fa.launches > 0 and gn.launches > 0):
+    # 4 cross-attentions with IP tokens (no bias): B5 once each
+    if not (rel <= 5e-2 and launches["flash_fwd"] > 0 and launches["groupnorm"] > 0
+            and launches["dual"] == 4):
         raise AssertionError(f"UNet on the card disagrees with the CPU: {row}")
     del unet, unet_gpu
 
@@ -451,24 +553,18 @@ def check_llama_reference(device, num_layers: int = 2, prompt_len: int = 24,
         raise AssertionError(f"the int4 LLaMA on the card disagrees with the CPU: {row} {ties}")
 
 
-def check_reference_train(device) -> None:
-    """One stage-2 ``loss_fn`` and its backward on a cut-down SDXL-width
-    stack: the UNet of ``check_reference`` (320/640, 1024 tokens at level 1,
-    per-block remat) beside the full SDXL VAE and DiffSensei Resampler, the
-    text and character encoders at full width with 2 layers each. On the
-    card in bf16 with fp32 trainables (kernels B1-B4 on), against the same
-    weights, batch and draws on the CPU in fp32. Bounds: the loss within
-    2e-2 and the concatenated trainables' gradient within 5e-2 (relative),
-    every gradient tensor within 1.5e-1."""
+def cut_down_stacks(device, seed: int):
+    """The reference training phases' stack, ``(on the CPU in fp32, a copy on
+    the card in bf16 with the VAE in fp32)``: SDXL widths and heads with the
+    UNet cut to 320/640 channels (1024 tokens at level 1 for a 512² panel),
+    the full VAE and Resampler, the text and character encoders at full width
+    with 2 layers each; random weights from ``seed``."""
     import copy
     import dataclasses
     import torch
     from diffsensei_tpu_torch.core.config import (
         ResamplerConfig, TextEncoderConfig, UNetConfig, VAEConfig, VisionEncoderConfig)
-    from diffsensei_tpu_torch.models.schedulers import DDPMSchedule
-    from diffsensei_tpu_torch.ops import flash_attention as fa, groupnorm as gn
     from diffsensei_tpu_torch.pipelines.pipeline import PipelineModules
-    from diffsensei_tpu_torch.train import diffusion as td, optim
 
     two = lambda cfg: dataclasses.replace(cfg, num_layers=2)
     configs = dict(
@@ -478,10 +574,27 @@ def check_reference_train(device) -> None:
         text_encoder_2=two(TextEncoderConfig.clip_bigg()),
         image_encoder=two(VisionEncoderConfig.clip_vit_h()),
         magi_encoder=two(VisionEncoderConfig.magi_vitmae()), resampler=ResamplerConfig.diffsensei())
-    cpu = PipelineModules.build(configs, torch.float32, device="cpu", seed=6)
+    cpu = PipelineModules.build(configs, torch.float32, device="cpu", seed=seed)
     card = copy.deepcopy(cpu)
     for name, mod in card.networks().items():
         mod.to(device=device, dtype=torch.float32 if name == "vae" else torch.bfloat16)
+    return cpu, card
+
+
+def check_reference_train(device) -> None:
+    """One stage-2 ``loss_fn`` and its backward on a cut-down SDXL-width
+    stack: the UNet of ``check_reference`` (320/640, 1024 tokens at level 1,
+    per-block remat) beside the full SDXL VAE and DiffSensei Resampler, the
+    text and character encoders at full width with 2 layers each. On the
+    card in bf16 with fp32 trainables (kernels B1-B4 on), against the same
+    weights, batch and draws on the CPU in fp32. Bounds: the loss within
+    2e-2 and the concatenated trainables' gradient within 5e-2 (relative),
+    every gradient tensor within 1.5e-1."""
+    import torch
+    from diffsensei_tpu_torch.models.schedulers import DDPMSchedule
+    from diffsensei_tpu_torch.train import diffusion as td, optim
+
+    cpu, card = cut_down_stacks(device, seed=6)
     manga = cpu.manga
     rng = np.random.default_rng(6)
     i, hw = manga.max_num_ips, 512
@@ -523,11 +636,10 @@ def check_reference_train(device) -> None:
         return loss.item(), {k: p.grad.float().cpu() for k, p in params.items()}
 
     want_loss, want = grads(cpu, "cpu")
-    fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = gn.launches = 0
+    reset_counts()
     got_loss, got = grads(card, device)
     torch.cuda.synchronize()
-    launches = dict(flash_fwd=fa.launches, flash_dq=fa.bwd_dq_launches,
-                    flash_dkv=fa.bwd_dkv_launches, groupnorm=gn.launches)
+    launches = launch_counts()
     per = {k: ((got[k] - want[k]).norm() / want[k].norm()).item() for k in want}
     cat = lambda d: torch.cat([d[k].flatten() for k in want])
     total = ((cat(got) - cat(want)).norm() / cat(want).norm()).item()
@@ -539,10 +651,12 @@ def check_reference_train(device) -> None:
                trainable_tensors=len(per), bounds=dict(loss=2e-2, grad=5e-2, tensor=1.5e-1),
                launches=launches)
     emit({"phase": "reference_train", **row})
-    # 4 self-attentions of 1024 tokens at level 1: B1 forward + remat replay
+    # 4 self-attentions of 1024 tokens at level 1: B1 forward + remat replay;
+    # 4 cross-attentions: B5 forward + remat replay
     if not (row["loss_rel_err"] <= 2e-2 and total <= 5e-2 and per[worst] <= 1.5e-1
             and launches["flash_fwd"] == 8 and launches["flash_dq"] == 4
-            and launches["flash_dkv"] == 4 and launches["groupnorm"] > 0):
+            and launches["flash_dkv"] == 4 and launches["groupnorm"] > 0
+            and launches["dual"] == 8):
         raise AssertionError(f"the stage-2 step on the card disagrees with the CPU: {row}")
 
 
@@ -552,7 +666,6 @@ def check_reference_train(device) -> None:
 def serve(device):
     import torch
     from PIL import Image
-    from diffsensei_tpu_torch.ops import flash_attention as fa, groupnorm as gn
     from diffsensei_tpu_torch.pipelines.pipeline import DiffSenseiPipeline, PipelineModules
     from diffsensei_tpu_torch.serve.api import DiffSenseiServer, GenerationRequest
 
@@ -574,20 +687,21 @@ def serve(device):
     conditioned = dict(character_images=chars,
                        ip_bbox=[[0.05, 0.1, 0.5, 0.95], [0.5, 0.2, 0.95, 0.9]],
                        dialog_bbox=[[0.1, 0.02, 0.6, 0.2]])
-    # per request: (request, expected B1 launches, expected B3 launches)
+    # per request: (request, expected launches)
     # per UNet forward on the CFG batch of 2: B1 70 at 1024² (10 at 4096 tokens,
     # 60 at 1024), 10 at 768x1344 (level 2 has 1008 tokens, below 1024);
-    # B3 34 (17 resnets x 2); the VAE decode adds 28 B3 (14 resnets x 2)
+    # B3 34 (17 resnets x 2); B5 70 with characters (one per cross-attention),
+    # 0 without; the VAE decode adds 28 B3 (14 resnets x 2)
     requests = [
         (GenerationRequest(height=1024, width=1024, num_inference_steps=20,
                            guidance_scale=7.5, seed=1, prompt_ids=ids(), **conditioned),
-         20 * 70, 20 * 34 + 28),
+         expect(flash_fwd=20 * 70, groupnorm=20 * 34 + 28, dual=20 * 70)),
         (GenerationRequest(height=768, width=1344, num_inference_steps=4,
                            guidance_scale=7.5, seed=2, prompt_ids=ids(), **conditioned),
-         4 * 10, 4 * 34 + 28),
+         expect(flash_fwd=4 * 10, groupnorm=4 * 34 + 28, dual=4 * 70)),
         (GenerationRequest(height=1024, width=1024, num_inference_steps=4,
                            guidance_scale=7.5, seed=3, prompt_ids=ids()),
-         4 * 70, 4 * 34 + 28),
+         expect(flash_fwd=4 * 70, groupnorm=4 * 34 + 28)),
     ]
     # warm the Triton specializations and cuDNN plans off the clock
     server.generate(GenerationRequest(height=1024, width=1024, num_inference_steps=1,
@@ -596,32 +710,29 @@ def serve(device):
                                       prompt_ids=ids(), **conditioned))
     torch.cuda.synchronize()
 
-    fa.launches = gn.launches = 0
-    totals = dict(flash=0, groupnorm=0)
-    for req, want_fa, want_gn in requests:
+    reset_counts()
+    for req, want in requests:
         torch.cuda.reset_peak_memory_stats()
-        fa0, gn0 = fa.launches, gn.launches
+        before = launch_counts()
         t0 = time.perf_counter()
         img = server.generate(req)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        got_fa, got_gn = fa.launches - fa0, gn.launches - gn0
+        got = since(before)
         row = dict(height=req.height, width=req.width, steps=req.num_inference_steps,
                    conditioned=bool(req.character_images), seconds=seconds,
                    shape=list(img.shape), finite=bool(np.isfinite(img).all()),
                    min=float(img.min()), max=float(img.max()), mean=float(img.mean()),
                    std=float(img.std()),
                    max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   flash_launches=got_fa, groupnorm_launches=got_gn)
+                   launches=got)
         emit({"phase": "serve", **row})
         if img.shape != (1, req.height, req.width, 3) or not row["finite"] \
                 or row["min"] < 0.0 or row["max"] > 1.0:
             raise AssertionError(f"bad panel: {row}")
-        if (got_fa, got_gn) != (want_fa, want_gn):
-            raise AssertionError(f"launch counts {(got_fa, got_gn)} != expected "
-                                 f"{(want_fa, want_gn)} for {row}")
-    totals.update(flash=fa.launches, groupnorm=gn.launches)
-    return totals, mods, ids
+        if got != want:
+            raise AssertionError(f"launch counts {got} != expected {want} for {row}")
+    return launch_counts(), mods, ids
 
 
 def serve_agent(device, mods, ids, max_new_tokens: int = 500) -> dict:
@@ -634,8 +745,6 @@ def serve_agent(device, mods, ids, max_new_tokens: int = 500) -> dict:
     from diffsensei_tpu_torch.core.config import AgentConfig
     from diffsensei_tpu_torch.data.mllm_dataset import MLLMTokenSpec, build_inference_prompt
     from diffsensei_tpu_torch.models.mllm.seed_x import ContinuousLVLM
-    from diffsensei_tpu_torch.ops import flash_attention as fa, groupnorm as gn
-    from diffsensei_tpu_torch.ops import int4_matmul as i4
     from diffsensei_tpu_torch.pipelines.pipeline import DiffSenseiPipeline
     from diffsensei_tpu_torch.serve.api import DiffSenseiServer, GenerationRequest
 
@@ -696,12 +805,12 @@ def serve_agent(device, mods, ids, max_new_tokens: int = 500) -> dict:
 
     calls.clear()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = gn.launches = i4.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     img = server.generate(req)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(flash=fa.launches, groupnorm=gn.launches, int4=i4.launches)
+    launches = launch_counts()
     call_ms = [start.elapsed_time(end) for start, end in calls]
     feat = result["img_gen_feat"]
     ids_out = result["output_ids"][0]
@@ -720,8 +829,8 @@ def serve_agent(device, mods, ids, max_new_tokens: int = 500) -> dict:
                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
                launches=launches)
     emit({"phase": "serve_agent", **row})
-    want = dict(flash=20 * 70, groupnorm=20 * 34 + 28,
-                int4=max_new_tokens * (7 * acfg.llm.num_layers + 1))
+    want = expect(flash_fwd=20 * 70, groupnorm=20 * 34 + 28, dual=20 * 70,
+                  int4=max_new_tokens * (7 * acfg.llm.num_layers + 1))
     if launches != want:
         raise AssertionError(f"launch counts {launches} != expected {want}")
     if not (row["num_gen_imgs"] >= 1 and row["img_gen_feat_finite"] and row["ladder_forced"]
@@ -778,11 +887,8 @@ def train(device) -> dict:
     import torch
     import yaml
     from torch.profiler import ProfilerActivity, profile
-    from diffsensei_tpu_torch.ops import flash_attention as fa, groupnorm as gn
     from diffsensei_tpu_torch.train import cli, optim
 
-    names = ("flash_fwd", "flash_dq", "flash_dkv", "groupnorm")
-    counts = lambda: (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches, gn.launches)
     snap, built = {}, {}
     build_models = cli.build_models
 
@@ -801,19 +907,19 @@ def train(device) -> dict:
 
     def on_step(step, metrics):
         torch.cuda.synchronize()
-        now, c = time.perf_counter(), counts()
+        now, launches = time.perf_counter(), since(clock["counts"])
         if step == PROFILED_STEP + 1:
             prof.stop()
             clock["profiled_s"] = now - clock["profile_start"]
         rows.append(dict(step=step, **{k: float(v) for k, v in metrics.items()},
                          host_s=now - clock["last"],
                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                         launches=dict(zip(names, (a - b for a, b in zip(c, clock["counts"]))))))
+                         launches=launches))
         torch.cuda.reset_peak_memory_stats()
         if step == PROFILED_STEP:
             prof.start()
             clock["profile_start"] = time.perf_counter()
-        clock.update(last=time.perf_counter(), counts=counts())
+        clock.update(last=time.perf_counter(), counts=launch_counts())
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
@@ -828,16 +934,16 @@ def train(device) -> dict:
 
         cli.build_models = capture
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = gn.launches = 0
+        reset_counts()
         t0 = clock["last"] = time.perf_counter()
-        clock["counts"] = counts()
+        clock["counts"] = launch_counts()
         try:
             state = cli.main(["--config", str(tmp / "config.yaml")], on_step=on_step)
         finally:
             cli.build_models = build_models
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        totals = dict(zip(names, counts()))
+        totals = launch_counts()
         logged = [json.loads(line) for line in (tmp / "logs" / "metrics.jsonl").read_text()
                   .splitlines()]
         checkpoints = sorted(p.parent.name for p in (tmp / "logs").glob("step-*/ckpt.pt"))
@@ -862,8 +968,8 @@ def train(device) -> dict:
                    launches=totals)
     emit({"phase": "train_summary", **summary})
     # per step, remat on: B1 70 forward + 70 replayed, B2 and B4 70 each; B3 34 in
-    # the UNet forward + 34 replayed + 20 in the VAE encoder
-    want = dict(flash_fwd=140, flash_dq=70, flash_dkv=70, groupnorm=88)
+    # the UNet forward + 34 replayed + 20 in the VAE encoder; B5 70 + 70 replayed
+    want = expect(flash_fwd=140, flash_dq=70, flash_dkv=70, groupnorm=88, dual=140)
     if len(rows) != TRAIN_STEPS or not all(np.isfinite(r["loss"]) for r in rows):
         raise AssertionError(f"a bad loss: {rows}")
     if checkpoints != ["step-3", "step-6"]:
@@ -873,14 +979,14 @@ def train(device) -> dict:
     if any(r["launches"] != want for r in rows):
         raise AssertionError(f"launch counts per step {[r['launches'] for r in rows]} "
                              f"!= {want}")
-    profile_train(prof, clock["profiled_s"])
+    profile_train(prof, clock["profiled_s"], PROFILED_STEP + 1)
     return totals
 
 
-def profile_train(prof, wall_s: float) -> None:
-    """Where one train step's time goes, from the profiler over step
-    ``PROFILED_STEP + 1``: device time (kernel time summed), kernels launched,
-    the device's busy share, the ten kernels that take the most time."""
+def profile_train(prof, wall_s: float, step: int, phase: str = "profile_train") -> None:
+    """Where one train step's time goes, from the profiler over ``step``:
+    device time (kernel time summed), kernels launched, the device's busy
+    share, the ten kernels that take the most time."""
     import torch
 
     events = prof.key_averages()
@@ -891,12 +997,279 @@ def profile_train(prof, wall_s: float) -> None:
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     seen = bool(kernels)     # None below: the profiler saw no device time
-    emit({"phase": "profile_train", "step": PROFILED_STEP + 1, "wall_s": wall_s,
+    emit({"phase": phase, "step": step, "wall_s": wall_s,
           "device_s": device_us / 1e6 if seen else None,
           "device_busy_share": device_us / 1e6 / wall_s if seen else None,
           "kernels": sum(e.count for e in kernels) if seen else None,
           "top": [dict(name=e.key[:80], ms=e.self_device_time_total / 1e3, count=e.count)
                   for e in top]})
+
+
+def check_reference_train_mllm(device, num_layers: int = 2, tokens: int = 160) -> None:
+    """One stage-3 ``loss_fn`` and its backward on a cut-down stack: the
+    diffusion stack of ``check_reference_train`` (UNet 320/640 with per-block
+    remat; full VAE and Resampler; 2-layer encoders), frozen, beside a
+    SEED-X-width agent cut to ``num_layers`` LLaMA layers (hidden 5120, 40
+    heads of 128, vocab 32330, LoRA r 64 on all seven projections, per-layer
+    remat; the full Qwen resamplers) and a ``tokens``-long stream. On the card
+    the LLaMA base is bf16 and the agent's trainables fp32 (kernels B1-B5 on),
+    against the same weights (rounded to bf16 on both sides), batch and draws
+    on the CPU in fp32. Bounds as ``check_reference_train``: the loss within
+    2e-2, the concatenated trainables' gradient within 5e-2 (relative), every
+    gradient tensor within 1.5e-1."""
+    import dataclasses
+    import torch
+    from diffsensei_tpu_torch.core.config import AgentConfig, LlamaConfig
+    from diffsensei_tpu_torch.data.mllm_dataset import build_mllm_token_stream
+    from diffsensei_tpu_torch.models.mllm.seed_x import ContinuousLVLM
+    from diffsensei_tpu_torch.models.schedulers import DDPMSchedule
+    from diffsensei_tpu_torch.train import cli, diffusion as td, mllm_step
+
+    cpu, card = cut_down_stacks(device, seed=10)
+    acfg = AgentConfig(llm=dataclasses.replace(LlamaConfig.seed_x_13b(), num_layers=num_layers))
+    agents = {"cpu": ContinuousLVLM.build(acfg, torch.float32, device="cpu", seed=11),
+              "card": ContinuousLVLM.build(acfg, torch.bfloat16, device=device, seed=11)}
+    with torch.no_grad():
+        for name, p in agents["cpu"].llm.named_parameters():
+            if name.endswith("lora_B.weight"):   # nonzero, so that lora_A has a gradient
+                p.normal_(0.0, 0.02, generator=torch.Generator().manual_seed(12))
+        for cpu_mod, card_mod in zip(agents["cpu"].networks(), agents["card"].networks()):
+            for p in cpu_mod.parameters():
+                p.copy_(p.bfloat16().float())
+            card_mod.load_state_dict(cpu_mod.state_dict())
+    manga = cpu.manga
+    spec = cli.mllm_token_spec(agents["cpu"], {})
+    stream = build_mllm_token_stream(spec.encode_text("two girls talk on a rainy street"),
+                                     spec, [], tokens)
+    rng = np.random.default_rng(13)
+    i, hw = manga.max_num_ips, 512
+    boxes = np.array([[[0.05, 0.1, 0.45, 0.9], [0.5, 0.1, 0.95, 0.6], [0.5, 0.6, 0.8, 0.95],
+                       [0.1, 0.7, 0.3, 0.95]]])
+    batch = dict(
+        pixel_values=rng.uniform(-1, 1, (1, hw, hw, 3)),
+        text_input_ids=rng.integers(1, 49000, (1, 77)),
+        text_input_ids_2=rng.integers(1, 49000, (1, 77)),
+        ip_pixel_values=rng.normal(size=(1, i, 1, 224, 224, 3)),
+        magi_pixel_values=rng.normal(size=(1, i, 1, 224, 224, 3)),
+        target_ip_pixel_values=rng.normal(size=(1, i, 224, 224, 3)),
+        target_magi_pixel_values=rng.normal(size=(1, i, 224, 224, 3)),
+        ip_exists=np.ones((1, i, 1)), ip_bbox=boxes,
+        dialog_bbox=np.concatenate([[[[0.1, 0.02, 0.6, 0.2]]],
+                                    np.zeros((1, manga.max_num_dialogs - 1, 4))], axis=1),
+        original_size=np.array([[hw, hw]]), crop_coords_top_left=np.zeros((1, 2)),
+        target_size=np.array([[hw, hw]]),
+        **{k: v[None] for k, v in stream.items() if k != "mllm_attention_mask"})
+    draws = dict(latent_noise=rng.normal(size=(1, hw // 8, hw // 8, 4)),
+                 noise=rng.normal(size=(1, hw // 8, hw // 8, 4)), timesteps=np.array([500]))
+
+    def as_t(a, dev):
+        a = np.asarray(a)
+        dtype = {"b": torch.bool, "i": torch.int64}.get(a.dtype.kind, torch.float32)
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    def grads(mods, agent, dev):
+        mods.unet.enable_remat()
+        agent.llm.remat = True
+        params = mllm_step.agent_trainables(agent)
+        step = mllm_step.make_stage3_step(mods.unet, mods.resampler, agent, DDPMSchedule(),
+                                          mllm_step.Stage3Config(manga=manga))
+        frozen = td.FrozenDiffusionStack(
+            vae=mods.vae, text_encoder=mods.text_encoder, text_encoder_2=mods.text_encoder_2,
+            image_encoder=mods.image_encoder, magi_encoder=mods.magi_encoder)
+        loss, metrics = step.loss_fn(frozen, {k: as_t(v, dev) for k, v in batch.items()},
+                                     **{k: as_t(v, dev) for k, v in draws.items()})
+        loss.backward()
+        return (loss.item(), {k: v.item() for k, v in metrics.items()},
+                {k: p.grad.float().cpu() for k, p in params.items()})
+
+    want_loss, want_parts, want = grads(cpu, agents["cpu"], "cpu")
+    reset_counts()
+    got_loss, got_parts, got = grads(card, agents["card"], device)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    per = {k: ((got[k] - want[k]).norm() / want[k].norm()).item() for k in want
+           if want[k].norm() > 0}
+    cat = lambda d: torch.cat([d[k].flatten() for k in want])
+    total = ((cat(got) - cat(want)).norm() / cat(want).norm()).item()
+    worst = max(per, key=per.get)
+    row = dict(module=f"stage3_unet_320_640_llama_{num_layers}_layers_bf16", loss=got_loss,
+               loss_cpu=want_loss, loss_rel_err=abs(got_loss - want_loss) / abs(want_loss),
+               parts=got_parts, parts_cpu=want_parts, grad_rel_frobenius=total,
+               worst_tensor=worst, worst_rel_frobenius=per[worst],
+               median_rel_frobenius=float(np.median(list(per.values()))),
+               trainable_tensors=len(want), zero_gradient_tensors=len(want) - len(per),
+               bounds=dict(loss=2e-2, grad=5e-2, tensor=1.5e-1), launches=launches)
+    emit({"phase": "reference_train_mllm", **row})
+    # 4 self-attentions of 1024 tokens: B1 forward + replay, B2/B4 for the 3
+    # whose input depends on the agent (the first block's comes before any IP
+    # token); 4 cross-attentions: B5 forward + replay; B3 16 in the UNet
+    # forward, 12 replayed (not the 2 resnets before the first IP token), 20
+    # in the VAE encoder
+    want_launches = expect(flash_fwd=8, flash_dq=3, flash_dkv=3, groupnorm=48, dual=8)
+    if not (row["loss_rel_err"] <= 2e-2 and total <= 5e-2 and per[worst] <= 1.5e-1
+            and launches == want_launches):
+        raise AssertionError(f"the stage-3 step on the card disagrees with the CPU "
+                             f"(launches expected {want_launches}): {row}")
+    del cpu, card, agents
+
+
+def checksums(module, dtype_free: bool = False) -> dict:
+    """``{name: (sum, sum of squares)}`` of each parameter's bits as int16
+    words, computed on the card and kept on the host. ``dtype_free`` reads the
+    values as fp32 first, so that a cast without a change of value keeps the
+    checksum."""
+    import torch
+
+    out = {}
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            t = (p.detach().float() if dtype_free else p.detach()).contiguous().view(-1)
+            words = t.view(torch.int16).int()
+            out[name] = (int(words.sum(dtype=torch.int64)),
+                         int((words * words).sum(dtype=torch.int64)))
+    return out
+
+
+MLLM_STEPS, MLLM_PROFILED_STEP = 4, 3
+
+
+def train_mllm(device) -> dict:
+    """Stage 3 through the port's CLI (``train.cli.main``) on
+    ``configs/train/mllm.yaml`` at full SDXL and SEED-X width and depth, with
+    four changes: ``init: random``, no ``weights:`` group, the synthetic data
+    paths (and the log directory beside them), ``max_train_steps: 4,
+    log_every: 1, checkpoint_every: 2``. Each step's losses, seconds, peak
+    memory and kernel launches; step ``MLLM_PROFILED_STEP + 1`` under
+    ``torch.profiler``. Checks: finite losses, checkpoints at steps 2 and 4,
+    every trainable group moved, the frozen LLaMA base, UNet and Resampler
+    bit-equal (checksums), the same launch counts on every step."""
+    import pathlib
+    import tempfile
+    import torch
+    import yaml
+    from torch.profiler import ProfilerActivity, profile
+    from diffsensei_tpu_torch.train import cli
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train_mllm_start",
+          "memory_allocated_gib": torch.cuda.memory_allocated() / 2**30})
+    before, built = {}, {}
+    build_models, build_agent = cli.build_models, cli.build_agent
+
+    def capture_models(*args, **kwargs):
+        mods = build_models(*args, **kwargs)
+        before["unet"], before["resampler"] = checksums(mods.unet), checksums(mods.resampler)
+        built["mods"] = mods
+        return mods
+
+    def capture_agent(*args, **kwargs):
+        agent = build_agent(*args, **kwargs)
+        emit({"phase": "train_mllm_build",
+              "params": {name: sum(p.numel() for p in m.parameters())
+                         for name, m in zip(("llm", "input_resampler", "output_resampler"),
+                                            agent.networks())},
+              "memory_allocated_gib": torch.cuda.memory_allocated() / 2**30})
+        for name, mod in zip(("llm", "input_resampler", "output_resampler"), agent.networks()):
+            before[name] = checksums(mod, dtype_free=True)
+        built["agent"] = agent
+        return agent
+
+    rows, prof = [], profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    clock = {}
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now, launches = time.perf_counter(), since(clock["counts"])
+        if step == MLLM_PROFILED_STEP + 1:
+            prof.stop()
+            clock["profiled_s"] = now - clock["profile_start"]
+        rows.append(dict(step=step, **{k: float(v) for k, v in metrics.items()},
+                         host_s=now - clock["last"],
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         launches=launches))
+        torch.cuda.reset_peak_memory_stats()
+        if step == MLLM_PROFILED_STEP:
+            prof.start()
+            clock["profile_start"] = time.perf_counter()
+        clock.update(last=time.perf_counter(), counts=launch_counts())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        write_mangazero(tmp)
+        cfg = yaml.safe_load(pathlib.Path("configs/train/mllm.yaml").read_text())
+        cfg.pop("weights")
+        cfg["model"]["init"] = "random"
+        cfg["train_data"].update(ann_path=str(tmp / "annotations.json"), image_root=str(tmp))
+        cfg["trainer"].update(max_train_steps=MLLM_STEPS, log_every=1, checkpoint_every=2,
+                              log_dir=str(tmp / "logs"))
+        (tmp / "config.yaml").write_text(yaml.safe_dump(cfg))
+
+        cli.build_models, cli.build_agent = capture_models, capture_agent
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = clock["last"] = time.perf_counter()
+        clock["counts"] = launch_counts()
+        try:
+            state = cli.main(["--config", str(tmp / "config.yaml")], on_step=on_step)
+        finally:
+            cli.build_models, cli.build_agent = build_models, build_agent
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        totals = launch_counts()
+        logged = [json.loads(line) for line in (tmp / "logs" / "metrics.jsonl").read_text()
+                  .splitlines()]
+        ckpts = {p.parent.name: p.stat().st_size
+                 for p in (tmp / "logs").glob("step-*/ckpt.pt")}
+
+    for row, rec in zip(rows, logged):
+        row.update(step_s=rec["time/step_s"], data_s=rec["time/data_s"])
+        emit({"phase": "train_mllm", **row})
+    mods, agent = built.pop("mods"), built.pop("agent")
+    after = {"unet": checksums(mods.unet), "resampler": checksums(mods.resampler)}
+    for name, mod in zip(("llm", "input_resampler", "output_resampler"), agent.networks()):
+        after[name] = checksums(mod, dtype_free=True)
+    trainable = set(state.params)
+
+    def group(net, name):
+        if f"{net}.{name}" not in trainable:
+            return f"frozen_{net}"
+        if net != "llm":
+            return net
+        for key in ("lora_", "embed_tokens", "lm_head"):
+            if key in name:
+                return key.rstrip("_")
+        return "norm"
+
+    moved = {}
+    for net, sums in before.items():
+        for name, was in sums.items():
+            moved.setdefault(group(net, name), []).append(after[net][name] != was)
+    del mods, agent, state
+    summary = dict(steps=len(rows), seconds=seconds, checkpoints=sorted(ckpts),
+                   checkpoint_bytes=ckpts, trainable_tensors=len(trainable),
+                   moved={k: f"{sum(v)}/{len(v)}" for k, v in sorted(moved.items())},
+                   launches=totals)
+    emit({"phase": "train_mllm_summary", **summary})
+    # per step, remat on: B5 70 forward + 70 replayed; B1 70 + 70 replayed; B2
+    # and B4 69, every self-attention but the first transformer block's, whose
+    # input comes before any IP token and needs no gradient; B3 34 in the UNet
+    # forward + 28 replayed (not the 3 resnets before the first cross-attention)
+    # + 20 in the VAE encoder; the LLaMA's 400-token attention is plain math
+    want = expect(flash_fwd=140, flash_dq=69, flash_dkv=69, groupnorm=82, dual=140)
+    losses = ("loss", "loss_diffusion", "loss_lm", "loss_rec")
+    if len(rows) != MLLM_STEPS or not all(np.isfinite(r[k]) for r in rows for k in losses):
+        raise AssertionError(f"a bad loss: {rows}")
+    if sorted(ckpts) != ["step-2", "step-4"]:
+        raise AssertionError(f"checkpoints {sorted(ckpts)} != step-2, step-4")
+    groups = ("lora", "embed_tokens", "lm_head", "norm", "input_resampler", "output_resampler")
+    frozen = ("frozen_llm", "frozen_unet", "frozen_resampler")
+    if not (all(all(moved[g]) for g in groups) and not any(any(moved[g]) for g in frozen)):
+        raise AssertionError(f"trainables did not move or frozen weights did: {summary}")
+    if any(r["launches"] != want for r in rows):
+        raise AssertionError(f"launch counts per step {[r['launches'] for r in rows]} != {want}")
+    profile_train(prof, clock["profiled_s"], MLLM_PROFILED_STEP + 1, "profile_train_mllm")
+    return totals
 
 
 def profile_decode(device, llm, prompt_len: int = 83, steps: int = 16) -> None:
@@ -946,6 +1319,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from diffsensei_tpu_torch.ops import dual_cross_attention as dca
     from diffsensei_tpu_torch.ops import flash_attention as fa, groupnorm as gn
     from diffsensei_tpu_torch.ops import int4_matmul as i4
 
@@ -964,8 +1338,9 @@ def main() -> int:
         fn()
         return time.perf_counter() - t
 
-    with ThreadPoolExecutor(2) as pool:       # one nvcc for each CUDA source, together
+    with ThreadPoolExecutor(3) as pool:       # one nvcc for each CUDA source, together
         nvcc = {"flash_attention": pool.submit(timed, fa.build),
+                "dual_cross_attention": pool.submit(timed, dca.build),
                 "int4_matmul": pool.submit(timed, i4.build)}
         t0 = time.perf_counter()
         gn.build()
@@ -980,50 +1355,57 @@ def main() -> int:
         log = _build.cuda_library(f"{name}.cu").with_suffix(".log").read_text()
         ptxas[name] = [ln.strip() for ln in log.splitlines()
                        if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "flash_attention_nvcc_s": nvcc["flash_attention"],
-          "int4_matmul_nvcc_s": nvcc["int4_matmul"], "groupnorm_triton_s": t_gn,
-          "ptxas": ptxas})
+    emit({"phase": "build", **{f"{name}_nvcc_s": t for name, t in nvcc.items()},
+          "groupnorm_triton_s": t_gn, "ptxas": ptxas})
 
     flash = check_flash(device)
     gnorm = check_groupnorm(device)
     int4 = check_int4(device)
     flash_dq, flash_dkv = check_flash_bwd(device)
+    dual = check_dual(device)
     check_reference(device)
     check_llama_reference(device)
     check_reference_train(device)
-    launches, mods, ids = serve(device)
-    agent_launches = serve_agent(device, mods, ids)
+    check_reference_train_mllm(device)
+    paths = {}
+    paths["serve"], mods, ids = serve(device)
+    paths["serve_agent"] = serve_agent(device, mods, ids)
     del mods
     torch.cuda.empty_cache()
-    train_launches = train(device)
+    paths["train"] = train(device)
+    paths["train_mllm"] = train_mllm(device)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    by_path = lambda serve_key, train_key: dict(
-        launches=launches[serve_key] + agent_launches[serve_key] + train_launches[train_key],
-        launches_by_path=dict(serve=launches[serve_key], serve_agent=agent_launches[serve_key],
-                              train=train_launches[train_key]))
+
+    def on_paths(key):
+        by_path = {name: counts[key] for name, counts in paths.items() if counts[key]}
+        return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     emit({"kernels": [
         dict(name="flash_attention_fwd", route="cuda",
              source="diffsensei_tpu_torch/csrc/flash_attention.cu",
              replaces="diffsensei_tpu/ops/flash_attention.py:59",
-             **by_path("flash", "flash_fwd"), **flash),
+             **on_paths("flash_fwd"), **flash),
         dict(name="groupnorm_silu", route="triton",
              source="diffsensei_tpu_torch/csrc/groupnorm_silu.py",
              replaces="diffsensei_tpu/ops/groupnorm.py:44",
-             **by_path("groupnorm", "groupnorm"), **gnorm),
+             **on_paths("groupnorm"), **gnorm),
         dict(name="int4_decode_matmul", route="cuda",
              source="diffsensei_tpu_torch/csrc/int4_matmul.cu",
              replaces="diffsensei_tpu/ops/int4_matmul.py:125",
-             launches=agent_launches["int4"], **int4),
+             **on_paths("int4"), **int4),
         dict(name="flash_attention_dq", route="cuda",
              source="diffsensei_tpu_torch/csrc/flash_attention.cu",
              replaces="diffsensei_tpu/ops/flash_attention.py:196",
-             launches=train_launches["flash_dq"], **flash_dq),
+             **on_paths("flash_dq"), **flash_dq),
         dict(name="flash_attention_dkv", route="cuda",
              source="diffsensei_tpu_torch/csrc/flash_attention.cu",
              replaces="diffsensei_tpu/ops/flash_attention.py:258",
-             launches=train_launches["flash_dkv"], **flash_dkv),
+             **on_paths("flash_dkv"), **flash_dkv),
+        dict(name="dual_cross_attention", route="cuda",
+             source="diffsensei_tpu_torch/csrc/dual_cross_attention.cu",
+             replaces="diffsensei_tpu/ops/dual_cross_attention.py:35",
+             **on_paths("dual"), **dual),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

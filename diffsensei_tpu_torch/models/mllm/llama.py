@@ -14,7 +14,13 @@ port's dispatcher, so it reaches B1 only at 1024 keys or more in bf16. The KV
 cache is written in place at ``cache_index`` (the JAX package returns a new
 one), which keeps one buffer per layer for the whole request.
 
-Left for the training slice: ``cross_entropy_lm_loss`` and remat.
+Training (stage 3): ``cross_entropy_lm_loss`` is the shifted LM loss;
+``remat`` recomputes each layer in the backward (``torch.utils.checkpoint``,
+the JAX ``nn.remat`` with policy None); and fp32 trainables (the adapters,
+the embeddings, ``lm_head``, the norms) may sit in a bf16 model, because the
+dense layers cast their weights to the activations' dtype at use and the
+forward computes in ``compute_dtype`` when it is set. As in the JAX package,
+the training forward masks causally and not over the padding.
 """
 
 from __future__ import annotations
@@ -25,8 +31,10 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from diffsensei_tpu_torch.core.config import LlamaConfig
+from diffsensei_tpu_torch.models.layers import Linear
 from diffsensei_tpu_torch.ops import int4_matmul as i4
 from diffsensei_tpu_torch.ops.attention import multi_head_attention
 
@@ -90,9 +98,10 @@ class Int4Dense(nn.Module):
 
 
 class LoRADense(nn.Module):
-    """A projection: a base (dense ``nn.Linear`` without bias, ``Int8Dense``
+    """A projection: a base (dense ``Linear`` without bias, ``Int8Dense``
     or ``Int4Dense`` by ``quantized``: False, True/"int8", "int4") plus an
-    optional low-rank adapter, ``y = base(x) + (alpha/r) (x A) B``."""
+    optional low-rank adapter, ``y = base(x) + (alpha/r) (x A) B``; the dense
+    weights are cast to x's dtype at use."""
 
     def __init__(self, in_features: int, features: int, lora_rank: int = 0,
                  lora_alpha: float = 16.0, quantized=False, dtype=torch.float32,
@@ -104,11 +113,11 @@ class LoRADense(nn.Module):
         elif quantized:
             self.base = Int8Dense(in_features, features, **kw)
         else:
-            self.base = nn.Linear(in_features, features, bias=False, **kw)
+            self.base = Linear(in_features, features, bias=False, **kw)
         self.lora_rank, self.lora_alpha = lora_rank, lora_alpha
         if lora_rank > 0:
-            self.lora_A = nn.Linear(in_features, lora_rank, bias=False, **kw)
-            self.lora_B = nn.Linear(lora_rank, features, bias=False, **kw)
+            self.lora_A = Linear(in_features, lora_rank, bias=False, **kw)
+            self.lora_B = Linear(lora_rank, features, bias=False, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.base(x)
@@ -252,8 +261,8 @@ class LlamaForCausalLM(nn.Module):
     def __init__(self, config: LlamaConfig, lora_rank: int = 0, quantized=False,
                  dtype=torch.float32, device=None):
         super().__init__()
-        self.config, self.lora_rank, self.quantized, self.dtype = (
-            config, lora_rank, quantized, dtype)
+        self.config, self.lora_rank, self.quantized = config, lora_rank, quantized
+        self._dtype = dtype
         kw = dict(dtype=dtype, device=device)
         self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size, **kw)
         self.layers = nn.ModuleList(
@@ -265,8 +274,20 @@ class LlamaForCausalLM(nn.Module):
         elif quantized:
             self.lm_head = Int8Dense(config.hidden_size, config.vocab_size, **kw)
         else:
-            self.lm_head = nn.Linear(config.hidden_size, config.vocab_size, bias=False, **kw)
+            self.lm_head = Linear(config.hidden_size, config.vocab_size, bias=False, **kw)
+        self.compute_dtype: Optional[torch.dtype] = None
+        self.remat = False
         self._rope = {}
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype: ``compute_dtype`` when set, else the build's."""
+        return self.compute_dtype or self._dtype
+
+    def _layer(self, layer: nn.Module, *args):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(layer, *args, use_reentrant=False)
+        return layer(*args)
 
     def rotary(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """The rotary tables on ``device``, computed once."""
@@ -285,7 +306,7 @@ class LlamaForCausalLM(nn.Module):
                 caches: Optional[List[Cache]] = None, cache_index: Optional[int] = None):
         if inputs_embeds is None:
             inputs_embeds = self.embed_tokens(input_ids)
-        x = inputs_embeds
+        x = inputs_embeds.to(self.dtype)
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -293,8 +314,10 @@ class LlamaForCausalLM(nn.Module):
         bias = None if caches is None else decode_bias(positions, caches[0][0].shape[2])
         new_caches = []
         for idx, layer in enumerate(self.layers):
-            cache = None if caches is None else caches[idx]
-            x, nc = layer(x, cos, sin, positions, cache, cache_index, bias)
+            if caches is None:
+                x, nc = self._layer(layer, x, cos, sin, positions)
+            else:
+                x, nc = layer(x, cos, sin, positions, caches[idx], cache_index, bias)
             new_caches.append(nc)
         x = self.norm(x)
         logits = self.lm_head(x)
@@ -307,3 +330,17 @@ def init_caches(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.float32,
     return [(torch.zeros(shape, dtype=dtype, device=device),
              torch.zeros(shape, dtype=dtype, device=device))
             for _ in range(cfg.num_layers)]
+
+
+def cross_entropy_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                          ignore_index: int = -100) -> torch.Tensor:
+    """Shifted LM loss (HF convention: ``logits[:, :-1]`` predict
+    ``labels[:, 1:]``), the mean over the labels that are not
+    ``ignore_index``; 0 where every label is ignored (the JAX package divides
+    by ``max(count, 1)``, where ``F.cross_entropy`` would give NaN)."""
+    logits = logits[:, :-1].float()
+    targets = labels[:, 1:].long()
+    valid = targets != ignore_index
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, torch.where(valid, targets, 0)[..., None])[..., 0]
+    return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)

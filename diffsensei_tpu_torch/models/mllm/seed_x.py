@@ -11,28 +11,38 @@ prompt (port of ``diffsensei_tpu/models/mllm/seed_x.py``, serving half).
   chosen token stays on the device between steps.
 * The agent's output is the ``nq`` hidden states before each ``</img>``,
   resampled by the output resampler into ``img_gen_feat``.
-
-Left for the training slice: ``loss``.
+* ``loss`` is the stage-3 training forward: resample the character blocks,
+  scatter the comprehension block into the token stream, the LLM's LM loss,
+  and the reconstruction loss of the output resampler over the generation
+  slots' hidden states against the target block. The row orders are stable
+  sorts, as the JAX package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from diffsensei_tpu_torch.core.config import AgentConfig
-from diffsensei_tpu_torch.models.mllm.llama import LlamaForCausalLM, init_caches
+from diffsensei_tpu_torch.models.mllm.llama import (
+    LlamaForCausalLM, cross_entropy_lm_loss, init_caches)
 from diffsensei_tpu_torch.models.mllm.qwen_resampler import QwenResampler
+
+
+def _true_first(mask: torch.Tensor) -> torch.Tensor:
+    """Per row, the indices with ``mask`` True first, each group in order
+    (a stable argsort of ``~mask``)."""
+    return torch.argsort((~mask).to(torch.int8), dim=1, stable=True)
 
 
 def _ordered_true_gather(values: torch.Tensor, mask: torch.Tensor,
                          count: int) -> torch.Tensor:
     """Per row, the first ``count`` entries of ``values`` where ``mask`` is
     True, in order. values ``[B, L, D]``, mask ``[B, L]`` -> ``[B, count, D]``."""
-    order = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)[:, :count]
+    order = _true_first(mask)[:, :count]
     return torch.gather(values, 1, order[..., None].expand(-1, -1, values.shape[-1]))
 
 
@@ -58,12 +68,16 @@ class ContinuousLVLM:
     @classmethod
     def build(cls, config: AgentConfig, dtype: torch.dtype = torch.float32,
               lora_rank: Optional[int] = None, quantized=False, device="cuda",
-              seed: int = 0) -> "ContinuousLVLM":
-        """Random flax-like weights drawn on ``device`` from ``seed``.
+              seed: int = 0, remat: bool = False) -> "ContinuousLVLM":
+        """Random flax-like weights drawn on ``device`` from ``seed``, every
+        parameter frozen.
 
         ``quantized`` ("int8"/True or "int4") builds the weight-only quantized
         serving LLM without LoRA; real weights come through
-        ``quant.quantize_agent``."""
+        ``quant.quantize_agent``. For training, build in the base's dtype
+        (bf16 on the card) with ``remat`` for per-layer recompute; then
+        ``train.mllm_step.agent_trainables`` makes the trainables fp32 and
+        trainable beside the frozen base."""
         from diffsensei_tpu_torch.utils.init import init_flax_like_
 
         lora = config.lora.rank if lora_rank is None else lora_rank
@@ -79,6 +93,7 @@ class ContinuousLVLM:
         gen = torch.Generator(device=device).manual_seed(seed)
         for mod in agent.networks():
             init_flax_like_(mod.to_empty(device=device), gen).eval().requires_grad_(False)
+        agent.llm.remat = remat
         return agent
 
     def networks(self):
@@ -87,6 +102,53 @@ class ContinuousLVLM:
     @property
     def device(self) -> torch.device:
         return self.llm.embed_tokens.weight.device
+
+    def loss(self, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``(lm_scale * lm + rec_scale * rec, {"lm_loss", "rec_loss",
+        "recon_image_embeds"})`` over the modules' parameters.
+
+        batch: ``input_ids`` / ``labels`` [B, L] (labels -100 outside the
+        supervision); ``image_embeds`` [B, n_img, S_img, D_in] character
+        blocks; ``embeds_cmp_mask`` / ``embeds_gen_mask`` [B, n_img] bool;
+        ``ids_cmp_mask`` / ``ids_gen_mask`` [B, L] bool (nq slots an image).
+        ``recon_image_embeds`` is [B, nq_out, D_out]. A row's rec loss counts
+        only where it has a generation image and at least nq generation
+        slots."""
+        cfg = self.config
+        nq_in = cfg.input_resampler.num_queries
+        nq_out = cfg.output_resampler.num_queries
+        cmp_mask, gen_mask = batch["embeds_cmp_mask"].bool(), batch["embeds_gen_mask"].bool()
+        ids_gen = batch["ids_gen_mask"].bool()
+        b, n_img = cmp_mask.shape
+        img = batch["image_embeds"]
+        s_img, d_in = img.shape[-2:]
+
+        # 1. every image block through the input resampler
+        img_lm = self.input_resampler(img.reshape(b * n_img, s_img, d_in))
+        img_lm = img_lm.reshape(b, n_img, nq_in, -1)
+
+        # 2. comprehension rows first, flattened, scattered into the stream
+        order = _true_first(cmp_mask)
+        cmp_tokens = torch.gather(img_lm, 1, order[:, :, None, None].expand_as(img_lm))
+        input_embeds = self.llm.embed_tokens_only(batch["input_ids"].long())
+        input_embeds = _ordered_scatter(input_embeds, batch["ids_cmp_mask"].bool(),
+                                        cmp_tokens.reshape(b, n_img * nq_in, -1))
+
+        # 3. the LLM and its LM loss
+        logits, hidden, _ = self.llm(inputs_embeds=input_embeds)
+        lm_loss = cross_entropy_lm_loss(logits, batch["labels"])
+
+        # 4. generation slots -> output resampler, against the target block
+        recon = self.output_resampler(_ordered_true_gather(hidden, ids_gen, nq_in))
+        first_gen = _true_first(gen_mask)[:, 0]
+        target = img[torch.arange(b, device=img.device), first_gen][:, :nq_out].detach()
+        valid = (gen_mask.sum(dim=1) > 0) & (ids_gen.sum(dim=1) >= nq_in)
+        err = (recon.float() - target.float()).square().mean(dim=(1, 2))
+        rec_loss = torch.where(valid, err, 0.0).sum() / valid.sum().clamp(min=1)
+
+        total = cfg.lm_loss_scale * lm_loss + cfg.rec_loss_scale * rec_loss
+        return total, {"lm_loss": lm_loss, "rec_loss": rec_loss, "recon_image_embeds": recon}
 
     @torch.inference_mode()
     def generate(self, input_ids, image_embeds=None, ids_cmp_mask=None,

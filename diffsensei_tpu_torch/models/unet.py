@@ -11,7 +11,10 @@ DiffSensei ``pytorch_model.bin`` stores them, plus ``dialog_bbox_embedding``.
 
 Spatial self-attention with at least 1024 tokens runs on kernel B1 (B2 and
 B4 in the backward) and every resnet GroupNorm+SiLU on kernel B3 (through
-``ops/attention.py`` and ``models/layers.py``).
+``ops/attention.py`` and ``models/layers.py``). On the card in bf16, a
+cross-attention layer with IP context computes its two attentions in one
+launch of kernel B5 (``ops/dual_cross_attention.py``); elsewhere (the CPU,
+fp32, no IP context) it makes the two dispatcher calls of the JAX layer.
 
 Training: ``enable_remat`` checkpoints each ``ResnetBlock2D`` and each
 transformer stack (``torch.utils.checkpoint``, full recompute, the JAX
@@ -35,6 +38,7 @@ from diffsensei_tpu_torch.models.layers import (
     TimestepEmbedding, Upsample2D, timestep_embedding)
 from diffsensei_tpu_torch.models.lora import LoRADense
 from diffsensei_tpu_torch.ops.attention import multi_head_attention
+from diffsensei_tpu_torch.ops.dual_cross_attention import dual_cross_attention, uses_kernel
 from diffsensei_tpu_torch.ops.masked_ip import rasterize_dialog_embedding
 
 
@@ -90,13 +94,18 @@ class MangaCrossAttention(nn.Module):
         q = _split_heads(self.to_q(x), self.heads)
         k = _split_heads(self.to_k(ctx_text), self.heads)
         v = _split_heads(self.to_v(ctx_text), self.heads)
-        h = multi_head_attention(q, k, v)
-        if ctx_ip is not None:
-            k_ip = _split_heads(self.processor.to_k_ip(ctx_ip), self.heads)
-            v_ip = _split_heads(self.processor.to_v_ip(ctx_ip), self.heads)
-            bias = None if ip_bias is None else ip_bias[:, None, :, :]
-            h = h + ip_scale * multi_head_attention(q, k_ip, v_ip, bias=bias)
-        return self.to_out[0](_merge_heads(h))
+        if ctx_ip is None:
+            return self.to_out[0](_merge_heads(multi_head_attention(q, k, v)))
+        k_ip = _split_heads(self.processor.to_k_ip(ctx_ip), self.heads)
+        v_ip = _split_heads(self.processor.to_v_ip(ctx_ip), self.heads)
+        bias = None if ip_bias is None else ip_bias[:, None, :, :]
+        if uses_kernel(q, k, k_ip):
+            h, h_ip = dual_cross_attention(q, k, v, k_ip, v_ip,
+                                           None if bias is None else bias.float())
+        else:
+            h = multi_head_attention(q, k, v)
+            h_ip = multi_head_attention(q, k_ip, v_ip, bias=bias)
+        return self.to_out[0](_merge_heads(h + ip_scale * h_ip))
 
 
 class BasicTransformerBlock(nn.Module):

@@ -6,12 +6,14 @@ The YAML schema is the JAX CLI's (``configs/train/*.yaml``): ``stage``, the
 groups. It runs on the card unless ``--device cpu`` asks for the CPU, where
 every kernel wrapper takes its plain twin.
 
-Ported: stages ``t2i`` (1) and ``condition`` (2), the presets ``tiny`` and
-``sdxl`` with ``init: random``, per-block remat (``model.remat``), gradient
-accumulation, checkpoints and resume. Refused with an error rather than
-ignored: ``stage: mllm`` (stage 3), a ``weights:`` group (the checkpoint
-loaders of ``utils/load.py``), ``unet_trained_parameters: lora`` (LoRA
-adapters), ``param_dtype`` other than float32, tokenizer files, and
+Ported: stages ``t2i`` (1), ``condition`` (2) and ``mllm`` (3: the SEED-X
+agent with LoRA on its LLaMA, ``model.agent``), the presets ``tiny`` and
+``sdxl`` with ``init: random``, per-block remat (``model.remat``) and
+per-layer LLaMA remat (``model.agent.remat``), gradient accumulation,
+checkpoints and resume. Refused with an error rather than ignored: a
+``weights:`` group (the checkpoint loaders of ``utils/load.py``),
+``unet_trained_parameters: lora`` (UNet LoRA adapters), ``param_dtype`` other
+than float32, tokenizer files, a named remat policy, and
 ``trainer.parallel: fsdp`` (multi-GPU layouts).
 """
 
@@ -24,14 +26,18 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from diffsensei_tpu_torch.core.config import load_yaml_config
+from diffsensei_tpu_torch.core.config import (
+    AgentConfig, LlamaConfig, QwenResamplerConfig, load_yaml_config)
 from diffsensei_tpu_torch.data.bucket_dataset import (
     BucketDatasetConfig, MangaTrainSizeBucketDataset)
 from diffsensei_tpu_torch.data.loader import PrefetchLoader
+from diffsensei_tpu_torch.data.mllm_dataset import MangaTrainMLLMDataset, MLLMTokenSpec
+from diffsensei_tpu_torch.models.mllm.seed_x import ContinuousLVLM
 from diffsensei_tpu_torch.models.schedulers import DDPMSchedule
 from diffsensei_tpu_torch.pipelines.pipeline import PipelineModules
 from diffsensei_tpu_torch.train.diffusion import (
     FrozenDiffusionStack, Stage2Config, TrainState, make_stage1_step, make_stage2_step)
+from diffsensei_tpu_torch.train.mllm_step import Stage3Config, agent_trainables, make_stage3_step
 from diffsensei_tpu_torch.train.optim import (
     make_lr_schedule, make_optimizer, partition_params, unet_trainable_mask)
 from diffsensei_tpu_torch.train.runner import RunConfig, run_training
@@ -77,6 +83,52 @@ def build_models(model_cfg: Dict[str, Any], device="cuda", seed: int = 0) -> Pip
     return mods
 
 
+def build_agent(model_cfg: Dict[str, Any], modules: PipelineModules, device="cuda",
+                seed: int = 0) -> ContinuousLVLM:
+    """The SEED-X agent of ``model.agent`` beside ``modules``, in the UNet's
+    dtype, random flax-like weights from ``seed``: the JAX CLI's small agent
+    for the ``tiny`` preset (its resamplers sized to the stack's IP tokens),
+    ``AgentConfig()`` for ``sdxl``; ``lora_rank`` and ``remat`` from
+    ``model.agent``."""
+    agent_cfg = dict(model_cfg.get("agent", {}) or {})
+    if agent_cfg.get("remat_policy") is not None:
+        raise NotImplementedError("model.agent.remat_policy is not ported yet "
+                                  "(only full recompute)")
+    if model_cfg.get("preset", "tiny") == "tiny":
+        llm, iv = LlamaConfig.tiny(), modules.manga.num_ip_tokens
+        cross = modules.unet.config.cross_attention_dim
+        acfg = AgentConfig(
+            llm=llm,
+            input_resampler=QwenResamplerConfig(grid_size=2, num_queries_override=iv,
+                                                embed_dim=llm.hidden_size, num_heads=4,
+                                                kv_dim=cross),
+            output_resampler=QwenResamplerConfig(grid_size=2, num_queries_override=iv,
+                                                 embed_dim=cross, num_heads=4,
+                                                 kv_dim=llm.hidden_size))
+    else:
+        acfg = AgentConfig()
+    return ContinuousLVLM.build(acfg, dtype=modules.unet.dtype,
+                                lora_rank=int(agent_cfg.get("lora_rank", acfg.lora.rank)),
+                                device=device, seed=seed + 3,
+                                remat=bool(agent_cfg.get("remat", True)))
+
+
+def mllm_token_spec(agent: ContinuousLVLM, train_data: Dict[str, Any]) -> MLLMTokenSpec:
+    """The stream's ids: the image ladder at the top of the vocabulary (or
+    ``train_data.mllm_ladder_ids``) and caption words hashed by CRC-32 below
+    it (the JAX CLI hashes with Python's ``hash``, which changes from process
+    to process)."""
+    vocab = agent.config.llm.vocab_size
+    n_img = agent.config.input_resampler.num_queries
+    ladder = list(train_data.get("mllm_ladder_ids", range(vocab - n_img - 2, vocab)))
+    return MLLMTokenSpec(
+        bos_id=train_data.get("mllm_bos_id", 1), eos_id=train_data.get("mllm_eos_id", 2),
+        pad_id=train_data.get("mllm_pad_id", 0), boi_id=ladder[0], eoi_id=ladder[-1],
+        img_ids=ladder[1:-1],
+        encode_text=lambda text: [zlib.crc32(w.encode()) % (vocab - n_img - 10) + 3
+                                  for w in text.split()])
+
+
 def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> TrainState:
     """Run the config's training; ``on_step(step, metrics)`` sees every step."""
     parser = argparse.ArgumentParser()
@@ -89,9 +141,7 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> Tr
 
     cfg = load_yaml_config(args.config)
     stage = cfg.get("stage", "condition")
-    if stage == "mllm":
-        raise NotImplementedError("stage 3: ROADMAP slice 4b")
-    if stage not in ("t2i", "condition"):
+    if stage not in ("t2i", "condition", "mllm"):
         raise ValueError(f"unknown stage {stage}")
     if cfg.get("weights"):
         raise NotImplementedError("the weights: group needs utils/load.py, which is not "
@@ -124,10 +174,16 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> Tr
         max_num_dialogs=manga.max_num_dialogs, mask_dialog=td.get("mask_dialog", False),
         ip_self_condition_rate=td.get("ip_self_condition_rate", 0.5),
         ip_flip_rate=td.get("ip_flip_rate", 0.5), batch_size=td.get("batch_size", 8))
-    dataset = MangaTrainSizeBucketDataset(
-        ann_path=td["ann_path"], image_root=td.get("image_root", ""),
-        tokenize=hash_tokenizer(modules.text_encoder.config.vocab_size),
-        tokenize_2=hash_tokenizer(modules.text_encoder_2.config.vocab_size), config=ds_cfg)
+    data_kw = dict(ann_path=td["ann_path"], image_root=td.get("image_root", ""),
+                   tokenize=hash_tokenizer(modules.text_encoder.config.vocab_size),
+                   tokenize_2=hash_tokenizer(modules.text_encoder_2.config.vocab_size),
+                   config=ds_cfg)
+    if stage == "mllm":
+        agent = build_agent(mcfg, modules, device, seed)
+        dataset = MangaTrainMLLMDataset(**data_kw, mllm_spec=mllm_token_spec(agent, td),
+                                        max_token_length=td.get("max_token_length", 400))
+    else:
+        dataset = MangaTrainSizeBucketDataset(**data_kw)
     num_workers = int(td.get("num_workers", 8))
 
     def batches_from(step: int):
@@ -145,20 +201,28 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> Tr
         text_encoder_2=modules.text_encoder_2, image_encoder=modules.image_encoder,
         magi_encoder=modules.magi_encoder, vae_scaling=modules.vae.config.scaling_factor)
     schedule = DDPMSchedule()
-    if stage == "t2i":
-        step_fn = make_stage1_step(modules.unet, schedule)
-        mode = mcfg.get("unet_trained_parameters", "full")
+    if stage == "mllm":
+        # the diffusion stack frozen, the agent's LoRA, embeddings, norms and
+        # resamplers trained
+        step_fn = make_stage3_step(modules.unet, modules.resampler, agent, schedule,
+                                   Stage3Config(manga=manga, mllm_loss_weight=float(
+                                       mcfg.get("mllm_loss_weight", 1.0))))
+        params = agent_trainables(agent)
     else:
-        step_fn = make_stage2_step(modules.unet, modules.resampler, schedule, Stage2Config(
-            manga=manga, ip_contrastive=mcfg.get("ip_contrastive_loss"),
-            ip_contrastive_weight=mcfg.get("ip_contrastive_loss_weight", 0.1)))
-        mode = mcfg.get("unet_trained_parameters", "new")
-    trainable, _ = partition_params(modules.unet, unet_trainable_mask(modules.unet, mode))
-    params = {f"unet.{k}": p for k, p in trainable.items()}
-    if stage == "condition":
-        res = modules.resampler
-        trainable, _ = partition_params(res, {k: True for k, _ in res.named_parameters()})
-        params.update({f"resampler.{k}": p for k, p in trainable.items()})
+        if stage == "t2i":
+            step_fn = make_stage1_step(modules.unet, schedule)
+            mode = mcfg.get("unet_trained_parameters", "full")
+        else:
+            step_fn = make_stage2_step(modules.unet, modules.resampler, schedule, Stage2Config(
+                manga=manga, ip_contrastive=mcfg.get("ip_contrastive_loss"),
+                ip_contrastive_weight=mcfg.get("ip_contrastive_loss_weight", 0.1)))
+            mode = mcfg.get("unet_trained_parameters", "new")
+        trainable, _ = partition_params(modules.unet, unet_trainable_mask(modules.unet, mode))
+        params = {f"unet.{k}": p for k, p in trainable.items()}
+        if stage == "condition":
+            res = modules.resampler
+            trainable, _ = partition_params(res, {k: True for k, _ in res.named_parameters()})
+            params.update({f"resampler.{k}": p for k, p in trainable.items()})
 
     opt_cfg = dict(cfg.get("optimizer", {}))
     lr_cfg = dict(cfg.get("lr_scheduler", {}))

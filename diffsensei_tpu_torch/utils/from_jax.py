@@ -302,9 +302,19 @@ def qwen_resampler(params: Dict) -> StateDict:
     return sd
 
 
+def agent_tree(params: Dict) -> Dict[str, StateDict]:
+    """A stage-3 trainable tree ``{"llm", "input_resampler",
+    "output_resampler"}`` (the JAX ``make_stage3_step``'s params: LoRA
+    adapters and fp32 leaves included) -> the port's state dicts of the same
+    names."""
+    return {"llm": llama(params["llm"]),
+            "input_resampler": qwen_resampler(params["input_resampler"]),
+            "output_resampler": qwen_resampler(params["output_resampler"])}
+
+
 def agent(jagent) -> Dict[str, StateDict]:
     """A JAX ``ContinuousLVLM`` -> ``{"llm", "input_resampler",
     "output_resampler"}`` state dicts for the port's ``ContinuousLVLM``."""
-    return {"llm": llama(jagent.llm_params),
-            "input_resampler": qwen_resampler(jagent.input_resampler_params),
-            "output_resampler": qwen_resampler(jagent.output_resampler_params)}
+    return agent_tree({"llm": jagent.llm_params,
+                       "input_resampler": jagent.input_resampler_params,
+                       "output_resampler": jagent.output_resampler_params})

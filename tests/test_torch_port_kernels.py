@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from diffsensei_tpu_torch.ops import attention as tatt
+from diffsensei_tpu_torch.ops import dual_cross_attention as tdca
 from diffsensei_tpu_torch.ops import flash_attention as tfa
 from diffsensei_tpu_torch.ops import groupnorm as tgn
 from diffsensei_tpu_torch.ops import int4_matmul as ti4
@@ -200,3 +201,70 @@ def test_int4_kernel_rejects_what_it_does_not_take(cuda):
         ti4.int4_decode_matmul(torch.zeros((17, 256), device=cuda).bfloat16(), packed, scale)
     with pytest.raises(ValueError):
         ti4.int4_decode_matmul(x.bfloat16(), packed, scale[:1])
+
+
+def _dual_operands(cuda, b, h, sq, d, n_text, n_ip, bias_shape, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    mk = lambda s: torch.randn((b, h, s, d), generator=g, device=cuda).bfloat16()
+    bias = None
+    if bias_shape is not None:
+        bias = torch.where(torch.rand(bias_shape, generator=g, device=cuda) > 0.4, 0.0, -10000.0)
+    return mk(sq), mk(n_text), mk(n_text), mk(n_ip), mk(n_ip), bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,sq,d,n_text,n_ip,bias", [
+    (2, 10, 4096, 64, 77, 80, "b"),          # UNet level 1 at 1024², batch 2
+    (2, 20, 1024, 64, 77, 80, "b"),          # level 2
+    (2, 10, 4032, 64, 77, 80, "b"),          # the 768x1344 bucket's odd tail
+    (2, 20, 1008, 64, 77, 80, "1"),          # [1, 1, S, K] broadcast bias, odd tail
+    (1, 3, 37, 64, 1, 128, "bh"),            # one text key, the most IP keys
+    (2, 2, 130, 128, 128, 17, None),         # head_dim 128, no bias
+    (1, 2, 64, 64, 16, 16, "b"),             # key counts a multiple of 16
+])
+def test_dual_cross_attention_kernel_matches_plain_on_card(cuda, b, h, sq, d, n_text, n_ip,
+                                                           bias):
+    shape = {"b": (b, 1, sq, n_ip), "1": (1, 1, sq, n_ip), "bh": (b, h, sq, n_ip),
+             None: None}[bias]
+    q, kt, vt, ki, vi, bias_t = _dual_operands(cuda, b, h, sq, d, n_text, n_ip, shape)
+    before = tdca.launches
+    got = tdca.dual_cross_attention(q, kt, vt, ki, vi, bias_t)
+    again = tdca.dual_cross_attention(q, kt, vt, ki, vi, bias_t)
+    torch.cuda.synchronize()
+    assert tdca.launches == before + 2
+    want = tdca.dual_cross_attention_ref(q.float(), kt.float(), vt.float(), ki.float(),
+                                         vi.float(), bias_t)
+    for name, x, y, z in zip(("o_text", "o_ip"), got, again, want):
+        assert x.dtype == torch.bfloat16 and x.shape == z.shape, name
+        assert torch.equal(x, y), f"{name}: two calls differ"
+        assert (x.float() - z).abs().max().item() <= 2e-2, name
+        assert torch.isfinite(x).all(), name
+
+
+@pytest.mark.gpu
+def test_dual_cross_attention_autograd_and_unet_dispatch_on_card(cuda):
+    q, kt, vt, ki, vi, bias = _dual_operands(cuda, 1, 4, 1024, 64, 77, 80, (1, 1, 1024, 80), 1)
+    q.requires_grad_()
+    ki.requires_grad_()
+    before = tdca.launches
+    o_text, o_ip = tdca.dual_cross_attention(q, kt, vt, ki, vi, bias)
+    (o_text.float().square().sum() + o_ip.float().sum()).backward()
+    assert tdca.launches == before + 1
+    qf, kif = q.detach().float().requires_grad_(), ki.detach().float().requires_grad_()
+    rt, ri = tdca.dual_cross_attention_ref(qf, kt.float(), vt.float(), kif, vi.float(), bias)
+    (rt.square().sum() + ri.sum()).backward()
+    assert _rel(q.grad, qf.grad) <= 2e-2 and _rel(ki.grad, kif.grad) <= 2e-2
+    assert tdca.uses_kernel(q, kt, ki) and not tdca.uses_kernel(q.float(), kt, ki)
+    assert not tdca.uses_kernel(q, torch.zeros(1, 4, 129, 64, device=cuda), ki)
+
+
+@pytest.mark.gpu
+def test_dual_cross_attention_rejects_what_it_does_not_take(cuda):
+    q, kt, vt, ki, vi, bias = _dual_operands(cuda, 1, 2, 64, 64, 77, 80, (1, 1, 64, 80))
+    with pytest.raises(ValueError):
+        tdca.dual_cross_attention(q.float(), kt, vt, ki, vi, bias)           # fp32 q
+    with pytest.raises(ValueError):
+        tdca.dual_cross_attention(q, kt, vt, ki, vi, bias.bfloat16())        # bf16 bias
+    long = torch.zeros((1, 2, 129, 64), device=cuda).bfloat16()
+    with pytest.raises(ValueError):
+        tdca.dual_cross_attention(q, kt, vt, long, long, None)               # 129 IP keys

@@ -37,7 +37,7 @@ from diffsensei_tpu_torch.ops import int4_matmul as ti4
 from diffsensei_tpu_torch.serve import api as tapi
 from diffsensei_tpu_torch.utils import from_jax
 
-from tests.torch_port_util import random_tree, tiny_pipelines
+from tests.torch_port_util import agents, near_one_norms, random_tree, tiny_pipelines
 
 torch.set_num_threads(1)
 REL = 1e-4
@@ -48,13 +48,6 @@ def _close(got, want, rel=REL):
     want = np.asarray(want, np.float32)
     assert got.shape == want.shape, (got.shape, want.shape)
     np.testing.assert_allclose(got, want, atol=rel * float(np.abs(want).max()), rtol=0)
-
-
-def _tree(tree):
-    """A random JAX tree with RMSNorm weights near 1 (``random_tree`` gives
-    0.1 * z to every ``weight``)."""
-    return jax.tree_util.tree_map_with_path(
-        lambda path, x: 1.0 + x if path[-1].key == "weight" else x, tree)
 
 
 def _random_packed(rng, in_f, features, group=128):
@@ -158,7 +151,7 @@ LLAMA_CFGS = {
 def _jax_llama(cfg, weights, seed=0):
     """(JAX model, its params) for ``weights`` in float, bf16, int8, int4."""
     model = jllama.LlamaForCausalLM(cfg)
-    params = _tree(random_tree(model, input_ids=jnp.zeros((1, 8), jnp.int32), seed=seed))
+    params = near_one_norms(random_tree(model, input_ids=jnp.zeros((1, 8), jnp.int32), seed=seed))
     if weights == "bf16":
         params = jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16), params)
     if weights in ("int8", "int4"):
@@ -278,7 +271,7 @@ def test_quantize_agent_equals_jax(bits):
     """The port's ``quantize_agent`` on a LoRA agent gives the state the JAX
     package's gives (LoRA merged, every projection and lm_head quantized)."""
     cfg = _agent_config(LLAMA_CFGS["eligible_gqa"])
-    jagent, tagent = _agents(cfg, seed=4)
+    jagent, tagent = agents(cfg, seed=4)
     want = from_jax.llama(jquant.quantize_agent(jagent, bits=bits).llm_params)
     got = tquant.quantize_agent(tagent, bits=bits).llm.state_dict()
     assert sorted(got) == sorted(want)
@@ -326,39 +319,13 @@ def _agent_config(llm):
                                                                  kv_dim=llm.hidden_size))
 
 
-def _agents(cfg, seed=0, quantized=False):
-    """(JAX agent, port agent on the CPU) with the same random weights."""
-    jagent = jseed.ContinuousLVLM.build(cfg, jax.random.key(0), abstract=True)
-    ir, orr = cfg.input_resampler, cfg.output_resampler
-    jagent = dataclasses.replace(
-        jagent,
-        llm_params=_tree(random_tree(jagent.llm, input_ids=jnp.zeros((1, 8), jnp.int32),
-                                     seed=seed)),
-        input_resampler_params=random_tree(jagent.input_resampler,
-                                           jnp.zeros((1, 4, ir.kv_dim)), seed=seed + 1),
-        output_resampler_params=random_tree(jagent.output_resampler,
-                                            jnp.zeros((1, 4, orr.kv_dim)), seed=seed + 2))
-    if quantized:
-        jagent = jquant.quantize_agent(jagent, bits=4)
-    tcfg = tconfig.AgentConfig(
-        llm=tconfig.LlamaConfig(**dataclasses.asdict(cfg.llm)),
-        lora=tconfig.LoRAConfig(**dataclasses.asdict(cfg.lora)),
-        input_resampler=tconfig.QwenResamplerConfig(**dataclasses.asdict(ir)),
-        output_resampler=tconfig.QwenResamplerConfig(**dataclasses.asdict(orr)))
-    tagent = tseed.ContinuousLVLM.build(tcfg, quantized="int4" if quantized else False,
-                                        device="cpu")
-    for name, sd in from_jax.agent(jagent).items():
-        getattr(tagent, name).load_state_dict(from_jax.to_tensors(sd))
-    return jagent, tagent
-
-
 @pytest.mark.parametrize("quantized", [False, True])
 def test_generate_matches_jax(quantized):
     """Prompt with a comprehension block of resampled characters, the forced
     ladder, free tokens after it: the same ids (exact), the same number of
     images, and the output resampler's features within 1e-4."""
     cfg = _agent_config(LLAMA_CFGS["eligible_gqa"])
-    jagent, tagent = _agents(cfg, seed=5, quantized=quantized)
+    jagent, tagent = agents(cfg, seed=5, quantized=quantized)
     nq = cfg.input_resampler.num_queries
     spec = _spec(cfg.llm.vocab_size, nq)
     prompt = tdata.build_inference_prompt(spec.encode_text("a cat"), spec, [9])
@@ -415,7 +382,7 @@ def test_server_with_agent_matches_jax(monkeypatch):
         output_resampler=QwenResamplerConfig(grid_size=2, num_queries_override=iv,
                                              embed_dim=cross, num_heads=4,
                                              kv_dim=llm.hidden_size))
-    jagent, tagent = _agents(cfg, seed=6)
+    jagent, tagent = agents(cfg, seed=6)
 
     def request(api):
         rng = np.random.default_rng(10)

@@ -18,7 +18,6 @@ import signal
 import numpy as np
 import pytest
 import torch
-from PIL import Image
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +39,7 @@ from diffsensei_tpu_torch.train.checkpoint import CheckpointManager, export_weig
 from diffsensei_tpu_torch.train.runner import RunConfig, run_training
 from diffsensei_tpu_torch.utils import from_jax
 
-from tests.torch_port_util import tiny_pipelines
+from tests.torch_port_util import mangazero_pages, port_names, tiny_pipelines
 
 torch.set_num_threads(1)
 
@@ -218,20 +217,11 @@ def test_lr_schedules_match_jax(name):
         toptim.make_lr_schedule("reduce_on_plateau", 1.0)
 
 
-def _port_names(jax_tree, convert):
-    """Names of a JAX tree's leaves in the port, through ``from_jax``: a tree
-    of leaf indices (each filling its leaf's shape) converted and read back."""
-    leaves, treedef = jax.tree.flatten(jax_tree)
-    marked = jax.tree.unflatten(treedef, [np.full(np.shape(x), i, np.float32)
-                                          for i, x in enumerate(leaves)])
-    return {name: int(np.asarray(a).flat[0]) for name, a in convert(marked).items()}
-
-
 @pytest.mark.parametrize("mode", ["full", "new", "ip"])
 def test_unet_trainable_mask_selects_the_jax_set(stacks, mode):
     jm, tm = stacks
     jmask = jax.tree.leaves(joptim.unet_trainable_mask(jm.unet_params, mode))
-    names = _port_names(jm.unet_params, lambda t: from_jax.sdxl_unet(t, jm.unet.config))
+    names = port_names(jm.unet_params, lambda t: from_jax.sdxl_unet(t, jm.unet.config))
     want = {name for name, i in names.items() if jmask[i]}
     tmask = toptim.unet_trainable_mask(tm.unet, mode)
     assert {n for n, keep in tmask.items() if keep} == want
@@ -496,28 +486,9 @@ def test_accumulation_of_two_micro_steps_equals_the_mean_gradient_step(stacks):
 # ---------------------------------------------------------------------------
 # data and the CLI
 # ---------------------------------------------------------------------------
-def _pages(rng, n_pages=3):
-    """A small MangaZero-format page set with PIL images inline: several
-    buckets, a repeated character id in one frame, a type-1 character."""
-    anns = []
-    for p in range(n_pages):
-        frames = []
-        for f, (w, h) in enumerate([(400, 300), (300, 500), (520, 512)][: 1 + p]):
-            x0 = 20 * f
-            chars = [{"id": c % 3, "bbox": [x0 + 10 + 40 * c, 10, x0 + 60 + 40 * c, 120 + c],
-                      "type": int(c == 2)} for c in range(4)]
-            frames.append({"bbox": [x0, 0, x0 + w, h], "caption": f"panel {p} {f}",
-                           "characters": chars,
-                           "dialogs": [{"bbox": [x0 + 30, 20, x0 + 150, 90]},
-                                       {"bbox": [x0 + 100, 200, x0 + 200, 260]}]})
-        img = Image.fromarray(rng.integers(0, 255, (600, 700, 3), np.uint8))
-        anns.append({"image_path": f"page_{p}.png", "image": img, "frames": frames})
-    return anns
-
-
 @pytest.mark.parametrize("num_workers", [0, 2])
 def test_bucket_dataset_batches_are_the_jax_bytes(num_workers):
-    anns = _pages(np.random.default_rng(8))
+    anns = mangazero_pages(np.random.default_rng(8))
     tok = lambda text: (np.arange(77) * 7 + len(text)) % 250
     kw = dict(max_num_ips=3, max_num_ip_sources=2, max_num_dialogs=2, batch_size=4,
               i_drop_rate=0.2, t_drop_rate=0.3)
@@ -597,7 +568,7 @@ def test_prefetch_loader_runs_its_epochs_and_raises_a_producer_error():
 def _write_run(tmp_path, **trainer):
     root = tmp_path / "data"
     root.mkdir()
-    anns = _pages(np.random.default_rng(9))
+    anns = mangazero_pages(np.random.default_rng(9))
     for ann in anns:
         ann.pop("image").save(root / ann["image_path"])
     (root / "annotations.json").write_text(json.dumps(anns))
@@ -658,7 +629,7 @@ def test_cli_trains_stage1(tmp_path):
 
 
 @pytest.mark.parametrize("edit", [
-    ("stage: condition", "stage: mllm"),
+    ("model:\n", "model:\n  param_dtype: bfloat16\n"),
     ("model:\n", "weights: {unet: unet.safetensors}\nmodel:\n"),
     ("trainer:\n", "trainer:\n  parallel: fsdp\n"),
     ("unet_trained_parameters: new", "unet_trained_parameters: lora"),

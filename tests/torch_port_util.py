@@ -1,7 +1,10 @@
 """Helpers shared by the ``test_torch_port_*`` files."""
 
+import dataclasses
+
 import jax
 import numpy as np
+from PIL import Image
 
 
 def random_tree(module, *args, seed=0, **kwargs):
@@ -22,6 +25,78 @@ def random_tree(module, *args, seed=0, **kwargs):
             return z / np.float32(np.sqrt(shape[-1]))
         return 0.1 * z
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def near_one_norms(tree):
+    """A random JAX tree with its RMSNorm weights near 1 (``random_tree``
+    gives 0.1 * z to every ``weight``)."""
+    return jax.tree_util.tree_map_with_path(
+        lambda path, x: 1.0 + x if path[-1].key == "weight" else x, tree)
+
+
+def port_names(jax_tree, convert):
+    """Names of a JAX tree's leaves in the port, through ``from_jax``: a tree
+    of leaf indices (each filling its leaf's shape) converted and read back."""
+    leaves, treedef = jax.tree.flatten(jax_tree)
+    marked = jax.tree.unflatten(treedef, [np.full(np.shape(x), i, np.float32)
+                                          for i, x in enumerate(leaves)])
+    return {name: int(np.asarray(a).flat[0]) for name, a in convert(marked).items()}
+
+
+def mangazero_pages(rng, n_pages=3):
+    """A small MangaZero-format page set with PIL images inline: several
+    buckets, a repeated character id in one frame, a type-1 character."""
+    anns = []
+    for p in range(n_pages):
+        frames = []
+        for f, (w, h) in enumerate([(400, 300), (300, 500), (520, 512)][: 1 + p]):
+            x0 = 20 * f
+            chars = [{"id": c % 3, "bbox": [x0 + 10 + 40 * c, 10, x0 + 60 + 40 * c, 120 + c],
+                      "type": int(c == 2)} for c in range(4)]
+            frames.append({"bbox": [x0, 0, x0 + w, h], "caption": f"panel {p} {f}",
+                           "characters": chars,
+                           "dialogs": [{"bbox": [x0 + 30, 20, x0 + 150, 90]},
+                                       {"bbox": [x0 + 100, 200, x0 + 200, 260]}]})
+        img = Image.fromarray(rng.integers(0, 255, (600, 700, 3), np.uint8))
+        anns.append({"image_path": f"page_{p}.png", "image": img, "frames": frames})
+    return anns
+
+
+def agents(cfg, seed=0, quantized=False):
+    """(JAX ``ContinuousLVLM``, the port's on the CPU) of the JAX
+    ``AgentConfig`` ``cfg`` with the same random weights (LoRA of
+    ``cfg.lora.rank`` unless ``quantized``, which packs the JAX agent in int4
+    first)."""
+    import jax.numpy as jnp
+
+    from diffsensei_tpu.models.mllm import quant as jquant
+    from diffsensei_tpu.models.mllm import seed_x as jseed
+    from diffsensei_tpu_torch.core import config as tconfig
+    from diffsensei_tpu_torch.models.mllm import seed_x as tseed
+    from diffsensei_tpu_torch.utils import from_jax
+
+    jagent = jseed.ContinuousLVLM.build(cfg, jax.random.key(0), abstract=True)
+    ir, orr = cfg.input_resampler, cfg.output_resampler
+    jagent = dataclasses.replace(
+        jagent,
+        llm_params=near_one_norms(random_tree(jagent.llm, input_ids=jnp.zeros((1, 8), jnp.int32),
+                                              seed=seed)),
+        input_resampler_params=random_tree(jagent.input_resampler,
+                                           jnp.zeros((1, 4, ir.kv_dim)), seed=seed + 1),
+        output_resampler_params=random_tree(jagent.output_resampler,
+                                            jnp.zeros((1, 4, orr.kv_dim)), seed=seed + 2))
+    if quantized:
+        jagent = jquant.quantize_agent(jagent, bits=4)
+    tcfg = tconfig.AgentConfig(
+        llm=tconfig.LlamaConfig(**dataclasses.asdict(cfg.llm)),
+        lora=tconfig.LoRAConfig(**dataclasses.asdict(cfg.lora)),
+        input_resampler=tconfig.QwenResamplerConfig(**dataclasses.asdict(ir)),
+        output_resampler=tconfig.QwenResamplerConfig(**dataclasses.asdict(orr)))
+    tagent = tseed.ContinuousLVLM.build(tcfg, quantized="int4" if quantized else False,
+                                        device="cpu")
+    for name, sd in from_jax.agent(jagent).items():
+        getattr(tagent, name).load_state_dict(from_jax.to_tensors(sd))
+    return jagent, tagent
 
 
 def tiny_pipelines():
