@@ -8,7 +8,9 @@ Run from the root of the repository. Phases, one JSON line each:
 1. device: the card, its power limit, the TF32 switches (both off);
 2. build: kernels B1, B2 and B4 (one CUDA C++ source), B5 and B6 (CUDA
    C++), one nvcc each, started together, and B3 (Triton) from
-   ``diffsensei_tpu_torch/csrc``;
+   ``diffsensei_tpu_torch/csrc``; flash_bwd_layout: the head_dim-64 B2 and
+   B4 kernels' registers, spills, blocks per SM, grid and waves at the
+   UNet's shapes;
 3. flash_attention: B1 against its plain twin at the UNet's shapes, with times
    beside the plain twin and ``F.scaled_dot_product_attention``;
 4. groupnorm_silu: B3 likewise, beside ``F.group_norm`` + ``F.silu``;
@@ -27,7 +29,8 @@ Run from the root of the repository. Phases, one JSON line each:
    device time and kernels a token, the device's busy share, the top kernels;
 10. flash_attention_bwd (run after phase 5): B2 (dQ) and B4 (dK/dV) against
    their plain twin at the training shapes and the edge cases, with times
-   beside the twin and the backward of ``F.scaled_dot_product_attention``;
+   beside the twin and the backward of ``F.scaled_dot_product_attention``,
+   and the pair (B2 then B4) beside that backward and its own bound;
 11. reference_train (after phase 6): one stage-2 loss and backward on a
    cut-down SDXL-width stack, bf16 on the card against fp32 on the CPU;
 12. train: 6 stage-2 steps through the port's train CLI on
@@ -302,7 +305,39 @@ def check_int4(device) -> dict:
 FLASH_BWD_CASES = [  # (B, H, Sq, Sk, D, causal, bias)
     (1, 10, 4096, 4096, 64, False, False),   # UNet level 1 at 1024², train batch 1
     (1, 20, 1024, 1024, 64, False, False),   # UNet level 2
-] + FLASH_CASES[3:]                          # ragged + bias, causal, head_dim 128
+] + FLASH_CASES[3:] + [                      # ragged + bias, causal, head_dim 128
+    (1, 4, 63, 65, 64, False, False),        # one below / one above the 64-row tile
+    (1, 4, 65, 63, 64, True, False),         # the other way round, causal
+    (1, 4, 100, 1, 64, False, False),        # a single key
+    (1, 4, 300, 40, 64, False, False),       # Sk under one tile, Sq five tiles long
+]
+UNET_BWD_SHAPES = [(1, 10, 4096), (1, 20, 1024)]   # (B, H, S) at head_dim 64, train batch 1
+
+
+def flash_bwd_layout() -> dict:
+    """The head_dim-64 backward kernels' registers, stack and spills (from
+    the nvcc log of ``flash_attention.cu``), blocks per SM, threads and shared
+    memory, and their grid and waves at the UNet's shapes."""
+    import torch
+    from diffsensei_tpu_torch.ops import _build, flash_attention as fa
+
+    ptxas, name = {}, None
+    log = _build.cuda_library("flash_attention.cu").with_suffix(".log").read_text()
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = next((k for k, tag in (("dq", "hop13bwd_dq_kernel"),
+                                          ("dkv", "hop14bwd_dkv_kernel")) if tag in line), None)
+        elif name and ("spill" in line or "registers" in line):
+            ptxas.setdefault(name, []).append(line.split(":")[-1].strip())
+    occupancy = fa.bwd_occupancy()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grids = {}
+    for b, h, s in UNET_BWD_SHAPES:
+        for kernel, occ in occupancy.items():
+            blocks = -(-s // occ["rows_per_block"]) * h * b
+            grids[f"{kernel}@{b},{h},{s},64"] = dict(
+                blocks=blocks, waves=blocks / (sms * occ["blocks_per_sm"]))
+    return dict(ptxas=ptxas, occupancy=occupancy, sms=sms, grids=grids)
 
 
 def _causal_pairs(sq: int, sk: int, causal: bool) -> int:
@@ -316,7 +351,10 @@ def check_flash_bwd(device):
     inputs: relative Frobenius error of each gradient at most 2e-2, two calls
     bit-equal. Times beside the twin's and the backward of
     ``F.scaled_dot_product_attention`` (one call that computes dQ, dK and dV
-    together)."""
+    together); the pair ``flash_attention_bwd`` (B2 then B4) timed as one
+    call beside SDPA's backward and the least work of the function (5
+    products a pair; q, k, v, o, dO and lse read once, dq, dk, dv written
+    once)."""
     import torch
     import torch.nn.functional as F
     from diffsensei_tpu_torch.ops import flash_attention as fa
@@ -362,15 +400,23 @@ def check_flash_bwd(device):
                        q, k, v, bias, lse, delta, do, causal), reps=5),
                    sdpa_bwd_ms=cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
                                                                    retain_graph=True)),
+                   pair_ms=cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, bias, o, lse, do,
+                                                                  **kw)),
+                   pair_bound=bound(2 * (5 * elems_q + 4 * elems_k) + 4 * b * h * sq + bias_bytes,
+                                    5 * 2 * pairs * d),
                    # B2 reads q k v o dO lse, writes dQ and delta; 3 products a pair
                    dq_bound=bound(2 * (4 * elems_q + 2 * elems_k) + 8 * b * h * sq + bias_bytes,
                                   3 * 2 * pairs * d),
                    # B4 reads q k v dO lse delta, writes dK dV; 4 products a pair
                    dkv_bound=bound(2 * (2 * elems_q + 4 * elems_k) + 8 * b * h * sq + bias_bytes,
                                    4 * 2 * pairs * d))
+        row["pair_vs_sdpa"] = row["pair_ms"] / row["sdpa_bwd_ms"]
         rows.append(row)
         emit({"phase": "flash_attention_bwd", **row})
-        if not (max(errs.values()) <= 2e-2 and bit_equal):
+        # one key: P = 1 and dS = dP - delta vanish, dq and dk are rounding noise
+        ok = (errs["dv"] <= 2e-2 and max(abs_err["dq"], abs_err["dk"]) <= 1e-3 if sk == 1
+              else max(errs.values()) <= 2e-2)
+        if not (ok and bit_equal):
             raise AssertionError(f"the flash backward kernels disagree with their twin: {row}")
         del q, k, v, do, o, lse, dq, dk, dv, delta, out, qs, ks, vs
         torch.cuda.empty_cache()
@@ -1357,6 +1403,7 @@ def main() -> int:
                        if "registers" in ln or "spill" in ln]
     emit({"phase": "build", **{f"{name}_nvcc_s": t for name, t in nvcc.items()},
           "groupnorm_triton_s": t_gn, "ptxas": ptxas})
+    emit({"phase": "flash_bwd_layout", **flash_bwd_layout()})
 
     flash = check_flash(device)
     gnorm = check_groupnorm(device)

@@ -26,6 +26,7 @@
 // 0, nothing is expanded), and `causal` masks cols > rows and skips the K/V
 // tiles above the diagonal. wgmma and TMA are later work.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -324,28 +325,58 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 // With P = exp(scale Q K^T + bias - lse) recomputed from the forward's lse and
 // delta = rowsum(dO o O):
 //   dS = P o (dO V^T - delta),  dQ = scale dS K,  dK = scale dS^T Q,  dV = P^T dO.
-// B2 does three products per score and B4 four, so at the UNet's shapes both
-// are compute bound, like B1. The design keeps B1's: 4 warps of 16 rows,
-// mma.sync m16n8k16 with bf16 operands and fp32 accumulators, scores and
-// probabilities in registers (an accumulator tile is the next product's A
-// operand), cp.async double buffering of the streamed tiles. Each block owns
-// its output rows and sums over the other axis in a loop, so there are no
-// float atomics: two calls give the same bits.
+// B2 does three products per score and B4 four (7 a pair, against 5 for a
+// fused pass), so at the UNet's shapes (S = 1024..4096, D = 64) both are bound
+// by tensor-core operations. Each block owns its output rows and sums over the
+// other axis in a loop, so there are no float atomics: two calls give the
+// same bits, which keeps training reproducible. That is why the pass stays
+// split in two.
 //   * B2: one block per (64-row q tile, head, batch) streams K/V tiles. It
 //     also computes delta for its rows (the TPU code does it in XLA first)
 //     and writes it out for B4, which runs after it on the same stream.
 //   * B4: one block per (64-key tile, head, batch) streams Q/dO tiles with
-//     their lse and delta; each warp owns 16 keys, so S^T = K Q^T puts the
-//     keys on the accumulator rows and P^T, dS^T feed dV and dK directly.
+//     their lse and delta, so S^T = K Q^T puts the keys on the accumulator
+//     rows and P^T, dS^T feed dV and dK directly.
 // P and dS are rounded to bf16 for the tensor cores (the TPU dQ kernel also
 // takes dS in bf16; its dK/dV products are fp32). Ragged tails and causal
-// blocks are masked as in B1, the bias read through its strides; the bias
-// gets no gradient. head_dim 128 halves the streamed tile to keep registers.
+// blocks are masked in registers, the bias read through its strides (a row
+// of Sk fp32 values is not always a 16-byte multiple, and the bias is not on
+// the UNet's path); the bias gets no gradient.
+//
+// head_dim 64, the UNet's (namespace `hop` below), is built for Hopper:
+//   * a block is one consumer warpgroup (the 64 rows it owns) and one
+//     producer warp. The producer's lane 0 loads the block's own tiles once
+//     and streams the other axis's 64-row tiles through a two-stage ring with
+//     TMA (cp.async.bulk.tensor over 4-d maps (D, S, H, B) with the caller's
+//     strides, 128-byte swizzle); full and empty mbarriers hand the stages
+//     over. TMA's zero fill past S replaces masked copies, and each map
+//     dimension is bounded on its own, so no tile reads into the next head;
+//   * B4's lse and delta rows arrive in the same stage, by 1-d TMA over the
+//     flat [B * H * Sq] arrays (rows past a head's end are masked);
+//   * the score products S = Q K^T, dP = dO V^T (or their transposes in B4)
+//     are wgmma m64n64k16 with both operands in shared memory (K-major). P
+//     and dS are built in registers from the accumulators and repacked to
+//     bf16 as the A operand of dQ += dS K, dV += P^T dO and dK += dS^T Q,
+//     whose B operand is read from the same swizzled tile through the
+//     transpose bit: nothing is staged through shared memory by hand;
+//   * S and dP are committed as two wgmma groups, so P = exp2(...) runs on
+//     the special-function unit while dP is still in the tensor cores. The
+//     exponential is ex2.approx.ftz, and an edge tile's masks are a separate,
+//     branch-free pass: with exp2f and the masks inline, every element sat in
+//     its own divergent branch, and that step took three quarters of B2;
+//   * a block holds about 50 KB of shared memory and a lone producer warp,
+//     so `setmaxnreg` would free few registers and is not used; two blocks
+//     share an SM, one's exponentials overlapping the other's wgmma. A third
+//     stage in the ring measured no faster: the loads are not the limit.
+// head_dim 128 (not on the UNet's path) keeps the earlier design: 4 warps of
+// 16 rows, mma.sync m16n8k16, cp.async double buffering of 32-row tiles.
+// Later work: a deterministic fused pass (dQ summed in a fixed order under a
+// semaphore) for 5 products instead of 7, and fp8 operands.
 // ---------------------------------------------------------------------------
 template <int D>
 struct BwdCfg {
   static constexpr int LDH = D + 8;
-  static constexpr int TILE = D == 128 ? 32 : 64;  // streamed rows per step
+  static constexpr int TILE = 32;  // streamed rows per step (built for head_dim 128 only)
 };
 
 // Element strides (batch, head, row) of every operand; bias strides of a
@@ -734,6 +765,545 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// head_dim 64 on Hopper: wgmma, TMA and mbarriers (see the note above)
+// ---------------------------------------------------------------------------
+namespace hop {
+
+constexpr int T = 64;                        // rows of every tile; wgmma m64n64k16
+constexpr int STAGES = 2;                    // ring of streamed tiles (3 measured no faster)
+constexpr int CONSUMERS = 128;               // one warpgroup: warps 0-3
+constexpr int THREADS = CONSUMERS + 32;      // + the producer warp
+constexpr uint32_t TILE = T * 64 * 2;        // one 64 x 64 bf16 tile: 8 KB
+constexpr uint32_t STAT = 2 * T * 4;         // lse and delta of a stage's 64 rows
+// tiles (2 resident + 2 a stage), B4's stats, 2 * STAGES + 1 barriers, and
+// slack to align the base to the 1024 bytes of the swizzle pattern
+constexpr size_t SMEM = (2 + 2 * STAGES) * TILE + STAGES * STAT + 8 * (2 * STAGES + 1) + 1024;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A wait that never
+// ends (a lost transfer) traps, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+        "r"(c3) : "memory");
+}
+
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1) : "memory");
+}
+
+// Shared-memory matrix descriptor of a tile TMA wrote with the 128-byte
+// swizzle: 8-row groups 1024 bytes apart. The same value serves both majors
+// (K-major ignores the leading offset; a 64-wide MN-major tile has one block).
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (64ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+// Wait until at most N committed groups are still running (they finish in order).
+template <int N = 0>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator across the
+// asynchronous wgmma that owns it.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define HOP_D32                                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define HOP_D32_OUT(d)                                                                  \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),   \
+  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),            \
+  "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),         \
+  "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),         \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
+  "+f"(d[31])
+
+// d (64 x 64, fp32) = [d +] A B^T, A and B 64 x 16 K-major tiles in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOP_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOP_D32_OUT(d) : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) += A B, A 64 x 16 in registers (the m16n8k16 A fragment of
+// each warp's 16 rows), B 16 x 64 in shared memory with N contiguous.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOP_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HOP_D32_OUT(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The accumulator of a 64 x 64 product holds, in thread (warp w, lane 4g + t),
+// element 4n + e at row 16w + g + 8(e >> 1), column 8n + 2t + (e & 1): for a
+// k-step kk of the next product its columns 16kk..16kk+15 are the A fragment.
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+  }
+}
+
+// 2^x on the special-function unit, subnormal results flushed to 0. (exp2f
+// adds a fix-up for them, which cost B2 twice its time.)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The masks of an edge tile on scores s (log2 units; the layout of
+// `to_a_frags`, rows from row0, columns from col0 = tile start + 2t): add the
+// bias (log2 units) and set -inf where the (q, key) pair is out of range or
+// above the causal diagonal. KEYS_ON_ROWS: rows are keys (B4), else q rows
+// (B2). Branch-free: the bias is read at a clamped in-range address and the
+// mask applied by a select, so no element sits behind a divergent branch.
+template <bool KEYS_ON_ROWS>
+__device__ __forceinline__ void mask_tile(float (&s)[32], int row0, int col0, int Sq, int Sk,
+                                          int causal, const float* bp, long long bias_row) {
+  if (bp != nullptr) {
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int r = row0 + 8 * ((x & 3) >> 1), c = col0 + 8 * (x >> 2) + (x & 1);
+      const int qi = min(KEYS_ON_ROWS ? c : r, Sq - 1), kj = min(KEYS_ON_ROWS ? r : c, Sk - 1);
+      s[x] += __ldg(bp + (long long)qi * bias_row + kj) * LOG2E;
+    }
+  }
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    const int r = row0 + 8 * ((x & 3) >> 1), c = col0 + 8 * (x >> 2) + (x & 1);
+    const int qi = KEYS_ON_ROWS ? c : r, kj = KEYS_ON_ROWS ? r : c;
+    const bool ok = qi < Sq && kj < Sk && (!causal || kj <= qi);
+    s[x] = ok ? s[x] : __int_as_float(0xff800000);  // -inf
+  }
+}
+
+// Store a 64 x 64 accumulator (times `mul`) as bf16 rows row0, row0 + 8 (< limit).
+__device__ __forceinline__ void store_acc(bf16* base, long long row_stride, int row0, int limit,
+                                          const float (&acc)[32], float mul, int t) {
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int r = row0 + 8 * rh;
+    if (r >= limit) continue;
+    bf16* out = base + (long long)r * row_stride + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<uint32_t*>(out + 8 * n) =
+          pack_bf16(acc[4 * n + 2 * rh] * mul, acc[4 * n + 2 * rh + 1] * mul);
+    }
+  }
+}
+
+// Barriers after the tiles and stats: [0] the block's own tiles, [1 + s] stage
+// s full, [1 + STAGES + s] stage s empty.
+struct Smem {
+  uint32_t base;       // shared-window address, 1024-aligned
+  unsigned char* ptr;  // the same byte, generic
+  __device__ explicit Smem(unsigned char* raw) {
+    const uint32_t r = smem_u32(raw);
+    base = (r + 1023u) & ~1023u;
+    ptr = raw + (base - r);
+  }
+  __device__ uint32_t tile(int i) const { return base + i * TILE; }
+  __device__ uint32_t stat(int s) const { return base + (2 + 2 * STAGES) * TILE + s * STAT; }
+  __device__ uint32_t bar(int i) const { return stat(STAGES) + 8 * i; }
+  __device__ const float* stat_ptr(int s) const {
+    return reinterpret_cast<const float*>(ptr + (stat(s) - base));
+  }
+};
+
+__device__ __forceinline__ void init_barriers(const Smem& sm) {
+  if (threadIdx.x == 0) {
+    mbar_init(sm.bar(0), 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(sm.bar(1 + s), 1);
+      mbar_init(sm.bar(1 + STAGES + s), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// B2: dQ for 64 q rows, K/V tiles streamed. Tiles: 0 Q, 1 dO, 2 + 2s K, 3 + 2s V.
+__global__ void __launch_bounds__(THREADS, 2)
+bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+              const bf16* __restrict__ o, const bf16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ bias,
+              bf16* __restrict__ dq, float* __restrict__ delta, int H, int Sq, int Sk,
+              BwdStrides st, int causal, float sm_scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm(smem_raw);
+  const int q_start = blockIdx.x * T;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  int n_tiles = (Sk + T - 1) / T;
+  if (causal) {
+    const int last = (q_start + T - 1) / T + 1;
+    n_tiles = n_tiles < last ? n_tiles : last;
+  }
+  init_barriers(sm);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp == CONSUMERS / 32) {  // producer
+    if (lane == 0) {
+      mbar_expect_tx(sm.bar(0), 2 * TILE);
+      tma_4d(sm.tile(0), &tm_q, sm.bar(0), 0, q_start, h, b);
+      tma_4d(sm.tile(1), &tm_do, sm.bar(0), 0, q_start, h, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(sm.bar(1 + STAGES + s), (i / STAGES - 1) & 1);
+        mbar_expect_tx(sm.bar(1 + s), 2 * TILE);
+        tma_4d(sm.tile(2 + 2 * s), &tm_k, sm.bar(1 + s), 0, i * T, h, b);
+        tma_4d(sm.tile(3 + 2 * s), &tm_v, sm.bar(1 + s), 0, i * T, h, b);
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = q_start + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const long long stat = ((long long)b * H + h) * Sq;
+  const float* bp = bias == nullptr ? nullptr : bias + b * st.bias[0] + h * st.bias[1];
+
+  // delta = rowsum(dO o O) for this thread's rows, columns 16t..16t+15, summed
+  // over the row's four threads; lse in log2 units
+  float dl[2], lse2[2];
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int qi = row0 + 8 * rh;
+    float acc = 0.f;
+    lse2[rh] = 0.f;
+    if (qi < Sq) {
+      const uint4* op = reinterpret_cast<const uint4*>(
+          o + b * st.o[0] + h * st.o[1] + (long long)qi * st.o[2] + 16 * t);
+      const uint4* dp = reinterpret_cast<const uint4*>(
+          dout + b * st.dout[0] + h * st.dout[1] + (long long)qi * st.dout[2] + 16 * t);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint4 ov = op[j], dv = dp[j];
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]), df = __bfloat1622float2(d2[e]);
+          acc += of.x * df.x + of.y * df.y;
+        }
+      }
+      lse2[rh] = lse[stat + qi] * LOG2E;
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dl[rh] = acc;
+    if (t == 0 && qi < Sq) delta[stat + qi] = acc;
+  }
+
+  const float scale2 = sm_scale * LOG2E;
+  float dq_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
+  mbar_wait(sm.bar(0), 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    const uint32_t sK = sm.tile(2 + 2 * s), sV = sm.tile(3 + 2 * s);
+    mbar_wait(sm.bar(1 + s), (i / STAGES) & 1);
+
+    // S = Q K^T and dP = dO V^T as two groups: P is computed while dP runs
+    float sacc[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sacc, desc(sm.tile(0) + 32 * kk), desc(sK + 32 * kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, desc(sm.tile(1) + 32 * kk), desc(sV + 32 * kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(sacc);
+
+    // P = exp(scale S + bias - lse), 0 where masked; then dS = P o (dP - delta)
+    const int k_start = i * T;
+#pragma unroll
+    for (int x = 0; x < 32; ++x) sacc[x] *= scale2;
+    if (k_start + T > Sk || q_start + T > Sq || causal || bp != nullptr) {
+      mask_tile<false>(sacc, row0, k_start + 2 * t, Sq, Sk, causal, bp, st.bias[2]);
+    }
+#pragma unroll
+    for (int x = 0; x < 32; ++x) sacc[x] = ex2(sacc[x] - lse2[(x & 3) >> 1]);
+    wgmma_wait<0>();
+    fence_acc(dp);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) sacc[x] *= dp[x] - dl[(x & 3) >> 1];
+    uint32_t dsa[4][4];
+    to_a_frags(dsa, sacc);
+
+    // dQ += dS K: K read through the transpose bit, 16 keys (2048 bytes) a k-step
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dq_acc, dsa[kk], desc(sK + 2048 * kk));
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(dq_acc);
+    mbar_arrive(sm.bar(1 + STAGES + s));
+  }
+
+  store_acc(dq + b * st.dq[0] + h * st.dq[1], st.dq[2], row0, Sq, dq_acc, sm_scale, t);
+}
+
+// B4: dK and dV for 64 keys, Q/dO tiles (with their lse and delta) streamed.
+// Tiles: 0 K, 1 V, 2 + 2s Q, 3 + 2s dO.
+__global__ void __launch_bounds__(THREADS, 2)
+bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+               const __grid_constant__ CUtensorMap tm_lse,
+               const __grid_constant__ CUtensorMap tm_delta, const float* __restrict__ bias,
+               bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq, int Sk,
+               BwdStrides st, int causal, float sm_scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm(smem_raw);
+  const int k_start = blockIdx.x * T;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  // causal: q tiles whose last row lies above the block's first key are all masked
+  const int n_q = (Sq + T - 1) / T;
+  const int first = causal ? k_start / T : 0;
+  init_barriers(sm);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp == CONSUMERS / 32) {  // producer
+    if (lane == 0) {
+      mbar_expect_tx(sm.bar(0), 2 * TILE);
+      tma_4d(sm.tile(0), &tm_k, sm.bar(0), 0, k_start, h, b);
+      tma_4d(sm.tile(1), &tm_v, sm.bar(0), 0, k_start, h, b);
+      for (int it = first; it < n_q; ++it) {
+        const int i = it - first;
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(sm.bar(1 + STAGES + s), (i / STAGES - 1) & 1);
+        mbar_expect_tx(sm.bar(1 + s), 2 * TILE + STAT);
+        tma_4d(sm.tile(2 + 2 * s), &tm_q, sm.bar(1 + s), 0, it * T, h, b);
+        tma_4d(sm.tile(3 + 2 * s), &tm_do, sm.bar(1 + s), 0, it * T, h, b);
+        tma_2d(sm.stat(s), &tm_lse, sm.bar(1 + s), it * T, b * H + h);
+        tma_2d(sm.stat(s) + STAT / 2, &tm_delta, sm.bar(1 + s), it * T, b * H + h);
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int key0 = k_start + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+  const float* bp = bias == nullptr ? nullptr : bias + b * st.bias[0] + h * st.bias[1];
+  const float scale2 = sm_scale * LOG2E;
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  mbar_wait(sm.bar(0), 0);
+
+  for (int it = first; it < n_q; ++it) {
+    const int i = it - first;
+    const int s = i % STAGES;
+    const uint32_t sQ = sm.tile(2 + 2 * s), sdO = sm.tile(3 + 2 * s);
+    mbar_wait(sm.bar(1 + s), (i / STAGES) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T as two groups: P^T is computed while dP^T runs
+    float sacc[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sacc, desc(sm.tile(0) + 32 * kk), desc(sQ + 32 * kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, desc(sm.tile(1) + 32 * kk), desc(sdO + 32 * kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(sacc);
+
+    // P^T and dS^T: keys on the rows, this tile's q rows on the columns
+    const float* sL = sm.stat_ptr(s);
+    const float* sD = sL + T;
+    const int q_start = it * T;
+#pragma unroll
+    for (int x = 0; x < 32; ++x) sacc[x] *= scale2;
+    if (k_start + T > Sk || q_start + T > Sq || causal || bp != nullptr) {
+      mask_tile<true>(sacc, key0, q_start + 2 * t, Sq, Sk, causal, bp, st.bias[2]);
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(sL + 8 * n + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[4 * n + e] = ex2(sacc[4 * n + e] - (e & 1 ? l2.y : l2.x) * LOG2E);
+    }
+    wgmma_wait<0>();
+    fence_acc(dp);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 d2 = *reinterpret_cast<const float2*>(sD + 8 * n + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[4 * n + e] = sacc[4 * n + e] * (dp[4 * n + e] - (e & 1 ? d2.y : d2.x));
+    }
+    uint32_t pa[4][4], dsa[4][4];
+    to_a_frags(pa, sacc);
+    to_a_frags(dsa, dp);
+
+    // dV += P^T dO, dK += dS^T Q: dO and Q through the transpose bit
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dv_acc, pa[kk], desc(sdO + 2048 * kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dk_acc, dsa[kk], desc(sQ + 2048 * kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dv_acc);
+    fence_acc(dk_acc);
+    mbar_arrive(sm.bar(1 + STAGES + s));
+  }
+
+  store_acc(dk + b * st.dk[0] + h * st.dk[1], st.dk[2], key0, Sk, dk_acc, sm_scale, t);
+  store_acc(dv + b * st.dv[0] + h * st.dv[1], st.dv[2], key0, Sk, dv_acc, 1.f, t);
+}
+
+#undef HOP_D32
+#undef HOP_D32_OUT
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime: no -lcuda.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [B, H, S, 64] bf16 with element strides (b, h, s) as a 4-d map (D, S, H, B)
+// of 64 x 64 boxes, 128-byte swizzle; rows past S read as zeros.
+bool map_rows(CUtensorMap* map, const void* ptr, int B, int H, int S, const long long* str) {
+  const cuuint64_t dims[4] = {64, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)str[2] * 2, (cuuint64_t)str[1] * 2, (cuuint64_t)str[0] * 2};
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1 && strides[i] == 0) strides[i] = 16;  // unused: any legal stride
+  }
+  const cuuint32_t box[4] = {64, T, 1, 1}, unit[4] = {1, 1, 1, 1};
+  EncodeTiled fn = encoder();
+  return fn != nullptr &&
+         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// fp32 rows [B * H, Sq] with a row pitch of `pitch` values (a multiple of 4)
+// as a 2-d map of 64-value boxes; values past Sq read as zeros.
+bool map_stat(CUtensorMap* map, const void* ptr, int rows, int Sq, long long pitch) {
+  const cuuint64_t dims[2] = {(cuuint64_t)Sq, (cuuint64_t)rows}, strides[1] = {(cuuint64_t)pitch * 4};
+  const cuuint32_t box[2] = {T, 1}, unit[2] = {1, 1};
+  EncodeTiled fn = encoder();
+  return fn != nullptr &&
+         fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, const void* lse, const void* bias, void* dq,
+                      void* delta, int B, int H, int Sq, int Sk, const BwdStrides& st,
+                      int causal, float sm_scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  if (!(map_rows(&mq, q, B, H, Sq, st.q) && map_rows(&mk, k, B, H, Sk, st.k) &&
+        map_rows(&mv, v, B, H, Sk, st.v) && map_rows(&mdo, dout, B, H, Sq, st.dout))) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + T - 1) / T, H, B);
+  bwd_dq_kernel<<<grid, THREADS, SMEM, stream>>>(
+      mq, mk, mv, mdo, static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(bias), static_cast<bf16*>(dq),
+      static_cast<float*>(delta), H, Sq, Sk, st, causal, sm_scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, const void* bias, void* dk,
+                       void* dv, int B, int H, int Sq, int Sk, const BwdStrides& st,
+                       long long stat_pitch, int causal, float sm_scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo, ml, md;
+  if (!(map_rows(&mq, q, B, H, Sq, st.q) && map_rows(&mk, k, B, H, Sk, st.k) &&
+        map_rows(&mv, v, B, H, Sk, st.v) && map_rows(&mdo, dout, B, H, Sq, st.dout) &&
+        map_stat(&ml, lse, B * H, Sq, stat_pitch) && map_stat(&md, delta, B * H, Sq, stat_pitch))) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sk + T - 1) / T, H, B);
+  bwd_dkv_kernel<<<grid, THREADS, SMEM, stream>>>(
+      mq, mk, mv, mdo, ml, md, static_cast<const float*>(bias), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, Sq, Sk, st, causal, sm_scale);
+  return cudaGetLastError();
+}
+
+}  // namespace hop
+
 }  // namespace
 
 // C entry point bound with ctypes. `strides` holds 15 element strides:
@@ -749,17 +1319,21 @@ extern "C" int diffsensei_flash_attention_fwd(
   return (int)cudaErrorInvalidValue;
 }
 
-// C entry points of the backward. `strides` holds 27 element strides, (b, h, s)
-// of q, k, v, o, dout, dq, dk, dv and bias, in that order. The dQ kernel also
-// writes delta [B, H, Sq] (fp32), which the dK/dV kernel reads: launch them in
-// that order on one stream. Each returns the cudaError_t of its launch.
+// C entry points of the backward. `strides` holds 28 element strides, (b, h, s)
+// of q, k, v, o, dout, dq, dk, dv and bias, in that order, then the pitch of
+// the (b, h) rows of lse and delta as the dK/dV kernel gets them. The dQ
+// kernel also writes delta [B, H, Sq] (fp32), which the dK/dV kernel reads:
+// launch them in that order on one stream. head_dim 64 builds its TMA maps
+// here, so q, k, v, dout, lse and delta must be 16-byte aligned and the pitch
+// a multiple of 4. Each returns the cudaError_t of its launch
+// (cudaErrorInvalidValue where a map cannot be encoded).
 extern "C" int diffsensei_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, const void* bias, void* dq, void* delta, int B, int H, int Sq,
     int Sk, int D, const long long* strides, int causal, float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BwdStrides st = bwd_strides(strides);
-  if (D == 64) return (int)launch_dq<64>(q, k, v, o, dout, lse, bias, dq, delta, B, H, Sq, Sk, st, causal, sm_scale, s);
+  if (D == 64) return (int)hop::launch_dq(q, k, v, o, dout, lse, bias, dq, delta, B, H, Sq, Sk, st, causal, sm_scale, s);
   if (D == 128) return (int)launch_dq<128>(q, k, v, o, dout, lse, bias, dq, delta, B, H, Sq, Sk, st, causal, sm_scale, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -770,7 +1344,28 @@ extern "C" int diffsensei_flash_attention_bwd_dkv(
     int D, const long long* strides, int causal, float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BwdStrides st = bwd_strides(strides);
-  if (D == 64) return (int)launch_dkv<64>(q, k, v, dout, lse, delta, bias, dk, dv, B, H, Sq, Sk, st, causal, sm_scale, s);
+  if (D == 64) return (int)hop::launch_dkv(q, k, v, dout, lse, delta, bias, dk, dv, B, H, Sq, Sk, st, strides[27], causal, sm_scale, s);
   if (D == 128) return (int)launch_dkv<128>(q, k, v, dout, lse, delta, bias, dk, dv, B, H, Sq, Sk, st, causal, sm_scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// How the head_dim-64 backward kernels fill the card: `out` receives, for B2
+// then B4, the blocks that fit on one SM, the threads and the dynamic shared
+// memory of a block, and the rows a block owns (8 ints).
+extern "C" int diffsensei_flash_attention_bwd_occupancy(int* out) {
+  const void* kernels[2] = {reinterpret_cast<const void*>(hop::bwd_dq_kernel),
+                            reinterpret_cast<const void*>(hop::bwd_dkv_kernel)};
+  for (int i = 0; i < 2; ++i) {
+    cudaError_t err = cudaFuncSetAttribute(kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)hop::SMEM);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4 * i], kernels[i], hop::THREADS,
+                                                          hop::SMEM);
+    }
+    if (err != cudaSuccess) return (int)err;
+    out[4 * i + 1] = hop::THREADS;
+    out[4 * i + 2] = (int)hop::SMEM;
+    out[4 * i + 3] = hop::T;
+  }
+  return 0;
 }

@@ -12,8 +12,14 @@ and backward ``_dq_kernel`` / ``_dkv_kernel`` and their ``_bias`` variants
 lse; the bias gets no gradient.
 
 On the card the UNet's spatial self-attention (S = 1024..4096, head_dim 64)
-is compute bound; the kernels keep every score and probability on chip and
-read each operand once per tile. See the source for the design.
+is bound by tensor-core operations; the kernels keep every score and
+probability on chip and read each operand once per tile. For head_dim 64 the
+backward kernels are built for Hopper: a TMA producer warp streams tiles
+through mbarriers to one warpgroup that runs wgmma, with P and dS repacked in
+registers as the A operand of the gradient products. B2 and B4 stay two
+passes (7 products against a fused pass's 5) so that each block owns its
+output rows and two calls give the same bits; a deterministic fused pass and
+fp8 are later work. See the source for the design.
 
 ``flash_attention`` (B1), ``flash_attention_bwd_dq`` (B2) and
 ``flash_attention_bwd_dkv`` (B4) run their kernels for CUDA tensors and the
@@ -130,12 +136,26 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, f"diffsensei_flash_attention_{name}")
         fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + tail
         fn.restype = ctypes.c_int
+    lib.diffsensei_flash_attention_bwd_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.diffsensei_flash_attention_bwd_occupancy.restype = ctypes.c_int
     return lib
 
 
 def build() -> None:
     """Compile and load the kernel library (also done at first launch)."""
     _library()
+
+
+def bwd_occupancy() -> dict:
+    """How the head_dim-64 backward kernels fill the card: for ``"dq"`` (B2)
+    and ``"dkv"`` (B4), the blocks that fit on one SM, a block's threads and
+    dynamic shared memory bytes, and the rows it owns."""
+    out = (ctypes.c_int * 8)()
+    err = _library().diffsensei_flash_attention_bwd_occupancy(out)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward occupancy query failed: cudaError {err}")
+    keys = ("blocks_per_sm", "threads", "smem_bytes", "rows_per_block")
+    return {name: dict(zip(keys, out[4 * i:4 * i + 4])) for i, name in enumerate(("dq", "dkv"))}
 
 
 def _check_qkv(name: str, t: torch.Tensor, device: torch.device) -> None:
@@ -226,16 +246,30 @@ def _check_bwd_call(q, k, v, bias, lse, named):
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself where the kernels can read it, else a contiguous copy (an
-    output gradient may come in any layout)."""
+    """``t`` itself where the kernels can read it, else a contiguous copy in
+    fresh (aligned) memory: an output gradient may come in any layout, at any
+    offset."""
     if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-        return t.contiguous()
+        return t.clone(memory_format=torch.contiguous_format)
     return t
 
 
-def _bwd_strides(q, k, v, o, do, dq, dk, dv, bias_strides):
-    return (ctypes.c_longlong * 27)(
-        *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]), *bias_strides)
+def _bwd_strides(q, k, v, o, do, dq, dk, dv, bias_strides, stat_pitch=0):
+    return (ctypes.c_longlong * 28)(
+        *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]), *bias_strides,
+        stat_pitch)
+
+
+def _stat_rows(lse: torch.Tensor, delta: torch.Tensor):
+    """``(lse, delta, pitch)`` as the head_dim-64 dK/dV kernel reads them by
+    TMA: 16-byte aligned, each (batch, head) row padded to a multiple of 4
+    values (the padding is never read as a value)."""
+    pad = -lse.shape[-1] % 4
+    if pad:
+        return (*(torch.nn.functional.pad(t, (0, pad)) for t in (lse, delta)),
+                lse.shape[-1] + pad)
+    lse, delta = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (lse, delta))
+    return lse, delta, lse.shape[-1]
 
 
 def _bwd_dq_cuda(q, k, v, bias, o, lse, do, causal, sm_scale):
@@ -265,9 +299,10 @@ def _bwd_dkv_cuda(q, k, v, bias, lse, delta, do, causal, sm_scale):
     do = _aligned(do)
     bias_strides = _check_bwd_call(q, k, v, bias, lse, (("do", do),))
     _check_stat("delta", delta, q)
+    lse, delta, pitch = _stat_rows(lse, delta) if d == 64 else (lse, delta, sq)
     dk, dv = _heads_merged_like(k), _heads_merged_like(v)
     # the o/dq slots of the strides are unused by this kernel
-    strides = _bwd_strides(q, k, v, q, do, q, dk, dv, bias_strides)
+    strides = _bwd_strides(q, k, v, q, do, q, dk, dv, bias_strides, pitch)
     with torch.cuda.device(q.device):
         err = _library().diffsensei_flash_attention_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),

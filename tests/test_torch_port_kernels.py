@@ -57,24 +57,45 @@ def _rel(got, want):
     return ((got.float() - want).norm() / want.norm()).item()
 
 
+def _laid_out(t, layout):
+    """``t`` with the same values in another memory layout: ``"bhsd"`` as it
+    is, ``"bshd"`` the heads-merged layout that ``_merge_heads``'s backward
+    hands in, ``"offset"`` a copy 2 bytes into its buffer (not 16-byte
+    aligned)."""
+    if layout == "bshd":
+        return t.transpose(1, 2).contiguous().transpose(1, 2)
+    if layout == "offset":
+        flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+        return flat[1:1 + t.numel()].view(t.shape).copy_(t)
+    return t
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,h,sq,sk,d,causal,bias_shape", [
-    (1, 10, 4096, 4096, 64, False, None),     # UNet level 1 at 1024², batch 1
-    (1, 20, 1024, 1024, 64, False, None),     # UNet level 2
-    (1, 4, 1100, 1300, 64, False, "b"),       # ragged tails, bias broadcast over heads
-    (2, 3, 100, 130, 64, False, "bh"),        # bias broadcast over batch and heads
-    (1, 4, 1100, 1100, 64, True, None),       # causal
-    (1, 2, 200, 130, 64, True, None),         # causal with Sq > Sk
-    (1, 2, 130, 300, 64, True, None),         # causal with Sq < Sk
-    (1, 4, 1024, 1024, 128, False, None),     # head_dim 128
-    (2, 2, 130, 70, 128, True, "b"),          # head_dim 128, causal, bias, tails
-    (1, 3, 37, 45, 64, False, None),          # one partial tile each way
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,bias_shape,do_layout", [
+    (1, 10, 4096, 4096, 64, False, None, "bhsd"),   # UNet level 1 at 1024², batch 1
+    (1, 20, 1024, 1024, 64, False, None, "bhsd"),   # UNet level 2
+    (1, 4, 1100, 1300, 64, False, "b", "bhsd"),     # ragged tails, bias broadcast over heads
+    (2, 3, 100, 130, 64, False, "bh", "bhsd"),      # bias broadcast over batch and heads
+    (1, 4, 1100, 1100, 64, True, None, "bhsd"),     # causal
+    (1, 2, 200, 130, 64, True, None, "bhsd"),       # causal with Sq > Sk
+    (1, 2, 130, 300, 64, True, None, "bhsd"),       # causal with Sq < Sk
+    (1, 4, 1024, 1024, 128, False, None, "bhsd"),   # head_dim 128
+    (2, 2, 130, 70, 128, True, "b", "bhsd"),        # head_dim 128, causal, bias, tails
+    (1, 3, 37, 45, 64, False, None, "bhsd"),        # one partial tile each way
+    (1, 2, 63, 65, 64, False, None, "bhsd"),        # one below / above the 64-row tile
+    (1, 2, 65, 63, 64, True, None, "bhsd"),         # the same the other way, causal
+    (2, 2, 129, 127, 64, False, "b", "bhsd"),       # around two tiles, bias
+    (1, 3, 100, 1, 64, False, None, "bhsd"),        # a single key
+    (1, 2, 300, 40, 64, False, None, "bhsd"),       # Sk under one tile, Sq five tiles
+    (1, 20, 1024, 1024, 64, False, None, "bshd"),   # dO heads-merged: the maps' strides
+    (1, 4, 300, 200, 64, False, None, "offset"),    # dO misaligned: copied by _aligned
 ])
 def test_flash_backward_kernels_match_plain_on_card(cuda, b, h, sq, sk, d, causal,
-                                                    bias_shape):
+                                                    bias_shape, do_layout):
     g = torch.Generator(device=cuda).manual_seed(1)
     mk = lambda s: torch.randn((b, h, s, d), generator=g, device=cuda).bfloat16()
     q, k, v, do = mk(sq), mk(sk), mk(sk), mk(sq)
+    do = _laid_out(do, do_layout)
     bias = None
     if bias_shape is not None:
         shape = (b, 1, sq, sk) if bias_shape == "b" else (1, 1, sq, sk)
@@ -90,7 +111,11 @@ def test_flash_backward_kernels_match_plain_on_card(cuda, b, h, sq, sk, d, causa
     for name, x, y, z in zip(("dq", "dk", "dv"), got, again, want):
         assert x.dtype == torch.bfloat16 and x.shape == z.shape, name
         assert torch.equal(x, y), f"{name}: two calls differ"   # no float atomics
-        assert _rel(x, z) <= 2e-2, f"{name}: relative error {_rel(x, z)}"
+        if sk == 1 and name != "dv":
+            # one key: P = 1 and dS = dP - delta vanish, dq and dk are rounding noise
+            assert (x.float() - z).abs().max().item() <= 1e-3, name
+        else:
+            assert _rel(x, z) <= 2e-2, f"{name}: relative error {_rel(x, z)}"
 
 
 @pytest.mark.gpu
