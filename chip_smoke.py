@@ -8,20 +8,24 @@ Run from the root of the repository. Phases, one JSON line each:
 1. device: the card, its power limit, the TF32 switches (both off);
 2. build: kernels B1, B2 and B4 (one CUDA C++ source), B5 and B6 (CUDA
    C++), one nvcc each, started together, and B3 (Triton) from
-   ``diffsensei_tpu_torch/csrc``; flash_bwd_layout: the head_dim-64 B2 and
-   B4 kernels' registers, spills, blocks per SM, grid and waves at the
-   UNet's shapes;
-3. flash_attention: B1 against its plain twin at the UNet's shapes, with times
-   beside the plain twin and ``F.scaled_dot_product_attention``;
+   ``diffsensei_tpu_torch/csrc``; flash_layout: the head_dim-64 B1 (64- and
+   128-key tiles), B2 and B4 kernels' registers, spills, blocks per SM, grid
+   and waves at the UNet's shapes;
+3. flash_attention: B1 against its plain twin at the UNet's shapes (o within
+   2e-2 and within 5e-3 in relative Frobenius norm, lse within 1e-3), with
+   times beside the plain twin and ``F.scaled_dot_product_attention``, and
+   each row's bound;
 4. groupnorm_silu: B3 likewise, beside ``F.group_norm`` + ``F.silu``;
 5. int4_matmul: B6 against its plain twin at the agent's decode shapes, with
    times beside the twin and ``torch.matmul`` on the weight dequantized to bf16;
 6. reference: a cut-down SDXL-width UNet (bf16, kernels on), the SDXL VAE
-   decoder (fp32) and a cut-down SEED-X-width int4 LLaMA (prefill and 8
-   decode steps) on the card against the same weights on the CPU in fp32;
+   decoder (fp32) whole and tiled, and a cut-down SEED-X-width int4 LLaMA
+   (prefill and 8 decode steps) on the card against the same weights on the
+   CPU in fp32;
 7. serve: ``DiffSenseiServer.generate`` at full SDXL width with random
    weights: 1024² with 20 Euler steps and CFG, two characters and a dialog
-   box; the 768x1344 bucket; an unconditioned 1024² panel;
+   box; the 768x1344 bucket (its 96x168 latent decoded in two tiles); an
+   unconditioned 1024² panel;
 8. serve_agent: the same server with the SEED-X agent (int4 LLaMA-13B at
    full width, random weights) beside the SDXL stack on the one card: the
    1024² request again, its characters adapted by 500 greedy decode steps.
@@ -39,7 +43,8 @@ Run from the root of the repository. Phases, one JSON line each:
    one line a step; profile_train: ``torch.profiler`` over one of them;
 13. dual_cross_attention (after phase 5): B5 against its plain twin at the
    UNet's cross-attention shapes, with times beside the twin and two
-   ``F.scaled_dot_product_attention`` calls;
+   ``F.scaled_dot_product_attention`` calls, each row's bound and occupancy;
+   dual_layout: its registers and spills;
 14. reference_train_mllm (after phase 11): one stage-3 loss and backward on a
    cut-down stack with a 2-layer SEED-X-width LLaMA, bf16 on the card against
    fp32 on the CPU;
@@ -169,41 +174,86 @@ GN_CASES = [  # (shape, dtype name, eps)
 ]
 
 
+# B1's outputs against its fp32 twin's: o within FLASH_O_ABS at every element
+# and within FLASH_O_REL in relative Frobenius norm, lse within FLASH_LSE_ABS.
+# The relative limit lies between sound builds and builds with a planted P V
+# fault (tools/torch_kernel_variants.py measures both; PERF.md).
+FLASH_O_ABS, FLASH_O_REL, FLASH_LSE_ABS = 2e-2, 5e-3, 1e-3
+
+
+def flash_readings(o, lse, ro, rlse) -> dict:
+    """o's largest error, its error in relative Frobenius norm and its largest
+    error over the twin's largest value; lse's largest error."""
+    err = o.float() - ro
+    return dict(max_abs_err_o=err.abs().max().item(),
+                rel_frobenius_o=(err.norm() / ro.norm()).item(),
+                rel_max_o=(err.abs().max() / ro.abs().max()).item(),
+                max_abs_err_lse=(lse - rlse).abs().max().item())
+
+
+def flash_agrees(r: dict) -> bool:
+    return (r["max_abs_err_o"] <= FLASH_O_ABS and r["rel_frobenius_o"] <= FLASH_O_REL
+            and r["max_abs_err_lse"] <= FLASH_LSE_ABS)
+
+
+def flash_inputs(case, gen, device):
+    """q, k, v (bf16 randn) and the bias (0 or -10000 at random, broadcast
+    over heads) of a FLASH_CASES row."""
+    import torch
+
+    b, h, sq, sk, d, causal, with_bias = case
+    mk = lambda s: torch.randn((b, h, s, d), generator=gen, device=device).bfloat16()
+    q, k, v = mk(sq), mk(sk), mk(sk)
+    bias = None
+    if with_bias:
+        bias = torch.where(torch.rand((b, 1, sq, sk), generator=gen, device=device) > 0.3,
+                           0.0, -10000.0)
+    return q, k, v, bias
+
+
 def check_flash(device) -> dict:
+    """B1 against the fp32 math of its plain twin on the same bf16 inputs
+    (``flash_agrees``), two calls bit-equal; the head_dim-64 kernel streams
+    128-key tiles at the 4096- and 4032-key rows and 64-key tiles at the
+    others. Times beside the twin's and ``F.scaled_dot_product_attention``'s;
+    each row's bound counts q, k, v and the bias read once, o and lse written
+    once, and 2 products a (query, key) pair."""
     import torch
     import torch.nn.functional as F
     from diffsensei_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(0)
     rows = []
-    for b, h, sq, sk, d, causal, with_bias in FLASH_CASES:
-        mk = lambda s: torch.randn((b, h, s, d), generator=gen, device=device).bfloat16()
-        q, k, v = mk(sq), mk(sk), mk(sk)
-        bias = None
-        if with_bias:
-            bias = torch.where(torch.rand((b, 1, sq, sk), generator=gen, device=device) > 0.3,
-                               0.0, -10000.0)
-        o, lse = fa.flash_attention(q, k, v, bias, causal=causal)
+    for case in FLASH_CASES:
+        b, h, sq, sk, d, causal, with_bias = case
+        q, k, v, bias = flash_inputs(case, gen, device)
+        call = lambda: fa.flash_attention(q, k, v, bias, causal=causal)
+        o, lse = call()
+        again = call()
         torch.cuda.synchronize()
         ro, rlse = fa.flash_attention_ref(q.float(), k.float(), v.float(), bias, causal)
-        err_o = (o.float() - ro).abs().max().item()
-        err_lse = (lse - rlse).abs().max().item()
         row = dict(shape=[b, h, sq, sk, d], causal=causal, bias=with_bias,
-                   max_abs_err_o=err_o, max_abs_err_lse=err_lse,
-                   ms=cuda_ms(lambda: fa.flash_attention(q, k, v, bias, causal=causal)),
+                   key_tile=(128 if sk > fa.FWD_WIDE_KEYS else 64) if d == 64 else None,
+                   **flash_readings(o, lse, ro, rlse),
+                   bit_equal=torch.equal(o, again[0]) and torch.equal(lse, again[1]),
+                   ms=cuda_ms(call),
                    plain_ms=cuda_ms(lambda: fa.flash_attention_ref(q, k, v, bias, causal)),
                    sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                        q, k, v, attn_mask=None if bias is None else bias.bfloat16(),
-                       is_causal=causal)))
+                       is_causal=causal)),
+                   **bound(2 * b * h * d * (2 * sq + 2 * sk) + 4 * b * h * sq
+                           + (0 if bias is None else 4 * bias.numel()),
+                           4 * b * h * _causal_pairs(sq, sk, causal) * d))
+        row["vs_sdpa"] = row["ms"] / row["sdpa_ms"]
         rows.append(row)
         emit({"phase": "flash_attention", **row})
-        if not (err_o <= 2e-2 and err_lse <= 1e-3):
+        if not (flash_agrees(row) and row["bit_equal"]):
             raise AssertionError(f"flash_attention disagrees with its plain twin: {row}")
-    b, h, sq, sk, d = FLASH_CASES[0][:5]
-    nbytes = 2 * b * h * d * (2 * sq + 2 * sk) + 4 * b * h * sq
-    return dict(max_abs_err=max(r["max_abs_err_o"] for r in rows), ms=rows[0]["ms"],
-                plain_ms=rows[0]["plain_ms"], library_ms=rows[0]["sdpa_ms"],
-                **bound(nbytes, 4 * b * h * sq * sk * d))
+        del q, k, v, bias, o, lse, again, ro, rlse
+    main = rows[0]
+    return dict(max_abs_err=max(r["max_abs_err_o"] for r in rows), ms=main["ms"],
+                plain_ms=main["plain_ms"], library_ms=main["sdpa_ms"],
+                **{k: main[k] for k in ("bound_ms", "bound_by")})
 
 
 def check_groupnorm(device) -> dict:
@@ -311,29 +361,32 @@ FLASH_BWD_CASES = [  # (B, H, Sq, Sk, D, causal, bias)
     (1, 4, 100, 1, 64, False, False),        # a single key
     (1, 4, 300, 40, 64, False, False),       # Sk under one tile, Sq five tiles long
 ]
-UNET_BWD_SHAPES = [(1, 10, 4096), (1, 20, 1024)]   # (B, H, S) at head_dim 64, train batch 1
+UNET_FWD_SHAPES = [(2, 10, 4096), (2, 20, 1024)]   # (B, H, S) at head_dim 64, CFG batch 2
+UNET_BWD_SHAPES = [(1, 10, 4096), (1, 20, 1024)]   # the same, train batch 1
 
 
-def flash_bwd_layout() -> dict:
-    """The head_dim-64 backward kernels' registers, stack and spills (from
-    the nvcc log of ``flash_attention.cu``), blocks per SM, threads and shared
-    memory, and their grid and waves at the UNet's shapes."""
+def flash_layout() -> dict:
+    """The head_dim-64 kernels' registers, stack and spills (from the nvcc
+    log of ``flash_attention.cu``): B1 over 64- and 128-key tiles, B2, B4; their
+    blocks per SM, threads and shared memory, and their grid and waves at the
+    UNet's shapes (B1 at the CFG batch, B2 and B4 at the training batch)."""
     import torch
     from diffsensei_tpu_torch.ops import _build, flash_attention as fa
 
+    tags = (("fwd_64", "hop10fwd_kernelILi64E"), ("fwd_128", "hop10fwd_kernelILi128E"),
+            ("dq", "hop13bwd_dq_kernel"), ("dkv", "hop14bwd_dkv_kernel"))
     ptxas, name = {}, None
     log = _build.cuda_library("flash_attention.cu").with_suffix(".log").read_text()
     for line in log.splitlines():
         if "Function properties for" in line:
-            name = next((k for k, tag in (("dq", "hop13bwd_dq_kernel"),
-                                          ("dkv", "hop14bwd_dkv_kernel")) if tag in line), None)
+            name = next((k for k, tag in tags if tag in line), None)
         elif name and ("spill" in line or "registers" in line):
             ptxas.setdefault(name, []).append(line.split(":")[-1].strip())
-    occupancy = fa.bwd_occupancy()
+    occupancy = fa.occupancy()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     grids = {}
-    for b, h, s in UNET_BWD_SHAPES:
-        for kernel, occ in occupancy.items():
+    for kernel, occ in occupancy.items():
+        for b, h, s in UNET_FWD_SHAPES if kernel.startswith("fwd") else UNET_BWD_SHAPES:
             blocks = -(-s // occ["rows_per_block"]) * h * b
             grids[f"{kernel}@{b},{h},{s},64"] = dict(
                 blocks=blocks, waves=blocks / (sms * occ["blocks_per_sm"]))
@@ -437,7 +490,21 @@ DUAL_CASES = [  # (B, H, S, D, text keys, IP keys, bias shape)
     (2, 20, 1024, 64, 77, 80, "b"),    # level 2
     (2, 10, 4032, 64, 77, 80, "b"),    # level 1 of the 768x1344 bucket: an odd q tail
     (2, 20, 1008, 64, 77, 80, "1"),    # level 2 there, a [1, 1, S, 80] broadcast bias
+    (2, 10, 4096, 64, 77, 128, "b"),   # the most IP keys B5 takes: its 16-key-tile kernel
 ]
+
+
+def dual_inputs(case, gen, device):
+    """q, both key/value sets (bf16 randn) and the bias (0 or -10000 at
+    random, [B|1, 1, S, IP keys]) of a DUAL_CASES row."""
+    import torch
+
+    b, h, sq, d, nt, ni, bias_kind = case
+    mk = lambda s: torch.randn((b, h, s, d), generator=gen, device=device).bfloat16()
+    q, kt, vt, ki, vi = mk(sq), mk(nt), mk(nt), mk(ni), mk(ni)
+    shape = (b if bias_kind == "b" else 1, 1, sq, ni)
+    bias = torch.where(torch.rand(shape, generator=gen, device=device) > 0.4, 0.0, -10000.0)
+    return q, kt, vt, ki, vi, bias
 
 
 def check_dual(device) -> dict:
@@ -451,11 +518,10 @@ def check_dual(device) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(9)
     rows = []
-    for b, h, sq, d, nt, ni, bias_kind in DUAL_CASES:
-        mk = lambda s: torch.randn((b, h, s, d), generator=gen, device=device).bfloat16()
-        q, kt, vt, ki, vi = mk(sq), mk(nt), mk(nt), mk(ni), mk(ni)
-        shape = (b if bias_kind == "b" else 1, 1, sq, ni)
-        bias = torch.where(torch.rand(shape, generator=gen, device=device) > 0.4, 0.0, -10000.0)
+    for case in DUAL_CASES:
+        b, h, sq, d, nt, ni, _ = case
+        q, kt, vt, ki, vi, bias = dual_inputs(case, gen, device)
+        shape = tuple(bias.shape)
         got = dca.dual_cross_attention(q, kt, vt, ki, vi, bias)
         again = dca.dual_cross_attention(q, kt, vt, ki, vi, bias)
         torch.cuda.synchronize()
@@ -476,11 +542,17 @@ def check_dual(device) -> dict:
                    # written; QK^T and PV over both key sets
                    **bound(2 * b * h * d * (3 * sq + 2 * (nt + ni)) + 4 * bias.numel(),
                            4 * b * h * sq * (nt + ni) * d))
+        row["vs_sdpa"] = row["ms"] / row["sdpa_ms"]
+        row["occupancy"] = dca.occupancy(b, h, sq, nt, ni, d)
         rows.append(row)
         emit({"phase": "dual_cross_attention", **row})
         if not (max(errs) <= 2e-2 and row["bit_equal"]):
             raise AssertionError(f"dual_cross_attention disagrees with its plain twin: {row}")
         del q, kt, vt, ki, vi, bias, got, again, want, mask
+    from diffsensei_tpu_torch.ops import _build
+    log = _build.cuda_library("dual_cross_attention.cu").with_suffix(".log").read_text()
+    emit({"phase": "dual_layout",
+          "ptxas": [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]})
     main = rows[0]
     return dict(max_abs_err=max(max(r["max_abs_err_text"], r["max_abs_err_ip"]) for r in rows),
                 library_ms=main["sdpa_ms"],
@@ -495,7 +567,7 @@ def check_reference(device) -> None:
     import torch
     from diffsensei_tpu_torch.core.config import UNetConfig, VAEConfig
     from diffsensei_tpu_torch.models.unet import UNetMangaModel
-    from diffsensei_tpu_torch.models.vae import AutoencoderKL
+    from diffsensei_tpu_torch.models.vae import AutoencoderKL, tiled_decode
     from diffsensei_tpu_torch.utils.init import init_flax_like_
 
     # SDXL widths and heads, depth cut: a 64x64 latent gives 1024 tokens at level 1
@@ -529,17 +601,23 @@ def check_reference(device) -> None:
         raise AssertionError(f"UNet on the card disagrees with the CPU: {row}")
     del unet, unet_gpu
 
+    # the SDXL VAE decoder whole, and tiled (6 tiles of 12 at overlap 4)
     vcfg = VAEConfig.sdxl()
     vae = init_flax_like_(AutoencoderKL(vcfg), gen).eval()
     z = torch.tensor(rng.normal(size=(1, 16, 16, 4)), dtype=torch.float32)
+    zt = torch.tensor(rng.normal(size=(1, 20, 28, 4)), dtype=torch.float32)
+    tiled = lambda x: tiled_decode(vae, x, tile=12, overlap=4)
     with torch.inference_mode():
-        want = vae.decode(z)
-        got = vae.to(device).decode(z.to(device)).cpu()
-    rel = ((got - want).abs().max() / want.abs().max()).item()
-    row = dict(module="sdxl_vae_decoder_fp32", max_rel_err=rel, bound=1e-3)
-    emit({"phase": "reference", **row})
-    if not rel <= 1e-3:
-        raise AssertionError(f"VAE decoder on the card disagrees with the CPU: {row}")
+        want, want_t = vae.decode(z), tiled(zt)
+        vae.to(device)
+        got, got_t = vae.decode(z.to(device)).cpu(), tiled(zt.to(device)).cpu()
+    for module, g, w in (("sdxl_vae_decoder_fp32", got, want),
+                         ("sdxl_vae_tiled_decode_fp32", got_t, want_t)):
+        rel = ((g - w).abs().max() / w.abs().max()).item()
+        row = dict(module=module, shape=list(g.shape), max_rel_err=rel, bound=1e-3)
+        emit({"phase": "reference", **row})
+        if not rel <= 1e-3:
+            raise AssertionError(f"VAE decoder on the card disagrees with the CPU: {row}")
 
 
 def check_llama_reference(device, num_layers: int = 2, prompt_len: int = 24,
@@ -737,14 +815,15 @@ def serve(device):
     # per UNet forward on the CFG batch of 2: B1 70 at 1024² (10 at 4096 tokens,
     # 60 at 1024), 10 at 768x1344 (level 2 has 1008 tokens, below 1024);
     # B3 34 (17 resnets x 2); B5 70 with characters (one per cross-attention),
-    # 0 without; the VAE decode adds 28 B3 (14 resnets x 2)
+    # 0 without; the VAE decode adds 28 B3 (14 resnets x 2) a tile: one at
+    # 1024² (a 128x128 latent, decoded whole), two at 768x1344 (96x168)
     requests = [
         (GenerationRequest(height=1024, width=1024, num_inference_steps=20,
                            guidance_scale=7.5, seed=1, prompt_ids=ids(), **conditioned),
          expect(flash_fwd=20 * 70, groupnorm=20 * 34 + 28, dual=20 * 70)),
         (GenerationRequest(height=768, width=1344, num_inference_steps=4,
                            guidance_scale=7.5, seed=2, prompt_ids=ids(), **conditioned),
-         expect(flash_fwd=4 * 10, groupnorm=4 * 34 + 28, dual=4 * 70)),
+         expect(flash_fwd=4 * 10, groupnorm=4 * 34 + 2 * 28, dual=4 * 70)),
         (GenerationRequest(height=1024, width=1024, num_inference_steps=4,
                            guidance_scale=7.5, seed=3, prompt_ids=ids()),
          expect(flash_fwd=4 * 70, groupnorm=4 * 34 + 28)),
@@ -771,6 +850,8 @@ def serve(device):
                    min=float(img.min()), max=float(img.max()), mean=float(img.mean()),
                    std=float(img.std()),
                    max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   # B3 launches of the decode over the 28 of one tile's decode
+                   decode_tiles=(got["groupnorm"] - 34 * req.num_inference_steps) / 28,
                    launches=got)
         emit({"phase": "serve", **row})
         if img.shape != (1, req.height, req.width, 3) or not row["finite"] \
@@ -1403,7 +1484,7 @@ def main() -> int:
                        if "registers" in ln or "spill" in ln]
     emit({"phase": "build", **{f"{name}_nvcc_s": t for name, t in nvcc.items()},
           "groupnorm_triton_s": t_gn, "ptxas": ptxas})
-    emit({"phase": "flash_bwd_layout", **flash_bwd_layout()})
+    emit({"phase": "flash_layout", **flash_layout()})
 
     flash = check_flash(device)
     gnorm = check_groupnorm(device)

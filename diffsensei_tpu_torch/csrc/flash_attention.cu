@@ -7,29 +7,53 @@
 //
 // What bounds it on the H100: at the UNet's shapes (S = 1024..4096, D = 64)
 // attention is compute bound (4*S*D flops per score, 2 bytes per element
-// read once per q tile), so the limit is the tensor cores and keeping them
-// fed. The design:
-//   * one block of 4 warps per (64-row q tile, head, batch); each warp owns 16
-//     q rows, so the online-softmax state of a row never leaves its warp;
-//   * products run on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32
-//     accumulate). Q's fragments, the scores, the probabilities and the O
-//     accumulator stay in registers: a score tile's accumulator layout is the
-//     next product's A-operand layout, so P never touches shared memory;
-//   * K/V tiles of 64 keys stream through two shared-memory stages with
-//     cp.async, so the next tile's load overlaps this tile's math;
-//   * the running max and sum are fp32 per row (exp2 with log2(e) folded into
-//     the scale); the row sum is reduced across its four lanes once, at the end.
-// Ragged tails: out-of-range K and V rows are zero-filled by cp.async and
-// their scores masked, out-of-range Q rows are zeros and never written, so no
-// tile size has to divide Sq or Sk. An optional additive fp32 bias
-// [B|1, H|1, Sq, Sk] is read through its strides (a broadcast dim has stride
-// 0, nothing is expanded), and `causal` masks cols > rows and skips the K/V
-// tiles above the diagonal. wgmma and TMA are later work.
+// read once per q tile), and at D = 64 the exponentials weigh about as much
+// as the products (the special-function unit does one exp per 256 tensor-core
+// flops). So the limit is the tensor cores and the exponentials, and the
+// design keeps both busy at once.
+//
+// head_dim 64, the UNet's, is built for Hopper (namespace `hop` below, the
+// parts shared with the backward kernels B2 and B4):
+//   * a block is one consumer warpgroup of 64 q rows and a producer warp
+//     whose lane 0 loads the Q tile once and streams K/V tiles through a ring
+//     with TMA (4-d maps (D, S, H, B) from the caller's strides, 128-byte
+//     swizzle, zero fill past S), handed over by full and empty mbarriers. A
+//     tile holds 64 keys (3 blocks an SM, a four-stage ring) or, where the
+//     caller has many keys, 128 (2 blocks an SM, three stages: fewer steps,
+//     wider products). Two consumer warpgroups a block sharing each K/V tile
+//     measured slower than either;
+//   * S = Q K^T is wgmma m64n64k16 or m64n128k16 with both operands in
+//     shared memory. Each step issues the next tile's S and this tile's P V,
+//     then computes the next tile's softmax while P V runs, so the
+//     exponentials overlap the tensor cores. No condition guards a product's
+//     issue and no accumulator is copied while its group runs: either makes
+//     ptxas serialize the wgmma groups. The softmax is fp32 in registers with the
+//     scale folded into log2 units and ex2.approx.ftz; only tiles that need
+//     it (the ragged last tile, causal diagonal tiles, every tile with a
+//     bias) take the branch-free mask pass, which adds the bias and writes
+//     -inf; a row with no valid key yet exponentiates against 0, so it gives
+//     p = 0 and never NaN;
+//   * P is repacked from the accumulators to bf16 as the A operand of
+//     O += P V (wgmma with A in registers), V read N-contiguous from the same
+//     swizzled tile through the transpose bit: nothing is staged by hand.
+// head_dim 128 (not on the UNet's path) keeps the earlier design: one block
+// of 4 warps per (64-row q tile, head, batch), each warp 16 rows; mma.sync
+// m16n8k16 with Q, S, P and O in registers; K/V tiles double-buffered with
+// cp.async; exp2 with log2(e) folded into the scale.
+// Ragged tails: out-of-range K and V rows are zero-filled and their scores
+// masked, out-of-range Q rows are zeros and never written, so no tile size
+// has to divide Sq or Sk. An optional additive fp32 bias [B|1, H|1, Sq, Sk]
+// is read through its strides (a broadcast dim has stride 0, nothing is
+// expanded), and `causal` masks cols > rows and skips the K/V tiles above the
+// diagonal. A row with no valid key gets O = 0 and lse = -1e30.
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <vector>
 
 typedef __nv_bfloat16 bf16;
 
@@ -42,6 +66,30 @@ constexpr int NTHREADS = NWARPS * 32;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory on the current
+// device. The attribute lasts for the process, so it is set once for each
+// (kernel, device, size) and not at every launch: the paths that launch these
+// kernels most are host bound.
+cudaError_t allow_smem(const void* kernel, size_t smem) {
+  struct Done {
+    const void* kernel;
+    int dev;
+    size_t smem;
+  };
+  static std::mutex mu;
+  static std::vector<Done> done;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Done& d : done) {
+    if (d.kernel == kernel && d.dev == dev && d.smem >= smem) return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) done.push_back({kernel, dev, smem});
+  return err;
+}
 
 template <int D>
 struct Layout {
@@ -303,8 +351,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
                    const long long* st, int causal, float sm_scale,
                    cudaStream_t stream) {
   const size_t smem = Layout<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(flash_fwd_kernel<D>), smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BM - 1) / BM, H, B);
   flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
@@ -735,8 +782,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
                       void* delta, int B, int H, int Sq, int Sk, const BwdStrides& st,
                       int causal, float sm_scale, cudaStream_t stream) {
   const size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(flash_bwd_dq_kernel<D>), smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BM - 1) / BM, H, B);
   flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
@@ -753,8 +799,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        void* dv, int B, int H, int Sq, int Sk, const BwdStrides& st,
                        int causal, float sm_scale, cudaStream_t stream) {
   const size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(flash_bwd_dkv_kernel<D>), smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sk + BN - 1) / BN, H, B);
   flash_bwd_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(
@@ -842,9 +887,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keep the compiler from moving reads or writes of an accumulator across the
 // asynchronous wgmma that owns it.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define HOP_D32                                                                      \
@@ -867,6 +913,29 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       : HOP_D32_OUT(d) : "l"(a), "l"(b), "r"(accumulate));
 }
 
+#define HOP_D64                                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "   \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "   \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define HOP_D64_OUT(d)                                                                  \
+  HOP_D32_OUT(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),      \
+  "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),         \
+  "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),         \
+  "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),         \
+  "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),         \
+  "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (64 x 128, fp32) = [d +] A B^T, A 64 x 16 and B 128 x 16 K-major tiles in
+// shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOP_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : HOP_D64_OUT(d) : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 64, fp32) += A B, A 64 x 16 in registers (the m16n8k16 A fragment of
 // each warp's 16 rows), B 16 x 64 in shared memory with N contiguous.
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
@@ -877,12 +946,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : HOP_D32_OUT(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// The accumulator of a 64 x 64 product holds, in thread (warp w, lane 4g + t),
+// The accumulator of a 64 x N product holds, in thread (warp w, lane 4g + t),
 // element 4n + e at row 16w + g + 8(e >> 1), column 8n + 2t + (e & 1): for a
 // k-step kk of the next product its columns 16kk..16kk+15 are the A fragment.
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&x)[32]) {
+template <int KS>
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[KS][4], const float (&x)[8 * KS]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
   }
@@ -902,19 +972,19 @@ __device__ __forceinline__ float ex2(float x) {
 // above the causal diagonal. KEYS_ON_ROWS: rows are keys (B4), else q rows
 // (B2). Branch-free: the bias is read at a clamped in-range address and the
 // mask applied by a select, so no element sits behind a divergent branch.
-template <bool KEYS_ON_ROWS>
-__device__ __forceinline__ void mask_tile(float (&s)[32], int row0, int col0, int Sq, int Sk,
+template <bool KEYS_ON_ROWS, int N>
+__device__ __forceinline__ void mask_tile(float (&s)[N], int row0, int col0, int Sq, int Sk,
                                           int causal, const float* bp, long long bias_row) {
   if (bp != nullptr) {
 #pragma unroll
-    for (int x = 0; x < 32; ++x) {
+    for (int x = 0; x < N; ++x) {
       const int r = row0 + 8 * ((x & 3) >> 1), c = col0 + 8 * (x >> 2) + (x & 1);
       const int qi = min(KEYS_ON_ROWS ? c : r, Sq - 1), kj = min(KEYS_ON_ROWS ? r : c, Sk - 1);
       s[x] += __ldg(bp + (long long)qi * bias_row + kj) * LOG2E;
     }
   }
 #pragma unroll
-  for (int x = 0; x < 32; ++x) {
+  for (int x = 0; x < N; ++x) {
     const int r = row0 + 8 * ((x & 3) >> 1), c = col0 + 8 * (x >> 2) + (x & 1);
     const int qi = KEYS_ON_ROWS ? c : r, kj = KEYS_ON_ROWS ? r : c;
     const bool ok = qi < Sq && kj < Sk && (!causal || kj <= qi);
@@ -956,17 +1026,21 @@ struct Smem {
   }
 };
 
-__device__ __forceinline__ void init_barriers(const Smem& sm) {
+// Barriers at bar0 + 8i: [0] the block's own tiles, [1 + s] stage s full,
+// [1 + stages + s] stage s empty (released by all `consumers` threads).
+__device__ __forceinline__ void init_ring(uint32_t bar0, int stages, uint32_t consumers) {
   if (threadIdx.x == 0) {
-    mbar_init(sm.bar(0), 1);
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(sm.bar(1 + s), 1);
-      mbar_init(sm.bar(1 + STAGES + s), CONSUMERS);
+    mbar_init(bar0, 1);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(bar0 + 8 * (1 + s), 1);
+      mbar_init(bar0 + 8 * (1 + stages + s), consumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 }
+
+__device__ __forceinline__ void init_barriers(const Smem& sm) { init_ring(sm.bar(0), STAGES, CONSUMERS); }
 
 // B2: dQ for 64 q rows, K/V tiles streamed. Tiles: 0 Q, 1 dO, 2 + 2s K, 3 + 2s V.
 __global__ void __launch_bounds__(THREADS, 2)
@@ -1208,8 +1282,186 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
   store_acc(dv + b * st.dv[0] + h * st.dv[1], st.dv[2], key0, Sk, dv_acc, 1.f, t);
 }
 
+// B1: O and lse for 64 q rows, K/V tiles of BN keys streamed through a ring
+// of fwd_stages(BN). Shared memory: the Q tile (8 KB), then per stage a K and
+// a V tile of BN x 128 bytes, then the barriers. A tile's stage is released
+// only once its P V has run, after the next tile's S = Q K^T was issued, so
+// the ring needs 3 stages; at 64 keys 4 measured faster than 3 and 2 on an
+// H100. 64-key tiles fit 3 blocks an SM (128 registers, no spill), 128-key
+// tiles 2 (168 registers).
+constexpr int fwd_stages(int BN) { return BN == 64 ? 4 : 3; }
+
+template <int BN>
+struct FwdSmem {
+  static constexpr int STAGES = fwd_stages(BN);
+  static constexpr uint32_t KV = BN * 128;  // one K or V tile
+  static constexpr uint32_t BARS = TILE + STAGES * 2 * KV;
+  static constexpr size_t BYTES = BARS + 8 * (2 * STAGES + 1) + 1024;
+  uint32_t base;  // shared-window address, 1024-aligned; the Q tile
+  __device__ explicit FwdSmem(unsigned char* raw) { base = (smem_u32(raw) + 1023u) & ~1023u; }
+  __device__ uint32_t k(int s) const { return base + TILE + s * 2 * KV; }
+  __device__ uint32_t v(int s) const { return k(s) + KV; }
+  __device__ uint32_t bar(int i) const { return base + BARS + 8 * i; }
+};
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, BN == 64 ? 3 : 2)
+fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+           const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ bias,
+           bf16* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Sk,
+           long long sob, long long soh, long long sos, long long sbb, long long sbh,
+           long long sbq, int causal, float sm_scale) {
+  using Sm = FwdSmem<BN>;
+  constexpr int STAGES = Sm::STAGES;
+  constexpr int NS = BN / 2;  // score accumulators a thread
+  extern __shared__ unsigned char smem_raw[];
+  const Sm sm(smem_raw);
+  const int q_start = blockIdx.x * T;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  int n_tiles = (Sk + BN - 1) / BN;
+  if (causal) {
+    // tiles whose first key lies above the block's last row are all masked
+    const int last = (q_start + T - 1) / BN + 1;
+    n_tiles = n_tiles < last ? n_tiles : last;
+  }
+  init_ring(sm.bar(0), STAGES, CONSUMERS);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp == CONSUMERS / 32) {  // producer
+    if (lane == 0) {
+      mbar_expect_tx(sm.bar(0), TILE);
+      tma_4d(sm.base, &tm_q, sm.bar(0), 0, q_start, h, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(sm.bar(1 + STAGES + s), (i / STAGES - 1) & 1);
+        mbar_expect_tx(sm.bar(1 + s), 2 * Sm::KV);
+        tma_4d(sm.k(s), &tm_k, sm.bar(1 + s), 0, i * BN, h, b);
+        tma_4d(sm.v(s), &tm_v, sm.bar(1 + s), 0, i * BN, h, b);
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = q_start + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const uint32_t sQ = sm.base;
+  const float* bp = bias == nullptr ? nullptr : bias + b * sbb + h * sbh;
+  const float scale2 = sm_scale * LOG2E;
+  const float inf = __int_as_float(0x7f800000);
+  float m[2] = {-inf, -inf};  // running row max, log2 units
+  float l[2] = {0.f, 0.f};    // this thread's share of the row sums
+  float o_acc[32], sacc[NS];
+#pragma unroll
+  for (int x = 0; x < 32; ++x) o_acc[x] = 0.f;
+
+  // P = exp2(scale2 S + bias - m) of tile i in place, with the online max
+  // and sum, and corr, the factor that rescales O. A tile that needs no mask
+  // folds the scale into the exponent's fma.
+  float corr[2];
+  auto softmax = [&](int i) {
+    const int k_start = i * BN;
+    float sc = scale2;
+    if (k_start + BN > Sk || (causal && k_start + BN - 1 > q_start) || bp != nullptr) {
+#pragma unroll
+      for (int x = 0; x < NS; ++x) sacc[x] *= scale2;
+      mask_tile<false>(sacc, row0, k_start + 2 * t, Sq, Sk, causal, bp, sbq);
+      sc = 1.f;
+    }
+    float mx[2] = {-inf, -inf}, neg_m[2];
+#pragma unroll
+    for (int x = 0; x < NS; ++x) mx[(x & 3) >> 1] = fmaxf(mx[(x & 3) >> 1], sacc[x]);
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      mx[rh] = fmaxf(mx[rh], __shfl_xor_sync(0xffffffffu, mx[rh], 1));
+      mx[rh] = fmaxf(mx[rh], __shfl_xor_sync(0xffffffffu, mx[rh], 2));
+      const float m_new = fmaxf(m[rh], mx[rh] * sc);
+      // a row with no valid key so far keeps m = -inf: exponentiate against
+      // 0 there, so its p and its correction are 0 and never NaN
+      const float m_use = m_new == -inf ? 0.f : m_new;
+      corr[rh] = ex2(m[rh] - m_use);
+      neg_m[rh] = -m_use;
+      m[rh] = m_new;
+      l[rh] *= corr[rh];
+    }
+#pragma unroll
+    for (int x = 0; x < NS; ++x) {
+      const int rh = (x & 3) >> 1;
+      sacc[x] = ex2(fmaf(sacc[x], sc, neg_m[rh]));
+      l[rh] += sacc[x];
+    }
+  };
+  // O = O corr + P V of tile i: V read through the transpose bit, 16 keys
+  // (2048 bytes) a k-step; P's fragments `pa` stay read until the group ends
+  uint32_t pa[BN / 16][4];
+  auto pv = [&](int i) {
+#pragma unroll
+    for (int x = 0; x < 32; ++x) o_acc[x] *= corr[(x & 3) >> 1];
+    const uint32_t sV = sm.v(i % STAGES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(o_acc, pa[kk], desc(sV + 2048 * kk));
+    wgmma_commit();
+  };
+  auto qk = [&](int i) {  // S = Q K^T of tile i into sacc
+    const int s = i % STAGES;
+    mbar_wait(sm.bar(1 + s), (i / STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sacc, desc(sQ + 32 * kk), desc(sm.k(s) + 32 * kk), kk);
+    wgmma_commit();
+  };
+
+  mbar_wait(sm.bar(0), 0);
+  qk(0);
+  wgmma_wait<0>();
+  fence_acc(sacc);
+  softmax(0);
+  to_a_frags(pa, sacc);
+  // Each step issues the next tile's S, then this tile's P V, and computes
+  // the next softmax while P V runs on the tensor cores.
+  for (int i = 0; i + 1 < n_tiles; ++i) {
+    qk(i + 1);
+    pv(i);
+    wgmma_wait<1>();  // S of tile i + 1
+    fence_acc(sacc);
+    softmax(i + 1);
+    wgmma_wait<0>();  // P V of tile i: its stage is free, and pa may change
+    fence_acc(o_acc);
+    mbar_arrive(sm.bar(1 + STAGES + i % STAGES));
+    to_a_frags(pa, sacc);
+  }
+  pv(n_tiles - 1);
+  wgmma_wait<0>();
+  fence_acc(o_acc);
+
+  // O / l in bf16 and lse = m ln2 + log(l); a row with no valid key gets
+  // O = 0 and lse = -1e30, as the TPU kernel's l == 0 guard gives
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    l[rh] += __shfl_xor_sync(0xffffffffu, l[rh], 1);
+    l[rh] += __shfl_xor_sync(0xffffffffu, l[rh], 2);
+    const int qi = row0 + 8 * rh;
+    if (qi >= Sq) continue;
+    const float inv = l[rh] == 0.f ? 0.f : 1.f / l[rh];
+    bf16* out = o + b * sob + h * soh + (long long)qi * sos + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<uint32_t*>(out + 8 * n) =
+          pack_bf16(o_acc[4 * n + 2 * rh] * inv, o_acc[4 * n + 2 * rh + 1] * inv);
+    }
+    if (t == 0) {
+      lse[((long long)b * H + h) * Sq + qi] = l[rh] == 0.f ? NEG_INF : m[rh] * LN2 + logf(l[rh]);
+    }
+  }
+}
+
 #undef HOP_D32
 #undef HOP_D32_OUT
+#undef HOP_D64
+#undef HOP_D64_OUT
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -1235,14 +1487,15 @@ EncodeTiled encoder() {
 }
 
 // [B, H, S, 64] bf16 with element strides (b, h, s) as a 4-d map (D, S, H, B)
-// of 64 x 64 boxes, 128-byte swizzle; rows past S read as zeros.
-bool map_rows(CUtensorMap* map, const void* ptr, int B, int H, int S, const long long* str) {
+// of boxes of box_rows x 64, 128-byte swizzle; rows past S read as zeros.
+bool map_rows(CUtensorMap* map, const void* ptr, int B, int H, int S, const long long* str,
+              int box_rows = T) {
   const cuuint64_t dims[4] = {64, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
   cuuint64_t strides[3] = {(cuuint64_t)str[2] * 2, (cuuint64_t)str[1] * 2, (cuuint64_t)str[0] * 2};
   for (int i = 0; i < 3; ++i) {
     if (dims[i + 1] == 1 && strides[i] == 0) strides[i] = 16;  // unused: any legal stride
   }
-  const cuuint32_t box[4] = {64, T, 1, 1}, unit[4] = {1, 1, 1, 1};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1}, unit[4] = {1, 1, 1, 1};
   EncodeTiled fn = encoder();
   return fn != nullptr &&
          fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
@@ -1262,6 +1515,27 @@ bool map_stat(CUtensorMap* map, const void* ptr, int rows, int Sq, long long pit
             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// `st`: the 15 element strides of the C entry point (q, k, v, o, bias).
+template <int BN>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
+                       void* lse, int B, int H, int Sq, int Sk, const long long* st, int causal,
+                       float sm_scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!(map_rows(&mq, q, B, H, Sq, st) && map_rows(&mk, k, B, H, Sk, st + 3, BN) &&
+        map_rows(&mv, v, B, H, Sk, st + 6, BN))) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr size_t smem = FwdSmem<BN>::BYTES;
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(fwd_kernel<BN>), smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + T - 1) / T, H, B);
+  fwd_kernel<BN><<<grid, THREADS, smem, stream>>>(
+      mq, mk, mv, static_cast<const float*>(bias), static_cast<bf16*>(o),
+      static_cast<float*>(lse), H, Sq, Sk, st[9], st[10], st[11], st[12], st[13], st[14], causal,
+      sm_scale);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const void* lse, const void* bias, void* dq,
                       void* delta, int B, int H, int Sq, int Sk, const BwdStrides& st,
@@ -1271,8 +1545,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
         map_rows(&mv, v, B, H, Sk, st.v) && map_rows(&mdo, dout, B, H, Sq, st.dout))) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM);
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(bwd_dq_kernel), SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + T - 1) / T, H, B);
   bwd_dq_kernel<<<grid, THREADS, SMEM, stream>>>(
@@ -1292,8 +1565,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
         map_stat(&ml, lse, B * H, Sq, stat_pitch) && map_stat(&md, delta, B * H, Sq, stat_pitch))) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM);
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(bwd_dkv_kernel), SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((Sk + T - 1) / T, H, B);
   bwd_dkv_kernel<<<grid, THREADS, SMEM, stream>>>(
@@ -1308,13 +1580,17 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 
 // C entry point bound with ctypes. `strides` holds 15 element strides:
 // q (b, h, s), k (b, h, s), v (b, h, s), o (b, h, s), bias (b, h, q); the last
-// dim of every tensor has stride 1. Returns the cudaError_t of the launch.
+// dim of every tensor has stride 1. head_dim 64 builds TMA maps of q, k and v
+// here, so they must be 16-byte aligned with strides divisible by 8, and
+// streams K/V tiles of `key_tile` (64 or 128) keys. Returns the cudaError_t
+// of the launch (cudaErrorInvalidValue where a map cannot be encoded).
 extern "C" int diffsensei_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* o,
     void* lse, int B, int H, int Sq, int Sk, int D, const long long* strides,
-    int causal, float sm_scale, void* stream) {
+    int causal, float sm_scale, int key_tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch<64>(q, k, v, bias, o, lse, B, H, Sq, Sk, strides, causal, sm_scale, s);
+  if (D == 64 && key_tile == 64) return (int)hop::launch_fwd<64>(q, k, v, bias, o, lse, B, H, Sq, Sk, strides, causal, sm_scale, s);
+  if (D == 64 && key_tile == 128) return (int)hop::launch_fwd<128>(q, k, v, bias, o, lse, B, H, Sq, Sk, strides, causal, sm_scale, s);
   if (D == 128) return (int)launch<128>(q, k, v, bias, o, lse, B, H, Sq, Sk, strides, causal, sm_scale, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -1349,22 +1625,25 @@ extern "C" int diffsensei_flash_attention_bwd_dkv(
   return (int)cudaErrorInvalidValue;
 }
 
-// How the head_dim-64 backward kernels fill the card: `out` receives, for B2
-// then B4, the blocks that fit on one SM, the threads and the dynamic shared
-// memory of a block, and the rows a block owns (8 ints).
-extern "C" int diffsensei_flash_attention_bwd_occupancy(int* out) {
-  const void* kernels[2] = {reinterpret_cast<const void*>(hop::bwd_dq_kernel),
+// How the head_dim-64 kernels fill the card: `out` receives, for B1 over
+// 64-key and over 128-key tiles, then B2 and B4, the blocks that fit on one
+// SM, the threads and the dynamic shared memory of a block, and the q or key
+// rows a block owns (16 ints).
+extern "C" int diffsensei_flash_attention_occupancy(int* out) {
+  const void* kernels[4] = {reinterpret_cast<const void*>(hop::fwd_kernel<64>),
+                            reinterpret_cast<const void*>(hop::fwd_kernel<128>),
+                            reinterpret_cast<const void*>(hop::bwd_dq_kernel),
                             reinterpret_cast<const void*>(hop::bwd_dkv_kernel)};
-  for (int i = 0; i < 2; ++i) {
-    cudaError_t err = cudaFuncSetAttribute(kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)hop::SMEM);
+  const size_t smem[4] = {hop::FwdSmem<64>::BYTES, hop::FwdSmem<128>::BYTES, hop::SMEM, hop::SMEM};
+  for (int i = 0; i < 4; ++i) {
+    cudaError_t err = allow_smem(kernels[i], smem[i]);
     if (err == cudaSuccess) {
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4 * i], kernels[i], hop::THREADS,
-                                                          hop::SMEM);
+                                                          smem[i]);
     }
     if (err != cudaSuccess) return (int)err;
     out[4 * i + 1] = hop::THREADS;
-    out[4 * i + 2] = (int)hop::SMEM;
+    out[4 * i + 2] = (int)smem[i];
     out[4 * i + 3] = hop::T;
   }
   return 0;

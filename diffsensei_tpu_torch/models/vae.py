@@ -5,7 +5,8 @@ training panels into latents (``scripts/train/train.py:339-341`` in the
 reference: fp32 encode, reparameterized sample, times the scaling factor).
 Parameter names are diffusers' ``AutoencoderKL`` names, so a full VAE state
 dict loads as it is; ``load_decoder_state_dict`` loads only the decode half.
-The tiled decode above 1024² waits for a later slice.
+``tiled_decode`` decodes a latent with a side above one tile in overlapping
+tiles, as the JAX package does for every latent side above 128.
 
 The resnets' GroupNorm+SiLU runs on kernel B3. The mid-block attention stays
 plain math: one head over (H/8)*(W/8) tokens, about 1 GiB of fp32 scores at
@@ -14,8 +15,9 @@ plain math: one head over (H/8)*(W/8) tokens, about 1 GiB of fp32 scores at
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -177,3 +179,61 @@ def sample_latent(mean: torch.Tensor, logvar: torch.Tensor, noise: torch.Tensor,
     """Reparameterized latent sample scaled for the diffusion space; ``noise``
     is the standard-normal draw (shape of ``mean``)."""
     return (mean + torch.exp(0.5 * logvar) * noise) * scaling_factor
+
+
+def tile_plan(h: int, w: int, tile: int = 96, overlap: int = 24) -> List[Tuple[int, int]]:
+    """Top-left latent corners ``(y0, x0)`` of the tiles that cover an
+    ``h`` x ``w`` latent: a stride of ``tile - overlap``, the last tile of a
+    row or column moved back to end at the edge."""
+    stride = tile - overlap
+    return [(min(y0, h - tile) if h > tile else 0, min(x0, w - tile) if w > tile else 0)
+            for y0 in range(0, max(h - overlap, 1), stride)
+            for x0 in range(0, max(w - overlap, 1), stride)]
+
+
+def _ramp(length: int, start_px: int, total_px: int, overlap_px: int) -> np.ndarray:
+    """Blend weights along one side of a tile: up over the overlap where a
+    tile lies before it, down where one lies after it."""
+    r = np.ones((length,), np.float32)
+    if start_px > 0:
+        r[:overlap_px] = np.linspace(0.0, 1.0, overlap_px, endpoint=False)
+    if start_px + length < total_px:
+        r[-overlap_px:] = r[-overlap_px:] * np.linspace(1.0, 0.0, overlap_px, endpoint=False)
+    return r
+
+
+def tiled_decode(vae: AutoencoderKL, z: torch.Tensor, tile: int = 96, overlap: int = 24,
+                 decode_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                 ) -> torch.Tensor:
+    """Decode ``z [B, h, w, C]`` (already divided by the scaling factor) in
+    overlapping ``tile`` x ``tile`` latent tiles, ramp-blended over
+    ``overlap`` latent pixels: the arithmetic of the JAX ``tiled_decode``
+    (``diffsensei_tpu/models/vae.py:176``). GroupNorm statistics are taken
+    per tile, the approximation diffusers' ``enable_vae_tiling`` makes, so
+    the result is not the whole decode of a large latent. A latent with both
+    sides at most ``tile`` is decoded whole.
+
+    The tiles are decoded one after another in a Python loop, so one tile's
+    activations are resident at a time. ``decode_fn`` (a test hook) replaces
+    ``vae.decode`` for each tile."""
+    decode = vae.decode if decode_fn is None else decode_fn
+    b, h, w, _ = z.shape
+    if h <= tile and w <= tile:
+        return decode(z)
+    f = vae.config.downscale_factor
+    th = tw = tile * f
+    plan = tile_plan(h, w, tile, overlap)
+    masks = {}
+    weight = np.zeros((1, h * f, w * f, 1), np.float32)
+    for y0, x0 in plan:
+        m = (_ramp(th, y0 * f, h * f, overlap * f)[:, None]
+             * _ramp(tw, x0 * f, w * f, overlap * f)[None, :])[None, :, :, None]
+        masks[y0, x0] = torch.from_numpy(m).to(z.device)
+        weight[:, y0 * f:y0 * f + th, x0 * f:x0 * f + tw] += m
+    inv_weight = torch.from_numpy(1.0 / np.clip(weight, 1e-6, None)).to(z.device)
+    out = torch.zeros((b, h * f, w * f, vae.config.out_channels), dtype=torch.float32,
+                      device=z.device)
+    for y0, x0 in plan:
+        img = decode(z[:, y0:y0 + tile, x0:x0 + tile]).float()
+        out[:, y0 * f:y0 * f + th, x0 * f:x0 * f + tw] += img * masks[y0, x0]
+    return out * inv_weight

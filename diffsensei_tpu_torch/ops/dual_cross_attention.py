@@ -59,12 +59,29 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    occ = lib.diffsensei_dual_cross_attention_occupancy
+    occ.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    occ.restype = ctypes.c_int
     return lib
 
 
 def build() -> None:
     """Compile and load the kernel library (also done at first launch)."""
     _library()
+
+
+def occupancy(b: int, h: int, sq: int, n_text: int, n_ip: int, d: int = 64) -> dict:
+    """How a call of these sizes fills the card: the blocks that fit on one
+    SM, a block's threads and dynamic shared memory bytes (sized to the padded
+    key counts), the key tiles of scores it keeps in registers, the q tiles of
+    64 rows a block, the blocks of the grid and the SMs."""
+    out = (ctypes.c_int * 7)()
+    err = _library().diffsensei_dual_cross_attention_occupancy(b, h, sq, n_text, n_ip, d, out)
+    if err != 0:
+        raise RuntimeError(f"dual_cross_attention occupancy query failed: cudaError {err}")
+    keys = ("blocks_per_sm", "threads", "smem_bytes", "key_tiles", "tiles_per_block",
+            "grid_blocks", "sms")
+    return dict(zip(keys, out))
 
 
 def _bias_strides(bias, q):

@@ -12,11 +12,13 @@ and backward ``_dq_kernel`` / ``_dkv_kernel`` and their ``_bias`` variants
 lse; the bias gets no gradient.
 
 On the card the UNet's spatial self-attention (S = 1024..4096, head_dim 64)
-is bound by tensor-core operations; the kernels keep every score and
-probability on chip and read each operand once per tile. For head_dim 64 the
-backward kernels are built for Hopper: a TMA producer warp streams tiles
-through mbarriers to one warpgroup that runs wgmma, with P and dS repacked in
-registers as the A operand of the gradient products. B2 and B4 stay two
+is bound by tensor-core operations and, at head_dim 64, by the exponentials;
+the kernels keep every score and probability on chip and read each operand
+once per tile. For head_dim 64 all three are built for Hopper: a TMA producer
+warp streams tiles through mbarriers to consumer warpgroups that run wgmma,
+with P and dS repacked in registers as the A operand of the next product; the
+forward computes the next tile's softmax while this tile's P V runs, so the
+exponentials overlap the tensor cores. B2 and B4 stay two
 passes (7 products against a fused pass's 5) so that each block owns its
 output rows and two calls give the same bits; a deterministic fused pass and
 fp8 are later work. See the source for the design.
@@ -27,7 +29,8 @@ plain PyTorch twins (``flash_attention_ref``, ``flash_attention_bwd_dq_ref``,
 ``flash_attention_bwd_dkv_ref``) for CPU tensors; any other device, or a CUDA
 input the kernels do not take, raises. ``flash_attention_bwd`` runs B2 then B4.
 ``launches``, ``bwd_dq_launches`` and ``bwd_dkv_launches`` count kernel
-launches.
+launches. Inputs the kernels cannot read by TMA (a misaligned view) are
+copied first (``_aligned``).
 """
 
 from __future__ import annotations
@@ -42,6 +45,11 @@ from diffsensei_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
+# The head_dim-64 forward streams K/V tiles of 128 keys where there are more
+# than FWD_WIDE_KEYS keys (fewer, wider steps) and of 64 below (3 blocks an
+# SM, more blocks in flight): the faster of the two on an H100 at the UNet's
+# 4096 and 1024 keys.
+FWD_WIDE_KEYS = 2048
 
 launches = 0
 bwd_dq_launches = 0
@@ -131,13 +139,16 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build.cuda_library("flash_attention.cu")))
     strides = ctypes.POINTER(ctypes.c_longlong)
-    tail = [strides, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    for name, pointers, ints in (("fwd", 6, 5), ("bwd_dq", 9, 5), ("bwd_dkv", 9, 5)):
+    for name, pointers, tail in (
+            ("fwd", 6, [ctypes.c_int, ctypes.c_float, ctypes.c_int]),   # causal, scale, key tile
+            ("bwd_dq", 9, [ctypes.c_int, ctypes.c_float]),
+            ("bwd_dkv", 9, [ctypes.c_int, ctypes.c_float])):
         fn = getattr(lib, f"diffsensei_flash_attention_{name}")
-        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + tail
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 5 + [strides] + tail
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    lib.diffsensei_flash_attention_bwd_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.diffsensei_flash_attention_bwd_occupancy.restype = ctypes.c_int
+    lib.diffsensei_flash_attention_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.diffsensei_flash_attention_occupancy.restype = ctypes.c_int
     return lib
 
 
@@ -146,16 +157,18 @@ def build() -> None:
     _library()
 
 
-def bwd_occupancy() -> dict:
-    """How the head_dim-64 backward kernels fill the card: for ``"dq"`` (B2)
-    and ``"dkv"`` (B4), the blocks that fit on one SM, a block's threads and
-    dynamic shared memory bytes, and the rows it owns."""
-    out = (ctypes.c_int * 8)()
-    err = _library().diffsensei_flash_attention_bwd_occupancy(out)
+def occupancy() -> dict:
+    """How the head_dim-64 kernels fill the card: for ``"fwd_64"`` and
+    ``"fwd_128"`` (B1 over 64- or 128-key tiles), ``"dq"`` (B2) and ``"dkv"``
+    (B4), the blocks that fit on one SM, a block's threads and dynamic shared
+    memory bytes, and the rows it owns."""
+    out = (ctypes.c_int * 16)()
+    err = _library().diffsensei_flash_attention_occupancy(out)
     if err != 0:
-        raise RuntimeError(f"flash_attention backward occupancy query failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention occupancy query failed: cudaError {err}")
     keys = ("blocks_per_sm", "threads", "smem_bytes", "rows_per_block")
-    return {name: dict(zip(keys, out[4 * i:4 * i + 4])) for i, name in enumerate(("dq", "dkv"))}
+    return {name: dict(zip(keys, out[4 * i:4 * i + 4]))
+            for i, name in enumerate(("fwd_64", "fwd_128", "dq", "dkv"))}
 
 
 def _check_qkv(name: str, t: torch.Tensor, device: torch.device) -> None:
@@ -204,7 +217,9 @@ def _flash_cuda(q, k, v, bias, causal, sm_scale):
     global launches
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    q, k, v = (_aligned(t) for t in (q, k, v))
     bias_strides = _check_call(q, k, v, bias)
+    key_tile = 128 if sk > FWD_WIDE_KEYS else 64
     o = _heads_merged_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k.stride()[:3],
@@ -217,7 +232,7 @@ def _flash_cuda(q, k, v, bias, causal, sm_scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, h, sq, sk, d, strides, int(causal),
-            float(sm_scale), stream)
+            float(sm_scale), key_tile, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     launches += 1
@@ -247,8 +262,8 @@ def _check_bwd_call(q, k, v, bias, lse, named):
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself where the kernels can read it, else a contiguous copy in
-    fresh (aligned) memory: an output gradient may come in any layout, at any
-    offset."""
+    fresh (aligned) memory: an operand or an output gradient may come in any
+    layout, at any offset."""
     if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
         return t.clone(memory_format=torch.contiguous_format)
     return t
@@ -275,7 +290,7 @@ def _stat_rows(lse: torch.Tensor, delta: torch.Tensor):
 def _bwd_dq_cuda(q, k, v, bias, o, lse, do, causal, sm_scale):
     global bwd_dq_launches
     b, h, sq, d = q.shape
-    do = _aligned(do)
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     bias_strides = _check_bwd_call(q, k, v, bias, lse, (("o", o), ("do", do)))
     dq = _heads_merged_like(q)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -296,7 +311,7 @@ def _bwd_dq_cuda(q, k, v, bias, o, lse, do, causal, sm_scale):
 def _bwd_dkv_cuda(q, k, v, bias, lse, delta, do, causal, sm_scale):
     global bwd_dkv_launches
     b, h, sq, d = q.shape
-    do = _aligned(do)
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     bias_strides = _check_bwd_call(q, k, v, bias, lse, (("do", do),))
     _check_stat("delta", delta, q)
     lse, delta, pitch = _stat_rows(lse, delta) if d == 64 else (lse, delta, sq)

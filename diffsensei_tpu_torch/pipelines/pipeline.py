@@ -9,8 +9,11 @@ the uncond half gets all-zero boxes (ROADMAP trap C4). The SEED-X agent's
 per-character tokens (``ip_image_embeds``) are pasted over the resampler's
 character block.
 
-Left for later slices: the other samplers, DeepCache, the tiled decode above
-1024², CUDA graphs.
+The decode goes through ``tiled_decode`` (tile 96, overlap 24) whenever a
+latent side exceeds 128, as the JAX ``_decode_any`` does: every 1024-class
+bucket but 1024x1024 is decoded in tiles.
+
+Left for later slices: the other samplers, DeepCache, CUDA graphs.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from diffsensei_tpu_torch.models.schedulers import (
 from diffsensei_tpu_torch.models.text_encoder import CLIPTextEncoder
 from diffsensei_tpu_torch.models.unet import (
     UNetMangaModel, attention_levels, level_spatial_shape)
-from diffsensei_tpu_torch.models.vae import AutoencoderKL
+from diffsensei_tpu_torch.models.vae import AutoencoderKL, tiled_decode
 from diffsensei_tpu_torch.models.vision_encoder import VisionTransformer
 from diffsensei_tpu_torch.ops.masked_ip import build_ip_attention_bias
 from diffsensei_tpu_torch.utils.init import init_flax_like_
@@ -153,7 +156,11 @@ def _denoise(unet: UNetMangaModel, sampler: SamplerState, latents: torch.Tensor,
 
 
 def _decode(vae: AutoencoderKL, latents: torch.Tensor, scaling_factor: float) -> torch.Tensor:
-    img = vae.decode(latents.float() / scaling_factor)
+    """fp32 decode to [0, 1]; a latent side above 128 goes through
+    ``tiled_decode`` (the JAX ``_decode_any``), else the latent is decoded
+    whole."""
+    z = latents.float() / scaling_factor
+    img = tiled_decode(vae, z) if max(z.shape[1:3]) > 128 else vae.decode(z)
     return torch.clamp(img / 2 + 0.5, 0.0, 1.0)
 
 

@@ -35,8 +35,20 @@ def cuda():
     (1, 3, 37, 45, 64, False, False),        # one partial tile each way
     (2, 2, 130, 70, 128, False, True),       # bias broadcast over heads, D=128 tails
     (1, 2, 200, 130, 64, True, False),       # causal with Sq > Sk
+    (1, 2, 63, 65, 64, False, False),        # one below / above the 64-row tile
+    (1, 2, 65, 63, 64, True, False),         # the other way round, causal
+    (1, 2, 130, 200, 64, False, False),      # a third q tile of 2 rows
+    (1, 3, 100, 1, 64, False, False),        # a single key
+    (2, 3, 130, 100, 64, False, True),       # bias broadcast over heads, batch 2
+    # above 2048 keys the head_dim-64 forward streams 128-key tiles
+    (1, 2, 130, 2100, 64, False, False),     # a ragged last tile of 52 keys
+    (1, 2, 2200, 2100, 64, True, False),     # causal with Sq > Sk
+    (2, 2, 100, 2177, 64, False, True),      # bias broadcast over heads, odd Sk
+    (1, 1, 63, 4097, 64, False, False),      # one key past 32 tiles, a partial q tile
 ])
 def test_flash_kernel_matches_plain_on_card(cuda, b, h, sq, sk, d, causal, with_bias):
+    """o within 2e-2 of the fp32 twin and within 5e-3 in relative Frobenius
+    norm, lse within 1e-3, two calls bit-equal."""
     g = torch.Generator(device=cuda).manual_seed(0)
     mk = lambda s: torch.randn((b, h, s, d), generator=g, device=cuda).bfloat16()
     q, k, v = mk(sq), mk(sk), mk(sk)
@@ -46,11 +58,61 @@ def test_flash_kernel_matches_plain_on_card(cuda, b, h, sq, sk, d, causal, with_
                            0.0, -10000.0)
     before = tfa.launches
     o, lse = tfa.flash_attention(q, k, v, bias, causal=causal)
+    again = tfa.flash_attention(q, k, v, bias, causal=causal)
     torch.cuda.synchronize()
-    assert tfa.launches == before + 1
+    assert tfa.launches == before + 2
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
     ro, rlse = tfa.flash_attention_ref(q.float(), k.float(), v.float(), bias, causal)
     assert (o.float() - ro).abs().max().item() <= 2e-2
+    assert _rel(o, ro) <= 5e-3
     assert (lse - rlse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sk", [90, 2100])   # 64- and 128-key tiles
+def test_flash_forward_rows_without_a_key_on_card(cuda, sk):
+    """A row whose every key the bias masks with -inf gets o = 0 and
+    lse = -1e30; the other rows match the twin."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((1, 2, s, 64), generator=g, device=cuda).bfloat16()
+               for s in (150, sk, sk))
+    bias = torch.zeros((1, 2, 150, sk), device=cuda)
+    dead = torch.tensor([0, 7, 64, 149], device=cuda)
+    bias[:, :, dead] = float("-inf")
+    bias[:, 1, 30, 50:] = float("-inf")       # a row with keys in the first tile only
+    o, lse = tfa.flash_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(o[:, :, dead], torch.zeros_like(o[:, :, dead]))
+    assert bool((lse[:, :, dead] == -1e30).all())
+    live = torch.ones(150, dtype=torch.bool, device=cuda)
+    live[dead] = False
+    ro, rlse = tfa.flash_attention_ref(q.float(), k.float(), v.float(), bias)
+    assert (o[:, :, live].float() - ro[:, :, live]).abs().max().item() <= 2e-2
+    assert (lse[:, :, live] - rlse[:, :, live]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+def test_flash_reads_misaligned_and_heads_merged_inputs_on_card(cuda):
+    """A q view 2 bytes into its buffer goes through ``_aligned`` in the
+    forward and in the backward kernels; k and v in the heads-merged layout
+    are read through their strides."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    mk = lambda s: torch.randn((1, 4, s, 64), generator=g, device=cuda).bfloat16()
+    q, k, v = _laid_out(mk(300), "offset"), _laid_out(mk(200), "bshd"), _laid_out(mk(200), "bshd")
+    assert q.data_ptr() % 16 and k.stride(2) == 4 * 64
+    q.requires_grad_()
+    before = (tfa.launches, tfa.bwd_dq_launches, tfa.bwd_dkv_launches)
+    o, lse = tfa.flash_attention(q, k, v)
+    o.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (tfa.launches, tfa.bwd_dq_launches, tfa.bwd_dkv_launches) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1)
+    qf = q.detach().float().requires_grad_()
+    ro, rlse = tfa.flash_attention_ref(qf, k.float(), v.float())
+    assert (o.float() - ro).abs().max().item() <= 2e-2
+    assert (lse - rlse).abs().max().item() <= 1e-3
+    ro.square().sum().backward()
+    assert _rel(q.grad, qf.grad) <= 2e-2
 
 
 def _rel(got, want):
@@ -246,6 +308,11 @@ def _dual_operands(cuda, b, h, sq, d, n_text, n_ip, bias_shape, seed=0):
     (1, 3, 37, 64, 1, 128, "bh"),            # one text key, the most IP keys
     (2, 2, 130, 128, 128, 17, None),         # head_dim 128, no bias
     (1, 2, 64, 64, 16, 16, "b"),             # key counts a multiple of 16
+    (2, 3, 200, 64, 128, 1, "1"),            # the most text keys, one IP key: element bias path
+    (1, 2, 150, 64, 17, 77, "bh"),           # one past 16; 77 IP keys: element bias path
+    (2, 2, 100, 64, 16, 128, "1"),           # bias broadcast over batch and heads
+    (1, 2, 70, 128, 77, 80, "b"),            # head_dim 128 with a bias
+    (1, 1, 300, 128, 128, 128, "bh"),        # head_dim 128, the most keys: one Q/bias buffer
 ])
 def test_dual_cross_attention_kernel_matches_plain_on_card(cuda, b, h, sq, d, n_text, n_ip,
                                                            bias):
@@ -264,6 +331,27 @@ def test_dual_cross_attention_kernel_matches_plain_on_card(cuda, b, h, sq, d, n_
         assert torch.equal(x, y), f"{name}: two calls differ"
         assert (x.float() - z).abs().max().item() <= 2e-2, name
         assert torch.isfinite(x).all(), name
+
+
+@pytest.mark.gpu
+def test_dual_cross_attention_last_block_with_fewer_tiles_on_card(cuda):
+    """A grid whose last block holds fewer q tiles than the others, at an Sq
+    that is not a multiple of 64."""
+    b, h = 2, 4
+    for n_q in range(300, 330):   # the first run of q tiles that the blocks split unevenly
+        sq = n_q * 64 - 5
+        tiles = tdca.occupancy(b, h, sq, 77, 80)["tiles_per_block"]
+        if tiles > 1 and n_q % tiles:
+            break
+    else:
+        pytest.fail("no uneven split between 300 and 330 q tiles")
+    q, kt, vt, ki, vi, bias = _dual_operands(cuda, b, h, sq, 64, 77, 80, (b, 1, sq, 80), 2)
+    got = tdca.dual_cross_attention(q, kt, vt, ki, vi, bias)
+    torch.cuda.synchronize()
+    want = tdca.dual_cross_attention_ref(q.float(), kt.float(), vt.float(), ki.float(),
+                                         vi.float(), bias)
+    for x, z in zip(got, want):
+        assert (x.float() - z).abs().max().item() <= 2e-2
 
 
 @pytest.mark.gpu
