@@ -16,8 +16,14 @@ Run from the root of the repository. Phases, one JSON line each:
    times beside the plain twin and ``F.scaled_dot_product_attention``, and
    each row's bound;
 4. groupnorm_silu: B3 likewise, beside ``F.group_norm`` + ``F.silu``;
-5. int4_matmul: B6 against its plain twin at the agent's decode shapes, with
-   times beside the twin and ``torch.matmul`` on the weight dequantized to bf16;
+5. int4_matmul: B6 (one launch a call: a cluster of 2-16 blocks splits a
+   strip's rows, TMA boxes through an mbarrier ring, mma.sync on nibbles
+   turned bf16 in registers, the blocks' sums met through distributed shared
+   memory; it takes the fp32 x) against its plain twin at the agent's decode
+   shapes, bf16 x and, at T = 1, fp32 x (the same bits), with times beside
+   the twin and ``torch.matmul`` on the weight dequantized to bf16;
+   int4_layout: its registers, spills, clusters, grid, blocks an SM and
+   waves; per_token: a decode token's B6 time and bound;
 6. reference: a cut-down SDXL-width UNet (bf16, kernels on), the SDXL VAE
    decoder (fp32) whole and tiled, and a cut-down SEED-X-width int4 LLaMA
    (prefill and 8 decode steps) on the card against the same weights on the
@@ -303,14 +309,56 @@ INT4_CASES = [  # (tokens, in, features): the agent's decode projections at T = 
     (1, 5120, 32330),      # lm_head, padded to 32512
     (16, 5120, 13824),     # the kernel's largest token count
 ]
+# B6 calls a decode token makes at each T = 1 shape: 40 layers of q, k, v, o
+# (5120 -> 5120), gate, up (5120 -> 13824) and down, then lm_head
+INT4_CALLS_PER_TOKEN = {(5120, 5120): 160, (5120, 13824): 80, (13824, 5120): 40,
+                        (5120, 32330): 1}
+
+
+def int4_layout() -> dict:
+    """B6's registers and spills for each instantiation (from the nvcc log of
+    ``int4_matmul.cu``), and at each of INT4_CASES' shapes, for the x the
+    served path passes (fp32), its cluster, grid, blocks an SM, clusters
+    resident at once and waves; T = 1 with 16-block clusters too."""
+    import re
+    import torch
+    from diffsensei_tpu_torch.ops import _build, int4_matmul as i4
+
+    ptxas, name = {}, None
+    log = _build.cuda_library("int4_matmul.cu").with_suffix(".log").read_text()
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            m = re.search(r"CfgILi(\d+)ELi(\d+)ELi(\d+)E(f|13__nv_bfloat16)E", line)
+            name = m and "bpr{}_nt{}_ncol{}_{}".format(
+                *m.groups()[:3], "f32" if m.group(4) == "f" else "bf16")
+        elif name and ("spill" in line or "registers" in line):
+            ptxas.setdefault(name, []).append(line.split(":")[-1].strip())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = {}
+    for tokens, in_f, features in INT4_CASES:
+        out2 = i4.padded_features(features, in_f, 128) // 2
+        for cluster in (0, 16) if tokens == 1 else (0,):
+            lay = i4.layout(tokens, torch.float32, out2, cluster)
+            lay["waves"] = lay["blocks"] / (sms * lay["blocks_per_sm"])
+            lay["cluster_waves"] = (lay["blocks"] / lay["cluster"]
+                                    / max(lay["clusters_resident"], 1))
+            shapes[f"{tokens},{in_f},{features}@{'cluster16' if cluster else 'picked'}"] = lay
+    return dict(ptxas=ptxas, sms=sms, shapes=shapes)
 
 
 def check_int4(device) -> dict:
+    """B6 at INT4_CASES against its plain twin: a bf16-x row at every shape
+    (allclose 2e-2 to the bf16-dequant product, relative Frobenius under 2e-2
+    to the twin, bit-equal twice) and an fp32-x row at each T = 1 shape (the
+    served path's x: the same bits as the bf16-rounded x), each timed beside
+    the twin and ``torch.matmul`` on the weight dequantized to bf16; the fp32
+    rows also with 16-block clusters. Then per_token: a decode token's B6
+    time (calls x ms over the four T = 1 shapes) beside its bound."""
     import torch
     from diffsensei_tpu_torch.ops import int4_matmul as i4
 
     gen = torch.Generator(device=device).manual_seed(4)
-    rows = []
+    rows, per_token = [], dict(ms=0.0, bound_ms=0.0, ms_cluster16=0.0)
     for tokens, in_f, features in INT4_CASES:
         padded = i4.padded_features(features, in_f, 128)
         wbytes = in_f * padded // 2 + (in_f // 128) * padded * 4
@@ -320,7 +368,8 @@ def check_int4(device) -> dict:
                     (torch.rand((in_f // 128, padded), generator=gen, device=device) + 0.5)
                     / (4.61 * in_f ** 0.5))      # around the served scale: outputs of order 1
                    for _ in range(copies)]
-        x = torch.randn((tokens, in_f), generator=gen, device=device).bfloat16()
+        x32 = torch.randn((tokens, in_f), generator=gen, device=device)
+        x = x32.bfloat16()
         packed, scale = weights[0]
         got = i4.int4_decode_matmul(x, packed, scale)
         again = i4.int4_decode_matmul(x, packed, scale)
@@ -329,25 +378,55 @@ def check_int4(device) -> dict:
         ref = x.float() @ dense[0].float()          # bf16 dequant matmul, fp32 sums
         xf = x.float()
         twin = i4.int4_decode_fallback(xf, packed, scale)
-        row = dict(shape=[tokens, in_f, features], padded=padded,
-                   max_abs_err=(got - twin).abs().max().item(),
-                   rel_frobenius=((got - twin).norm() / twin.norm()).item(),
-                   allclose_bf16=torch.allclose(got, ref, rtol=2e-2, atol=2e-2),
-                   bit_equal=torch.equal(got, again), copies=copies,
+        shape = dict(shape=[tokens, in_f, features], padded=padded, copies=copies,
+                     plain_ms=cuda_ms([lambda q=q, s=s: i4.int4_decode_fallback(xf, q, s)
+                                       for q, s in weights]),
+                     library_ms=cuda_ms([lambda w=w: torch.matmul(x, w) for w in dense]))
+
+        def readings(y, y2):
+            return dict(max_abs_err=(y - twin).abs().max().item(),
+                        rel_frobenius=((y - twin).norm() / twin.norm()).item(),
+                        allclose_bf16=torch.allclose(y, ref, rtol=2e-2, atol=2e-2),
+                        bit_equal=torch.equal(y, y2))
+
+        row = dict(x="bfloat16", **shape, **readings(got, again),
                    ms=cuda_ms([lambda q=q, s=s: i4.int4_decode_matmul(x, q, s)
-                                     for q, s in weights]),
-                   plain_ms=cuda_ms([lambda q=q, s=s: i4.int4_decode_fallback(xf, q, s)
-                                           for q, s in weights]),
-                   library_ms=cuda_ms([lambda w=w: torch.matmul(x, w) for w in dense]),
+                               for q, s in weights]),
                    **bound(wbytes + 2 * tokens * in_f + 4 * tokens * padded,
                            2 * tokens * in_f * padded))
-        rows.append(row)
-        emit({"phase": "int4_matmul", **row})
-        if not (row["allclose_bf16"] and row["rel_frobenius"] < 2e-2 and row["bit_equal"]):
-            raise AssertionError(f"int4_decode_matmul disagrees with its plain twin: {row}")
+        todo = [row]
+        if tokens == 1:
+            got32 = i4.int4_decode_matmul(x32, packed, scale)
+            again32 = i4.int4_decode_matmul(x32, packed, scale)
+            wide = i4._decode_cuda(x32, packed, scale, cluster=16)
+            torch.cuda.synchronize()
+            row32 = dict(x="float32", **shape, **readings(got32, again32),
+                         equal_to_bf16_x=torch.equal(got32, got),
+                         rel_frobenius_cluster16=((wide - twin).norm() / twin.norm()).item(),
+                         ms=cuda_ms([lambda q=q, s=s: i4.int4_decode_matmul(x32, q, s)
+                                     for q, s in weights]),
+                         ms_cluster16=cuda_ms([lambda q=q, s=s: i4._decode_cuda(x32, q, s, 16)
+                                               for q, s in weights]),
+                         **bound(wbytes + 4 * tokens * in_f + 4 * tokens * padded,
+                                 2 * tokens * in_f * padded))
+            todo.append(row32)
+            calls = INT4_CALLS_PER_TOKEN[(in_f, features)]
+            for key in per_token:
+                per_token[key] += calls * row32[key]
+        for r in todo:
+            rows.append(r)
+            emit({"phase": "int4_matmul", **r})
+            agrees = (r["allclose_bf16"] and r["rel_frobenius"] < 2e-2 and r["bit_equal"]
+                      and r.get("equal_to_bf16_x", True)
+                      and r.get("rel_frobenius_cluster16", 0.0) < 2e-2)
+            if not agrees:
+                raise AssertionError(f"int4_decode_matmul disagrees with its plain twin: {r}")
         del weights, dense, twin, ref
         torch.cuda.empty_cache()
-    main = rows[1]
+    emit({"phase": "int4_layout", **int4_layout()})
+    emit({"phase": "int4_matmul", "per_token": per_token,
+          "calls_per_token": sum(INT4_CALLS_PER_TOKEN.values())})
+    main = next(r for r in rows if r["x"] == "float32" and r["shape"] == [1, 5120, 13824])
     return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
                 **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
 
@@ -1521,6 +1600,7 @@ def main() -> int:
         dict(name="int4_decode_matmul", route="cuda",
              source="diffsensei_tpu_torch/csrc/int4_matmul.cu",
              replaces="diffsensei_tpu/ops/int4_matmul.py:125",
+             design="one launch: cluster split-K, TMA ring, mma.sync, fp32 x",
              **on_paths("int4"), **int4),
         dict(name="flash_attention_dq", route="cuda",
              source="diffsensei_tpu_torch/csrc/flash_attention.cu",

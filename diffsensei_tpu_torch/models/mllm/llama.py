@@ -65,9 +65,10 @@ class Int4Dense(nn.Module):
     with ``F'`` the padded feature count; the output is sliced to ``features``.
 
     Up to 16 tokens (decode) the product streams the packed bytes: kernel B6
-    on the card where ``kernel_eligible`` (x cast to bf16, fp32 out, as the
-    TPU kernel does), the plain twin otherwise. More tokens (prefill)
-    dequantize once and run one ``torch.matmul``."""
+    on the card where ``kernel_eligible`` (it takes the fp32 x and rounds it
+    to bf16 itself, fp32 out, as the TPU kernel does), the plain twin
+    otherwise. More tokens (prefill) dequantize once and run one
+    ``torch.matmul``."""
 
     def __init__(self, in_features: int, features: int, group: int = 128,
                  dtype=torch.float32, device=None):
@@ -88,8 +89,7 @@ class Int4Dense(nn.Module):
         if tokens <= i4.MAX_TOKENS:
             x2 = x.reshape(tokens, in_f)
             if i4.kernel_eligible(in_f, self.group):
-                xk = x2.to(torch.bfloat16 if x2.is_cuda else self.dtype).contiguous()
-                y = i4.int4_decode_matmul(xk, q, s).to(self.dtype)
+                y = i4.int4_decode_matmul(x2.to(self.dtype).contiguous(), q, s).to(self.dtype)
             else:
                 y = i4.int4_decode_fallback(x2.to(self.dtype), q, s)
             return y[..., :self.features].reshape(x.shape[:-1] + (self.features,))

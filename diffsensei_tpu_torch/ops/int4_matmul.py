@@ -12,10 +12,11 @@ entry ``int4_decode_matmul:166``), storage format byte for byte:
   256 where the kernel takes the geometry, else to an even count.
 
 ``int4_decode_matmul`` computes ``y[T, F] = bf16(x)[T, in] @ dequant(packed,
-scale)`` in fp32 for ``T <= 16`` (the decode regime). On the card it is a
-stream of the packed bytes, 0.53 bytes a parameter with the scales: every
-decode step of the SEED-X agent reads the whole LLM once this way. CUDA
-tensors launch the kernel, CPU tensors take the plain twin
+scale)`` in fp32 for ``T <= 16`` (the decode regime), x fp32 or bf16: the
+kernel rounds an fp32 x to bf16 itself, as the JAX entry does. On the card it
+is one launch, a stream of the packed bytes, 0.53 bytes a parameter with the
+scales: every decode step of the SEED-X agent reads the whole LLM once this
+way. CUDA tensors launch the kernel, CPU tensors take the plain twin
 ``int4_decode_fallback``; anything else raises. ``launches`` counts launches.
 """
 
@@ -98,8 +99,11 @@ def int4_decode_fallback(x: torch.Tensor, packed: torch.Tensor,
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build.cuda_library("int4_matmul.cu")))
     fn = lib.diffsensei_int4_decode_matmul
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.diffsensei_int4_layout.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.diffsensei_int4_layout.restype = ctypes.c_int
     return lib
 
 
@@ -108,13 +112,31 @@ def build() -> None:
     _library()
 
 
-def _decode_cuda(x: torch.Tensor, packed: torch.Tensor,
-                 scale: torch.Tensor) -> torch.Tensor:
+def layout(tokens: int, x_dtype: torch.dtype, out2: int, cluster: int = 0) -> dict:
+    """How the kernel serving ``tokens`` rows of ``x_dtype`` fills the card at
+    ``out2`` packed byte columns with ``cluster`` blocks a cluster (0: the
+    kernel's pick): blocks that fit on one SM, clusters resident at once, a
+    cluster's strip of byte columns, a block's threads and shared memory
+    bytes, the grid's blocks and the cluster."""
+    out = (ctypes.c_int * 7)()
+    err = _library().diffsensei_int4_layout(tokens, int(x_dtype == torch.float32), out2,
+                                            cluster, out)
+    if err != 0:
+        raise RuntimeError(f"int4_decode_matmul layout query failed: cudaError {err}")
+    keys = ("blocks_per_sm", "clusters_resident", "strip_bytes", "threads", "smem_bytes",
+            "blocks", "cluster")
+    return dict(zip(keys, out))
+
+
+def _decode_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                 cluster: int = 0) -> torch.Tensor:
+    """One launch of B6; ``cluster`` 0 lets the kernel pick its blocks a
+    cluster, any other (1..16) forces it, for measuring."""
     global launches
     dev = x.device
-    if x.dtype != torch.bfloat16 or x.dim() != 2 or not x.is_contiguous():
-        raise ValueError(f"int4_decode_matmul: x must be a contiguous 2-d bfloat16 "
-                         f"tensor, got {x.dtype} {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"int4_decode_matmul: x must be a contiguous 2-d float32 or "
+                         f"bfloat16 tensor, got {x.dtype} {tuple(x.shape)}")
     tokens, in_f = x.shape
     if not 1 <= tokens <= MAX_TOKENS:
         raise ValueError(f"int4_decode_matmul: {tokens} tokens, the kernel takes "
@@ -134,17 +156,15 @@ def _decode_cuda(x: torch.Tensor, packed: torch.Tensor,
     if in_f % 128 or out2 % 128 or in_f == 0 or out2 == 0:
         raise ValueError(f"int4_decode_matmul: in={in_f} must be a multiple of 128 "
                          f"and F={2 * out2} of 256")
-    if packed.data_ptr() % 16 or scale.data_ptr() % 16:
-        raise ValueError("int4_decode_matmul: packed and scale need 16-byte alignment")
-    gn = in_f // 128
-    part = torch.empty((gn, tokens, 2 * out2), dtype=torch.float32, device=dev)
+    if x.data_ptr() % 16 or packed.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError("int4_decode_matmul: x, packed and scale need 16-byte alignment")
     y = torch.empty((tokens, 2 * out2), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.diffsensei_int4_decode_matmul(
-            x.data_ptr(), packed.data_ptr(), scale.data_ptr(), part.data_ptr(),
-            y.data_ptr(), tokens, in_f, out2, stream)
+            x.data_ptr(), int(x.dtype == torch.float32), packed.data_ptr(),
+            scale.data_ptr(), y.data_ptr(), tokens, in_f, out2, cluster, stream)
     if err != 0:
         raise RuntimeError(f"int4_decode_matmul kernel launch failed: cudaError {err}")
     launches += 1
@@ -155,9 +175,9 @@ def int4_decode_matmul(x: torch.Tensor, packed: torch.Tensor,
                        scale: torch.Tensor) -> torch.Tensor:
     """``y[T, F] = x[T, in] @ dequant(packed, scale)`` for ``T <= 16``.
 
-    On CUDA: x bfloat16 ``[T, in]``, ``in % 128 == 0``, g = 128 (gate with
-    :func:`kernel_eligible`), F a multiple of 256; fp32 out. On the CPU the
-    plain twin, in x's dtype."""
+    On CUDA: x float32 or bfloat16 ``[T, in]`` (rounded to bf16 in the
+    kernel), ``in % 128 == 0``, g = 128 (gate with :func:`kernel_eligible`),
+    F a multiple of 256; fp32 out. On the CPU the plain twin, in x's dtype."""
     if x.device.type == "cpu":
         return int4_decode_fallback(x, packed, scale)
     if x.device.type != "cuda":

@@ -247,30 +247,19 @@ def test_dispatcher_sends_long_bf16_attention_to_the_kernel(cuda):
     assert tfa.launches == before + 1
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("tokens,in_f,features", [
-    (1, 128, 256),
-    (3, 384, 300),          # odd features padded to 512
-    (16, 384, 1000),        # padded to 1024; 16 tokens
-    (16, 128, 256),
-    (1, 5120, 32330),       # the agent's lm_head, padded to 32512
-])
-def test_int4_kernel_matches_plain_on_card(cuda, tokens, in_f, features):
-    g = torch.Generator(device=cuda).manual_seed(0)
+def _int4_operands(cuda, tokens, in_f, features, seed=0):
+    """packed, scale and an fp32 x on the card; group scales around the served
+    1 / (4.61 sqrt(in)), so outputs are of order 1."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
     padded = ti4.padded_features(features, in_f, 128)
     packed = torch.randint(0, 256, (in_f, padded // 2), generator=g, device=cuda,
                            dtype=torch.uint8)
-    # group scales around the served 1 / (4.61 sqrt(in)): outputs of order 1
     scale = (torch.rand((in_f // 128, padded), generator=g, device=cuda) + 0.5) \
         / (4.61 * in_f ** 0.5)
-    x = torch.randn((tokens, in_f), generator=g, device=cuda).bfloat16()
-    before = ti4.launches
-    y = ti4.int4_decode_matmul(x, packed, scale)
-    y2 = ti4.int4_decode_matmul(x, packed, scale)
-    torch.cuda.synchronize()
-    assert ti4.launches == before + 2
-    assert y.dtype == torch.float32 and y.shape == (tokens, padded)
-    assert torch.equal(y, y2)                      # no float atomics: same bits
+    return packed, scale, torch.randn((tokens, in_f), generator=g, device=cuda)
+
+
+def _int4_agrees(y, x, packed, scale):
     ref = x.float() @ ti4.dequantize(packed, scale, torch.bfloat16).float()
     torch.testing.assert_close(y, ref, rtol=2e-2, atol=2e-2)
     twin = ti4.int4_decode_fallback(x.float(), packed, scale)
@@ -278,12 +267,75 @@ def test_int4_kernel_matches_plain_on_card(cuda, tokens, in_f, features):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tokens,in_f,features", [
+    (1, 128, 256),          # one group, fewer than the cluster's blocks; one strip
+    (3, 384, 300),          # odd features padded to 512
+    (16, 384, 1000),        # padded to 1024; 16 tokens
+    (16, 128, 256),
+    (1, 5120, 32330),       # the agent's lm_head, padded to 32512: 127 strips
+    (1, 13824, 512),        # 108 groups, not a multiple of the cluster's 8 blocks
+    (1, 1024, 256),         # F = 256: one strip
+])
+def test_int4_kernel_matches_plain_on_card(cuda, tokens, in_f, features):
+    packed, scale, x = _int4_operands(cuda, tokens, in_f, features)
+    x = x.bfloat16()
+    before = ti4.launches
+    y = ti4.int4_decode_matmul(x, packed, scale)
+    y2 = ti4.int4_decode_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert ti4.launches == before + 2
+    assert y.dtype == torch.float32 and y.shape == (tokens, packed.shape[1] * 2)
+    assert torch.equal(y, y2)                      # no float atomics: same bits
+    _int4_agrees(y, x, packed, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tokens", range(1, 17))
+def test_int4_kernel_every_token_count_on_card(cuda, tokens):
+    packed, scale, x = _int4_operands(cuda, tokens, 640, 768, seed=tokens)
+    y = ti4.int4_decode_matmul(x.bfloat16(), packed, scale)
+    torch.cuda.synchronize()
+    _int4_agrees(y, x.bfloat16(), packed, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tokens,in_f,features", [
+    (1, 5120, 5120), (1, 13824, 512), (5, 384, 512), (16, 256, 256)])
+def test_int4_kernel_fp32_x_equals_its_bf16_rounding_on_card(cuda, tokens, in_f, features):
+    packed, scale, x = _int4_operands(cuda, tokens, in_f, features)
+    before = ti4.launches
+    y = ti4.int4_decode_matmul(x, packed, scale)
+    want = ti4.int4_decode_matmul(x.bfloat16(), packed, scale)
+    torch.cuda.synchronize()
+    assert ti4.launches == before + 2              # one launch a call, no cast
+    assert torch.equal(y, want)
+
+
+@pytest.mark.gpu
+def test_int4_kernel_on_two_streams_at_once(cuda):
+    ops = [_int4_operands(cuda, 1, 5120, 5120, seed=s) for s in (1, 2)]
+    alone = [ti4.int4_decode_matmul(x, p, s) for p, s, x in ops]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in ops]
+    outs = [[] for _ in ops]
+    for _ in range(8):
+        for (p, s, x), stream, out in zip(ops, streams, outs):
+            with torch.cuda.stream(stream):
+                out.append(ti4.int4_decode_matmul(x, p, s))
+    torch.cuda.synchronize()
+    for want, out in zip(alone, outs):
+        assert all(torch.equal(y, want) for y in out)
+
+
+@pytest.mark.gpu
 def test_int4_kernel_rejects_what_it_does_not_take(cuda):
     packed = torch.zeros((256, 128), dtype=torch.uint8, device=cuda)
     scale = torch.ones((2, 256), device=cuda)
     x = torch.zeros((1, 256), device=cuda)
-    with pytest.raises(ValueError):
-        ti4.int4_decode_matmul(x, packed, scale)                     # fp32 x
+    assert ti4.int4_decode_matmul(x, packed, scale).shape == (1, 256)   # fp32 x is taken
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError):
+            ti4.int4_decode_matmul(x.to(dtype), packed, scale)
     with pytest.raises(ValueError):
         ti4.int4_decode_matmul(torch.zeros((17, 256), device=cuda).bfloat16(), packed, scale)
     with pytest.raises(ValueError):

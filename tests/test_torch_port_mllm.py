@@ -110,6 +110,22 @@ def test_decode_twin_matches_pallas_kernel(in_f, features, tokens):
     _close(got, fallback)
 
 
+@pytest.mark.parametrize("in_f,features,tokens",
+                         [(256, 512, 1), (384, 512, 16), (512, 256, 3)])
+def test_twin_on_bf16_rounded_x_matches_pallas_kernel_on_fp32_x(in_f, features, tokens):
+    """Kernel B6 takes fp32 x and rounds it to bf16 itself, as the JAX entry
+    does: on bf16-rounded x the port's plain twin gives the Pallas kernel's
+    product on the fp32 x, so the rounding is all the entry adds."""
+    rng = np.random.default_rng(5)
+    packed, scale, _ = _random_packed(rng, in_f, features)
+    x = rng.normal(size=(tokens, in_f)).astype(np.float32)
+    kernel = np.asarray(ji4.int4_decode_matmul(jnp.asarray(x), jnp.asarray(packed),
+                                               jnp.asarray(scale), interpret=True))
+    x_bf16 = torch.from_numpy(x).bfloat16().float()
+    got = ti4.int4_decode_matmul(x_bf16, torch.from_numpy(packed), torch.from_numpy(scale))
+    _close(got, kernel, rel=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # models/mllm/llama.py
 # ---------------------------------------------------------------------------
