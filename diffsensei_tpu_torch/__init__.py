@@ -6,9 +6,9 @@ counterpart is easy to find. It imports ``torch`` and never ``jax``.
 
 Public layouts follow the JAX package: NHWC latents and images, attention over
 ``[batch, heads, seq, head_dim]``. The hand-written kernels sit in ``csrc/``
-(flash-attention forward and the int4 decode matmul in CUDA C++,
-GroupNorm+SiLU in Triton) and are built at first use on the card; on CPU
-tensors every kernel wrapper runs its plain PyTorch twin.
+(flash attention forward and backward, dual cross-attention, GroupNorm+SiLU
+and the int4 decode matmul, all CUDA C++) and are built at first use on the
+card; on CPU tensors every kernel wrapper runs its plain PyTorch twin.
 
 Entry points: ``diffsensei_tpu_torch.serve.api.DiffSenseiServer`` and
 ``diffsensei_tpu_torch.pipelines.pipeline.DiffSenseiPipeline``.

@@ -4,20 +4,16 @@ CUDA sources compile with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
 The library lands in ``build/kernels/`` at the root of the checkout, named by
 a hash of its source, so an edited source is rebuilt and a stale library is
-never loaded. Triton sources are plain Python files that import ``triton`` at
-the top; they are loaded from their path only when a kernel is launched.
+never loaded.
 """
 
 from __future__ import annotations
 
 import hashlib
-import importlib.util
 import os
 import shutil
 import subprocess
-import sys
 from pathlib import Path
-from types import ModuleType
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -53,18 +49,3 @@ def cuda_library(source: str) -> Path:
     os.replace(tmp, out)
     return out
 
-
-def triton_module(source: str) -> ModuleType:
-    """Import ``csrc/<source>`` (a Triton kernel file) as a module."""
-    name = f"diffsensei_tpu_torch_csrc_{Path(source).stem}"
-    if name in sys.modules:
-        return sys.modules[name]
-    spec = importlib.util.spec_from_file_location(name, CSRC / source)
-    module = importlib.util.module_from_spec(spec)
-    sys.modules[name] = module
-    try:
-        spec.loader.exec_module(module)
-    except BaseException:
-        del sys.modules[name]
-        raise
-    return module

@@ -1,4 +1,4 @@
-"""GroupNorm + SiLU: kernel B3 (Triton, ``csrc/groupnorm_silu.py``).
+"""GroupNorm + SiLU: kernel B3 (CUDA C++, ``csrc/groupnorm_silu.cu``).
 
 Port of ``diffsensei_tpu/ops/groupnorm.py`` (kernel ``_gn_silu_kernel:44``,
 entry ``groupnorm_silu:120``). Every ``ResnetBlock2D`` of the UNet and the VAE
@@ -6,30 +6,124 @@ runs it twice. Unlike the JAX dispatcher, which defaults to XLA's path on the
 TPU, the port runs the kernel for every CUDA tensor: the card's own numbers
 (``PERF.md``) say whether it pays.
 
-The work is bound by memory bandwidth. The kernel makes two passes over NHWC
-memory (per-group chunk statistics, then normalize + affine + SiLU), so a
-sample of any size fits; see the source for the design.
+The work is bound by memory bandwidth. :func:`plan` (plain Python, a function
+of the shape alone) cuts each sample into slabs of whole rows and picks one of
+two routes: *resident* (one cooperative launch: every slab held in a block's
+shared memory from load to store across one grid barrier, so x is read once)
+where x fits in the shared memory of one grid the card holds at once, else
+*streaming* (two launches: partial statistics per slab to a workspace, then
+normalize; x is read twice). See the source for the design.
 
 ``groupnorm_silu`` runs the kernel for CUDA tensors and the plain twin
 ``groupnorm_silu_ref`` for CPU tensors; any other device, or a CUDA input the
 kernel does not take, raises. ``launches`` counts wrapper calls that launched
-the kernel passes. When an input requires a gradient the call goes through
-``GroupNormSiLUFn``, whose backward recomputes the twin and takes its VJP, as
-the JAX ``_fused_bwd`` (``groupnorm.py:102``) does: there is no backward
-kernel, on the TPU either.
+the kernel, ``calls`` the same by ``(shape, dtype name)``. When an input
+requires a gradient the call goes through ``GroupNormSiLUFn``, whose backward
+recomputes the twin and takes its VJP, as the JAX ``_fused_bwd``
+(``groupnorm.py:102``) does: there is no backward kernel, on the TPU either.
 """
 
 from __future__ import annotations
+
+import collections
+import ctypes
+import dataclasses
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from diffsensei_tpu_torch.ops import _build
 
-TILE = 4096            # elements of x per program and loop step
-MAX_CHUNKS = 1024      # chunk partials per (sample, group)
+THREADS = 512            # threads a block
+MAX_STRIP_GROUPS = 32    # groups a streaming strip
+MAX_GROUPS = 256         # groups a resident call
+SMS = 132                # the H100 SXM's SMs: a grid is at most one block on each
+SMEM_MAX = 232_448       # dynamic shared memory a block may use on the H100
+# a resident block's shared memory besides its slab (csrc: EXTRA_BYTES)
+EXTRA_BYTES = (2 * THREADS * 8 + THREADS + 3 * MAX_GROUPS) * 4
+SLAB_MAX = SMEM_MAX - EXTRA_BYTES    # a resident block's slab
+MIN_SLAB_BYTES = 32768   # a sample is not cut into slabs smaller than this
 
 launches = 0
+calls: collections.Counter = collections.Counter()
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the kernel covers one shape. A strip is ``groups_per_strip`` whole
+    groups of one sample (all its rows; resident: the whole row); its rows
+    are split evenly into ``slabs`` (``row_split``), one a block."""
+
+    route: str               # "resident" (one launch) or "streaming" (two)
+    vec: int                 # bytes a thread loads or stores at once
+    groups_per_strip: int
+    strips: int              # strips a sample
+    slabs: int               # slabs a strip
+    rows_per_block: int      # the most rows a slab holds
+    smem_bytes: int          # dynamic shared memory a resident block; 0 streaming
+    blocks: int
+    kernels: int             # launches a call
+    workspace_floats: int    # partial statistics: (count, mean, M2, -) a slab and group
+
+
+def row_split(rows: int, parts: int) -> list:
+    """The kernel's slab boundaries: part k owns ``[b[k], b[k + 1])``."""
+    return [rows * k // parts for k in range(parts + 1)]
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(shape: Tuple[int, int, int, int], dtype: torch.dtype, num_groups: int,
+         route: Optional[str] = None, vec: Optional[int] = None) -> Plan:
+    """The kernel's plan for NHWC ``shape`` of ``dtype`` (bf16 or fp32):
+    resident wherever x fits in the shared memory of a grid of one block an
+    SM, else streaming; ``route`` and ``vec`` force a route and a vector
+    width (for measuring). Raises what the kernel does not take."""
+    b, h, w, c = shape
+    hw = h * w
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"groupnorm_silu: no kernel for {dtype}")
+    if route not in (None, "resident", "streaming"):
+        raise ValueError(f"groupnorm_silu: unknown route {route!r}")
+    if b < 1 or hw < 1 or num_groups < 1 or c % num_groups:
+        raise ValueError(f"groupnorm_silu: {c} channels, {num_groups} groups, shape {shape}")
+    es = 2 if dtype == torch.bfloat16 else 4
+    cg, row = c // num_groups, c * es
+    # four values a thread first (8-byte bf16 vectors measured 3-10% faster
+    # than 16-byte ones on the H100: fewer registers), then wider, then narrower
+    vecs = [v for v in (4 * es, 16, 8, 4) if row % v == 0 and vec in (None, v)]
+    vecs = list(dict.fromkeys(vecs))
+
+    def strip_groups(v):
+        """Group counts a streaming strip may hold at vector width v."""
+        return [d for d in range(1, min(num_groups, MAX_STRIP_GROUPS) + 1)
+                if num_groups % d == 0 and d * cg * es % v == 0
+                and d * cg * es // v <= THREADS]
+
+    if route != "streaming" and num_groups <= MAX_GROUPS:
+        for v in vecs:      # a row at most one vector a thread
+            slabs = min(hw, SMS // b, max(1, hw * row // MIN_SLAB_BYTES))
+            if row // v <= THREADS and slabs >= 1 and _ceil(hw, slabs) * row <= SLAB_MAX:
+                return Plan("resident", v, num_groups, 1, slabs, _ceil(hw, slabs),
+                            -(-_ceil(hw, slabs) * row // 16) * 16 + EXTRA_BYTES,
+                            b * slabs, 1, b * slabs * num_groups * 4)
+    if route == "resident":
+        raise ValueError(f"groupnorm_silu: {shape} does not fit one resident grid")
+    for v in vecs:
+        cands = strip_groups(v)
+        if cands:
+            ng = max(cands)     # the widest strip: the longest contiguous rows
+            strips = num_groups // ng
+            slabs = max(1, min(hw, SMS // (b * strips)))
+            return Plan("streaming", v, ng, strips, slabs, _ceil(hw, slabs), 0,
+                        b * strips * slabs, 2, b * strips * slabs * ng * 4)
+    raise ValueError(f"groupnorm_silu: no kernel for {c} channels of {dtype} in "
+                     f"{num_groups} groups")
 
 
 def groupnorm_silu_ref(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -45,21 +139,46 @@ def groupnorm_silu_ref(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return F.silu(out).to(x.dtype)
 
 
-def _kernels():
-    return _build.triton_module("groupnorm_silu.py")
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_build.cuda_library("groupnorm_silu.cu")))
+    fn = lib.diffsensei_groupnorm_silu
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    lib.diffsensei_groupnorm_layout.argtypes = ([ctypes.c_int] * 9
+                                                + [ctypes.POINTER(ctypes.c_int)])
+    lib.diffsensei_groupnorm_layout.restype = ctypes.c_int
+    return lib
 
 
 def build() -> None:
-    """Import Triton and the kernel source (compilation happens per
-    specialization at the first launch)."""
-    _kernels()
+    """Compile and load the kernel library (also done at first launch)."""
+    _library()
 
 
-def _next_pow2(n: int) -> int:
-    return 1 << max(0, (n - 1).bit_length())
+def layout(shape, dtype: torch.dtype, num_groups: int, route: Optional[str] = None,
+           vec: Optional[int] = None) -> dict:
+    """How the plan's kernels fill the card: blocks an SM of the (first)
+    kernel and of the streaming route's second (0 when resident), the
+    resident block's shared memory (0 when streaming) and the card's SMs."""
+    p = plan(tuple(shape), dtype, num_groups, route, vec)
+    b, h, w, c = shape
+    out = (ctypes.c_int * 4)()
+    err = _library().diffsensei_groupnorm_layout(
+        int(dtype == torch.float32), b, h * w, c, num_groups, int(p.route == "streaming"),
+        p.groups_per_strip, p.slabs, p.vec, out)
+    if err != 0:
+        raise RuntimeError(f"groupnorm_silu layout query failed: cudaError {err}")
+    return dict(zip(("blocks_per_sm", "blocks_per_sm_apply", "smem_bytes", "sms"), out))
 
 
-def _groupnorm_silu_cuda(x, scale, bias, num_groups, eps):
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _groupnorm_silu_cuda(x, scale, bias, num_groups, eps, route=None, vec=None):
     global launches
     if x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 4:
         raise ValueError(f"groupnorm_silu: x must be a 4-d bfloat16 or float32 "
@@ -71,34 +190,29 @@ def _groupnorm_silu_cuda(x, scale, bias, num_groups, eps):
         raise ValueError(f"groupnorm_silu: {c} channels, {num_groups} groups, "
                          f"shape {tuple(x.shape)}")
     for name, t in (("scale", scale), ("bias", bias)):
-        if t.device != x.device or tuple(t.shape) != (c,) or not t.is_contiguous():
+        if (t.device != x.device or tuple(t.shape) != (c,) or not t.is_contiguous()
+                or t.dtype not in (torch.bfloat16, torch.float32)):
             raise ValueError(f"groupnorm_silu: {name} must be a contiguous [{c}] "
-                             f"tensor on {x.device}")
-    k = _kernels()
-    hw, cg = h * w, c // num_groups
-    block_cg = _next_pow2(cg)
-    block_hw = max(1, TILE // block_cg)
-    rows_per_chunk = -(-max(-(-hw // MAX_CHUNKS), block_hw) // block_hw) * block_hw
-    num_chunks = -(-hw // rows_per_chunk)
-    n_stats = b * num_groups
-    part = torch.empty((3, n_stats * num_chunks), dtype=torch.float32,
-                       device=x.device)
-    stats = torch.empty((2, n_stats), dtype=torch.float32, device=x.device)
+                             f"bfloat16 or float32 tensor on {x.device}")
+    if route is None and _sms(x.device.index) < SMS:
+        route = "streaming"      # a resident grid needs every block on the card at once
+    p = plan(tuple(x.shape), x.dtype, num_groups, route, vec)
+    if x.data_ptr() % p.vec:
+        raise ValueError(f"groupnorm_silu: x needs {p.vec}-byte alignment")
     y = torch.empty_like(x)
+    ws = torch.empty(p.workspace_floats, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        k.gn_partial_stats[(n_stats, num_chunks)](
-            x, part[0], part[1], part[2], hw, c, cg, num_groups, rows_per_chunk,
-            num_chunks, BLOCK_HW=block_hw, BLOCK_CG=block_cg)
-        k.gn_combine[(n_stats,)](
-            part[0], part[1], part[2], stats[0], stats[1], num_chunks, float(eps),
-            BLOCK=_next_pow2(num_chunks))
-        block_c = min(128, _next_pow2(c))
-        block_r = max(1, TILE // block_c)
-        n_row_blocks = -(-hw // block_r)
-        k.gn_apply[(b * n_row_blocks, -(-c // block_c))](
-            x, y, scale, bias, stats[0], stats[1], hw, c, cg, num_groups,
-            n_row_blocks, BLOCK_R=block_r, BLOCK_C=block_c)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _library().diffsensei_groupnorm_silu(
+            x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            int(x.dtype == torch.float32), int(scale.dtype == torch.float32),
+            int(bias.dtype == torch.float32), b, h * w, c, num_groups, float(eps),
+            int(p.route == "streaming"), p.groups_per_strip, p.slabs, p.vec, ws.data_ptr(),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"groupnorm_silu kernel launch failed: cudaError {err}")
     launches += 1
+    calls[(tuple(x.shape), str(x.dtype).removeprefix("torch."))] += 1
     return y
 
 

@@ -236,6 +236,106 @@ def test_groupnorm_kernel_matches_plain_on_card(cuda, shape, dtype, eps):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+def _gn_inputs(cuda, shape, dtype, param_dtype=None, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    scale = torch.randn(c, generator=g, device=cuda).to(param_dtype or dtype)
+    bias = torch.randn(c, generator=g, device=cuda).to(param_dtype or dtype)
+    return x, scale, bias
+
+
+def _gn_agrees(got, want):
+    if got.dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def _device_kernels(fn) -> int:
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,eps,route", [
+    ((2, 128, 128, 320), torch.bfloat16, 1e-5, "resident"),   # 264 blocks, two an SM
+    ((1, 96, 96, 512), torch.float32, 1e-6, "resident"),
+    ((2, 128, 128, 640), torch.bfloat16, 1e-5, "streaming"),
+    ((1, 1024, 1024, 128), torch.float32, 1e-6, "streaming"),  # the VAE's last level
+])
+def test_groupnorm_routes_on_card(cuda, shape, dtype, eps, route):
+    """The plan's route at a shape, its kernels a call (1 resident, 2
+    streaming, from the profiler), the twin's result within tolerance."""
+    x, scale, bias = _gn_inputs(cuda, shape, dtype)
+    p = tgn.plan(shape, dtype, 32)
+    assert p.route == route
+    before = tgn.launches
+    got = tgn.groupnorm_silu(x, scale, bias, 32, eps)
+    torch.cuda.synchronize()
+    assert tgn.launches == before + 1
+    _gn_agrees(got, tgn.groupnorm_silu_ref(x, scale, bias, 32, eps))
+    assert _device_kernels(lambda: tgn.groupnorm_silu(x, scale, bias, 32, eps)) == p.kernels
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [((2, 64, 64, 640), torch.bfloat16),     # resident
+                                         ((1, 256, 256, 512), torch.float32)])   # streaming
+def test_groupnorm_bit_equal_over_calls_and_streams(cuda, shape, dtype):
+    """Two calls, and two calls on two streams at once, give the same bits."""
+    x, scale, bias = _gn_inputs(cuda, shape, dtype)
+    call = lambda: tgn.groupnorm_silu(x, scale, bias, 32, 1e-6)
+    first, second = call(), call()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for s in streams:
+        with torch.cuda.stream(s):
+            outs.append(call())
+    torch.cuda.synchronize()
+    for y in (second, *outs):
+        assert torch.equal(first, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,param_dtype", [(torch.bfloat16, torch.bfloat16),
+                                               (torch.bfloat16, torch.float32),
+                                               (torch.float32, torch.float32)])
+@pytest.mark.parametrize("vec", [16, 8, 4])
+@pytest.mark.parametrize("route", ["resident", "streaming"])
+def test_groupnorm_every_route_and_vector_width_on_card(cuda, route, vec, dtype, param_dtype):
+    """Each route at each vector width against the twin, scale and bias in
+    bf16 or fp32."""
+    shape = (2, 40, 24, 320)
+    x, scale, bias = _gn_inputs(cuda, shape, dtype, param_dtype, seed=4)
+    p = tgn.plan(shape, dtype, 32, route, vec)
+    assert (p.route, p.vec) == (route, vec)
+    got = tgn._groupnorm_silu_cuda(x, scale, bias, 32, 1e-5, route=route, vec=vec)
+    torch.cuda.synchronize()
+    _gn_agrees(got, tgn.groupnorm_silu_ref(x, scale, bias, 32, 1e-5))
+
+
+@pytest.mark.gpu
+def test_groupnorm_rejects_what_the_kernel_does_not_take(cuda):
+    x, scale, bias = _gn_inputs(cuda, (1, 8, 8, 64), torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgn.groupnorm_silu(x.permute(0, 2, 1, 3), scale, bias, 32)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        tgn.groupnorm_silu(x.half(), scale, bias, 32)
+    with pytest.raises(ValueError, match="scale"):
+        tgn.groupnorm_silu(x, torch.ones(65, device=cuda), bias, 32)
+    with pytest.raises(ValueError, match="scale"):
+        tgn.groupnorm_silu(x, scale.cpu(), bias, 32)
+    with pytest.raises(ValueError, match="bias"):
+        tgn.groupnorm_silu(x, scale, bias.half(), 32)
+
+
 @pytest.mark.gpu
 def test_dispatcher_sends_long_bf16_attention_to_the_kernel(cuda):
     q = torch.randn(1, 2, 1024, 64, device=cuda).bfloat16()
