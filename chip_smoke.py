@@ -387,60 +387,74 @@ def cold_calls(fn, x, copies_bytes: float = 100e6, most: int = 64) -> list:
     return [lambda i=i: call(i) for i in range(n)]
 
 
-def check_groupnorm(device) -> dict:
-    """B3 at every GN_CASES row against its plain twin (bf16 allclose 1e-2,
-    fp32 within 1e-4), two calls bit-equal; the plan (route, slabs, blocks),
-    the kernels a call from the profiler (1 resident, 2 streaming), times cold
-    and warm beside the bound, the twin and ``F.group_norm`` + ``F.silu``;
-    then ``per_request``: R1's and T1's B3 time (calls x cold ms) against
-    their bounds."""
+def gn_row(gn, shape, dtype_name, eps, gen, device) -> dict:
+    """B3 of the module ``gn`` at one shape against its plain twin (bf16
+    allclose 1e-2, fp32 within 1e-4), two calls bit-equal; the plan (route,
+    slabs, blocks), the kernels a call from the profiler (1 resident, 2
+    streaming), times cold and warm beside the bound, the twin and
+    ``F.group_norm`` + ``F.silu``. Raises if it disagrees, if the profiler
+    sees no kernel, or if it counts other kernels a call than the plan. An
+    older checkout's module with no plan (``tools/torch_groupnorm_probe.py
+    --root``) is held to all but the last."""
     import torch
     import torch.nn.functional as F
+
+    x, scale, bias = gn_inputs(shape, dtype_name, gen, device)
+    call = lambda x: gn.groupnorm_silu(x, scale, bias, 32, eps)
+    got, again = call(x), call(x)
+    torch.cuda.synchronize()
+    want = gn.groupnorm_silu_ref(x, scale, bias, 32, eps)
+    err = (got.float() - want.float()).abs().max().item()
+    if x.dtype == torch.bfloat16:
+        ok = torch.allclose(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    else:
+        ok = err <= 1e-4
+    bit_equal = torch.equal(got, again)
+    del got, again, want
+    row = dict(shape=list(shape), dtype=dtype_name, eps=eps)
+    p = gn.plan(shape, x.dtype, 32, gn._sms(0)) if hasattr(gn, "plan") else None
+    if p:
+        row.update(route=p.route, vec=p.vec, groups_per_strip=p.groups_per_strip,
+                   slabs=p.slabs, blocks=p.blocks, **gn.layout(shape, x.dtype, 32))
+    library = lambda x: F.silu(F.group_norm(x.permute(0, 3, 1, 2), 32, scale, bias, eps))
+    row.update(kernels_per_call=kernels_per_call(lambda: call(x)),
+               max_abs_err=err, ok=ok, bit_equal=bit_equal,
+               ms=cuda_ms(cold_calls(call, x)), ms_warm=cuda_ms(lambda: call(x)),
+               **bound(2 * x.numel() * x.element_size() + 2 * shape[-1] * scale.element_size(),
+                       10 * x.numel()),
+               plain_ms=cuda_ms(cold_calls(
+                   lambda x: gn.groupnorm_silu_ref(x, scale, bias, 32, eps), x, most=8)),
+               library_ms=cuda_ms(cold_calls(library, x, most=8)))
+    row["vs_bound"] = row["ms"] / row["bound_ms"]
+    del x
+    torch.cuda.empty_cache()
+    if not (ok and bit_equal):
+        raise AssertionError(f"groupnorm_silu disagrees with its plain twin: {row}")
+    if row["kernels_per_call"] is None:
+        raise AssertionError(f"groupnorm_silu: the profiler saw no device kernel: {row}")
+    if p and row["kernels_per_call"] != p.kernels:
+        raise AssertionError(f"groupnorm_silu ran {row['kernels_per_call']} kernels a "
+                             f"call, its plan {p.kernels}: {row}")
+    return row
+
+
+def check_groupnorm(device) -> dict:
+    """B3 at every GN_CASES row (``gn_row``); then ``per_request``: R1's and
+    T1's B3 time (calls x cold ms) against their bounds."""
+    import torch
     from diffsensei_tpu_torch.ops import groupnorm as gn
 
     gen = torch.Generator(device=device).manual_seed(1)
     rows = []
     for shape, dtype_name, eps, r1_calls, t1_calls in GN_CASES:
-        x, scale, bias = gn_inputs(shape, dtype_name, gen, device)
-        p = gn.plan(shape, x.dtype, 32)
-        call = lambda x: gn.groupnorm_silu(x, scale, bias, 32, eps)
-        got, again = call(x), call(x)
-        torch.cuda.synchronize()
-        want = gn.groupnorm_silu_ref(x, scale, bias, 32, eps)
-        err = (got.float() - want.float()).abs().max().item()
-        if x.dtype == torch.bfloat16:
-            ok = torch.allclose(got.float(), want.float(), rtol=1e-2, atol=1e-2)
-        else:
-            ok = err <= 1e-4
-        bit_equal = torch.equal(got, again)
-        del got, again, want
-        library = lambda x: F.silu(F.group_norm(x.permute(0, 3, 1, 2), 32, scale, bias, eps))
-        row = dict(shape=list(shape), dtype=dtype_name, eps=eps, calls_r1=r1_calls,
-                   calls_t1=t1_calls, route=p.route, vec=p.vec,
-                   groups_per_strip=p.groups_per_strip, slabs=p.slabs, blocks=p.blocks,
-                   **gn.layout(shape, x.dtype, 32),
-                   kernels_per_call=kernels_per_call(lambda: call(x)),
-                   max_abs_err=err, ok=ok, bit_equal=bit_equal,
-                   ms=cuda_ms(cold_calls(call, x)), ms_warm=cuda_ms(lambda: call(x)),
-                   **bound(2 * x.numel() * x.element_size() + 2 * shape[-1] * scale.element_size(),
-                           10 * x.numel()),
-                   plain_ms=cuda_ms(cold_calls(
-                       lambda x: gn.groupnorm_silu_ref(x, scale, bias, 32, eps), x, most=8)),
-                   library_ms=cuda_ms(cold_calls(library, x, most=8)))
-        row["vs_bound"] = row["ms"] / row["bound_ms"]
+        row = dict(calls_r1=r1_calls, calls_t1=t1_calls,
+                   **gn_row(gn, shape, dtype_name, eps, gen, device))
         rows.append(row)
         emit({"phase": "groupnorm_silu", **row})
-        if not (ok and bit_equal):
-            raise AssertionError(f"groupnorm_silu disagrees with its plain twin: {row}")
-        if row["kernels_per_call"] not in (None, p.kernels):
-            raise AssertionError(f"groupnorm_silu ran {row['kernels_per_call']} kernels a "
-                                 f"call, its plan {p.kernels}: {row}")
-        del x
-        torch.cuda.empty_cache()
 
     def per(key):
         return dict(calls=sum(r[key] for r in rows),
-                    kernels=sum(r[key] * (1 if r["route"] == "resident" else 2) for r in rows),
+                    kernels=sum(r[key] * r["kernels_per_call"] for r in rows),
                     ms=sum(r[key] * r["ms"] for r in rows),
                     bound_ms=sum(r[key] * r["bound_ms"] for r in rows))
     emit({"phase": "per_request", "r1_request": per("calls_r1"), "t1_step": per("calls_t1")})

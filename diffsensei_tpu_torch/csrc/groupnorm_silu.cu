@@ -13,10 +13,11 @@
 // is not used.
 //
 // What bounds it on the H100: a few operations a byte, so one read and one
-// write of x at 3.35 TB/s, in pieces long enough for the memory. (Strips of a
-// few whole groups, all of whose rows a cluster's shared memory could hold,
-// would store 32-80 bytes a row strided by the row, which measured slower on
-// the H100 than whole rows: PERF.md.) So a slab is a run of whole rows of one
+// write of x at 3.35 TB/s, in pieces long enough for the memory. (Strips of
+// a few whole groups held by thread-block clusters, the design kept in
+// tools/groupnorm_cluster_probe.cu, measured 1.1-1.65x this kernel's time on
+// the H100: the clusters the card holds at once do not hold x, and wider
+// strips leave SMs idle; PERF.md.) So a slab is a run of whole rows of one
 // sample, contiguous in memory. A thread owns one vector of VEC bytes (16, 8
 // or 4) of a row (resident) or of a strip of whole groups (streaming) and
 // every P-th row, so it keeps one set of channels, hence one shift, scale and

@@ -29,7 +29,7 @@ import collections
 import ctypes
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,7 +39,7 @@ from diffsensei_tpu_torch.ops import _build
 THREADS = 512            # threads a block
 MAX_STRIP_GROUPS = 32    # groups a streaming strip
 MAX_GROUPS = 256         # groups a resident call
-SMS = 132                # the H100 SXM's SMs: a grid is at most one block on each
+SMS = 132                # the H100 SXM's SMs; the plan takes the card's count
 SMEM_MAX = 232_448       # dynamic shared memory a block may use on the H100
 # a resident block's shared memory besides its slab (csrc: EXTRA_BYTES)
 EXTRA_BYTES = (2 * THREADS * 8 + THREADS + 3 * MAX_GROUPS) * 4
@@ -79,25 +79,22 @@ def _ceil(a: int, b: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def plan(shape: Tuple[int, int, int, int], dtype: torch.dtype, num_groups: int,
-         route: Optional[str] = None, vec: Optional[int] = None) -> Plan:
-    """The kernel's plan for NHWC ``shape`` of ``dtype`` (bf16 or fp32):
-    resident wherever x fits in the shared memory of a grid of one block an
-    SM, else streaming; ``route`` and ``vec`` force a route and a vector
-    width (for measuring). Raises what the kernel does not take."""
+         sms: int = SMS) -> Plan:
+    """The kernel's plan for NHWC ``shape`` of ``dtype`` (bf16 or fp32) on a
+    card of ``sms`` SMs: resident wherever x fits in the shared memory of a
+    grid of one block an SM, else streaming. Raises what the kernel does not
+    take."""
     b, h, w, c = shape
     hw = h * w
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"groupnorm_silu: no kernel for {dtype}")
-    if route not in (None, "resident", "streaming"):
-        raise ValueError(f"groupnorm_silu: unknown route {route!r}")
     if b < 1 or hw < 1 or num_groups < 1 or c % num_groups:
         raise ValueError(f"groupnorm_silu: {c} channels, {num_groups} groups, shape {shape}")
     es = 2 if dtype == torch.bfloat16 else 4
     cg, row = c // num_groups, c * es
     # four values a thread first (8-byte bf16 vectors measured 3-10% faster
     # than 16-byte ones on the H100: fewer registers), then wider, then narrower
-    vecs = [v for v in (4 * es, 16, 8, 4) if row % v == 0 and vec in (None, v)]
-    vecs = list(dict.fromkeys(vecs))
+    vecs = list(dict.fromkeys(v for v in (4 * es, 16, 8, 4) if row % v == 0))
 
     def strip_groups(v):
         """Group counts a streaming strip may hold at vector width v."""
@@ -105,21 +102,19 @@ def plan(shape: Tuple[int, int, int, int], dtype: torch.dtype, num_groups: int,
                 if num_groups % d == 0 and d * cg * es % v == 0
                 and d * cg * es // v <= THREADS]
 
-    if route != "streaming" and num_groups <= MAX_GROUPS:
+    if num_groups <= MAX_GROUPS:
         for v in vecs:      # a row at most one vector a thread
-            slabs = min(hw, SMS // b, max(1, hw * row // MIN_SLAB_BYTES))
+            slabs = min(hw, sms // b, max(1, hw * row // MIN_SLAB_BYTES))
             if row // v <= THREADS and slabs >= 1 and _ceil(hw, slabs) * row <= SLAB_MAX:
                 return Plan("resident", v, num_groups, 1, slabs, _ceil(hw, slabs),
                             -(-_ceil(hw, slabs) * row // 16) * 16 + EXTRA_BYTES,
                             b * slabs, 1, b * slabs * num_groups * 4)
-    if route == "resident":
-        raise ValueError(f"groupnorm_silu: {shape} does not fit one resident grid")
     for v in vecs:
         cands = strip_groups(v)
         if cands:
             ng = max(cands)     # the widest strip: the longest contiguous rows
             strips = num_groups // ng
-            slabs = max(1, min(hw, SMS // (b * strips)))
+            slabs = max(1, min(hw, sms // (b * strips)))
             return Plan("streaming", v, ng, strips, slabs, _ceil(hw, slabs), 0,
                         b * strips * slabs, 2, b * strips * slabs * ng * 4)
     raise ValueError(f"groupnorm_silu: no kernel for {c} channels of {dtype} in "
@@ -157,12 +152,11 @@ def build() -> None:
     _library()
 
 
-def layout(shape, dtype: torch.dtype, num_groups: int, route: Optional[str] = None,
-           vec: Optional[int] = None) -> dict:
-    """How the plan's kernels fill the card: blocks an SM of the (first)
-    kernel and of the streaming route's second (0 when resident), the
+def layout(shape, dtype: torch.dtype, num_groups: int) -> dict:
+    """How the plan's kernels fill the first card: blocks an SM of the
+    (first) kernel and of the streaming route's second (0 when resident), the
     resident block's shared memory (0 when streaming) and the card's SMs."""
-    p = plan(tuple(shape), dtype, num_groups, route, vec)
+    p = plan(tuple(shape), dtype, num_groups, _sms(0))
     b, h, w, c = shape
     out = (ctypes.c_int * 4)()
     err = _library().diffsensei_groupnorm_layout(
@@ -178,7 +172,7 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _groupnorm_silu_cuda(x, scale, bias, num_groups, eps, route=None, vec=None):
+def _groupnorm_silu_cuda(x, scale, bias, num_groups, eps):
     global launches
     if x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 4:
         raise ValueError(f"groupnorm_silu: x must be a 4-d bfloat16 or float32 "
@@ -194,9 +188,8 @@ def _groupnorm_silu_cuda(x, scale, bias, num_groups, eps, route=None, vec=None):
                 or t.dtype not in (torch.bfloat16, torch.float32)):
             raise ValueError(f"groupnorm_silu: {name} must be a contiguous [{c}] "
                              f"bfloat16 or float32 tensor on {x.device}")
-    if route is None and _sms(x.device.index) < SMS:
-        route = "streaming"      # a resident grid needs every block on the card at once
-    p = plan(tuple(x.shape), x.dtype, num_groups, route, vec)
+    # a resident grid needs every block on the card at once: one an SM
+    p = plan(tuple(x.shape), x.dtype, num_groups, _sms(x.device.index))
     if x.data_ptr() % p.vec:
         raise ValueError(f"groupnorm_silu: x needs {p.vec}-byte alignment")
     y = torch.empty_like(x)

@@ -26,6 +26,7 @@ from diffsensei_tpu_torch.models.unet import UNetMangaModel
 from diffsensei_tpu_torch.models.vae import AutoencoderKL
 from diffsensei_tpu_torch.ops import groupnorm as tgn
 from diffsensei_tpu_torch.pipelines.pipeline import sdxl_configs
+from test_torch_port_kernels import GN_WIDTH_CASES
 
 # the shapes larger than one resident grid's shared memory (about 25 MB, one
 # block on each of 132 SMs): the UNet's widest levels, and the VAE from
@@ -41,14 +42,16 @@ STREAMING = {(2, 128, 128, 640), (2, 128, 128, 960), (2, 64, 64, 1920), (1, 128,
 @pytest.mark.parametrize("shape,dtype_name", [(c[0], c[1]) for c in chip_smoke.GN_CASES],
                          ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
 def test_plan_covers_every_path_shape(shape, dtype_name):
-    """The route; strips of whole groups and slabs of rows that cover every
-    (sample, group, row) once; a resident block's shared memory within
-    227 KB and the resident grid on the card at once; the workspace."""
+    """The route (streaming exactly where x exceeds the resident grid's slabs);
+    strips of whole groups and slabs of rows that cover every (sample,
+    group, row) once; a resident block's shared memory within 227 KB and the
+    resident grid on the card at once; the workspace."""
     dtype = getattr(torch, dtype_name)
     b, h, w, c = shape
     hw, es = h * w, 2 if dtype == torch.bfloat16 else 4
     p = tgn.plan(shape, dtype, 32)
     assert p.route == ("streaming" if shape in STREAMING else "resident")
+    assert (b * hw * c * es > tgn.SMS * tgn.SLAB_MAX) == (p.route == "streaming")
     assert p.kernels == (1 if p.route == "resident" else 2)
     ng = p.groups_per_strip
     strips = [list(range(s * ng, (s + 1) * ng)) for s in range(p.strips)]
@@ -68,8 +71,6 @@ def test_plan_covers_every_path_shape(shape, dtype_name):
         assert slab + tgn.EXTRA_BYTES <= p.smem_bytes <= tgn.SMEM_MAX == 232_448
     else:
         assert strip_bytes // p.vec <= tgn.THREADS and p.smem_bytes == 0
-        with pytest.raises(ValueError, match="resident grid"):
-            tgn.plan(shape, dtype, 32, route="resident")
 
 
 def test_plan_rejects_what_the_kernel_does_not_take():
@@ -80,7 +81,27 @@ def test_plan_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):       # odd bf16 rows: no 4-byte vector
         tgn.plan((1, 8, 8, 33), torch.bfloat16, 3)
     with pytest.raises(ValueError):
-        tgn.plan((1, 1024, 1024, 128), torch.float32, 32, route="resident")
+        tgn.plan((1, 0, 8, 64), torch.float32, 32)
+
+
+@pytest.mark.parametrize("route,dtype,vec,shape,groups", GN_WIDTH_CASES,
+                         ids=[f"{r}-{str(d)[6:]}-{v}" for r, d, v, *_ in GN_WIDTH_CASES])
+def test_plan_picks_each_route_and_vector_width(route, dtype, vec, shape, groups):
+    """The plan picks each route at each vector width the kernel is built
+    for somewhere (``GN_WIDTH_CASES``, run on the card in
+    ``test_torch_port_kernels.py``)."""
+    p = tgn.plan(shape, dtype, groups)
+    assert (p.route, p.vec) == (route, vec)
+    assert shape[-1] // groups * p.groups_per_strip * dtype.itemsize // vec <= tgn.THREADS
+
+
+def test_plan_fits_the_cards_sms():
+    """On a card with fewer SMs the resident grid and the streaming slabs
+    shrink to one block an SM of that card."""
+    for shape, dtype in (((2, 128, 128, 320), torch.bfloat16),
+                         ((1, 1024, 1024, 128), torch.float32)):
+        full, fewer = tgn.plan(shape, dtype, 32), tgn.plan(shape, dtype, 32, 114)
+        assert full.blocks == 132 and fewer.blocks <= 114 and fewer.route == full.route
 
 
 def _record_gn_calls(monkeypatch):
@@ -145,7 +166,7 @@ def _lane_tree(values):
     return values[0]
 
 
-def kernel_order_stats(x: torch.Tensor, p: tgn.Plan):
+def kernel_order_stats(x: torch.Tensor, p: tgn.Plan, groups: int):
     """Mean and variance a (sample, group) in the kernel's order, in fp32:
     less the group's shift (its first value), each slab's mean, then its
     squared deviations; then, over the slabs, tg lanes a group (16 at 32
@@ -153,7 +174,7 @@ def kernel_order_stats(x: torch.Tensor, p: tgn.Plan):
     counts and of the count-weighted means, then the variance from the sums
     of the M2s and of the slabs' squared deviations from that mean."""
     b, h, w, c = x.shape
-    xs = x.reshape(b, h * w, 32, c // 32).permute(0, 2, 1, 3)     # [b, group, row, channel]
+    xs = x.reshape(b, h * w, groups, c // groups).permute(0, 2, 1, 3)   # [b, group, row, channel]
     shift = xs[:, :, 0, 0]
     xs = xs - shift[..., None, None]
     bounds = tgn.row_split(h * w, p.slabs)
@@ -161,15 +182,15 @@ def kernel_order_stats(x: torch.Tensor, p: tgn.Plan):
     for s in range(p.slabs):
         # a slab's values of a group, summed as a tree (the kernel: short runs
         # a thread, then columns and a shuffle tree), not one long fp32 run
-        v = xs[:, :, bounds[s]:bounds[s + 1]].reshape(b, 32, -1)
-        n = torch.full((b, 32), float(v.shape[-1]))
+        v = xs[:, :, bounds[s]:bounds[s + 1]].reshape(b, groups, -1)
+        n = torch.full((b, groups), float(v.shape[-1]))
         mean = v.sum(dim=-1) / n
         m2 = (v - mean[..., None]).square().sum(dim=-1)
         parts.append((n, mean, m2))
     tg = 32
     while tg > 1 and tg * p.groups_per_strip > tgn.THREADS:
         tg //= 2
-    zero = torch.zeros(b, 32)
+    zero = torch.zeros(b, groups)
     lanes = [parts[lane::tg] for lane in range(tg)]
     n_tot = _lane_tree([sum((e[0] for e in lane), zero) for lane in lanes])
     nm = []
@@ -188,25 +209,28 @@ def kernel_order_stats(x: torch.Tensor, p: tgn.Plan):
     return shift + mean, _lane_tree(m2) / n_tot
 
 
-@pytest.mark.parametrize("route", ["resident", "streaming"])
-def test_kernel_statistics_order_keeps_fp32_precision(route):
+@pytest.mark.parametrize("route,shape,groups", [("resident", (2, 64, 64, 64), 32),
+                                                ("streaming", (1, 64, 64, 576), 288)],
+                         ids=["resident", "streaming"])
+def test_kernel_statistics_order_keeps_fp32_precision(route, shape, groups):
     """At a mean of 1e3 the kernel's order matches the twin's statistics
     within 1e-6 relative; E[x^2] - E[x]^2 in fp32 does not."""
     rng = np.random.default_rng(5)
-    x = torch.from_numpy((rng.normal(size=(2, 64, 64, 64)) * 1.5 + 1e3).astype(np.float32))
-    p = tgn.plan(tuple(x.shape), torch.float32, 32, route=route)
+    b, h, w, c = shape
+    x = torch.from_numpy((rng.normal(size=shape) * 1.5 + 1e3).astype(np.float32))
+    p = tgn.plan(shape, torch.float32, groups)
     assert p.route == route and p.slabs >= 8
-    mean, var = kernel_order_stats(x, p)
+    mean, var = kernel_order_stats(x, p, groups)
     # the twin's statistics (groupnorm_silu_ref: the mean, then the variance
     # about it) in float64, so that the twin's own fp32 rounding (about 2e-6
     # here) is not what is measured
-    xd = x.double().reshape(2, 64 * 64, 32, 2)
+    xd = x.double().reshape(b, h * w, groups, c // groups)
     twin_mean = xd.mean(dim=(1, 3))
     twin_var = (xd - twin_mean[:, None, :, None]).square().mean(dim=(1, 3))
     rel = lambda a, b: ((a.double() - b).abs() / b.abs()).max().item()
     assert rel(mean, twin_mean) <= 1e-6
     assert rel(var, twin_var) <= 1e-6
-    xf = x.reshape(2, 64 * 64, 32, 2).permute(0, 2, 1, 3).reshape(2, 32, -1)
+    xf = x.reshape(b, h * w, groups, c // groups).permute(0, 2, 1, 3).reshape(b, groups, -1)
     naive = xf.square().mean(dim=-1) - xf.mean(dim=-1).square()
     assert rel(naive, twin_var) > 1e-2
 

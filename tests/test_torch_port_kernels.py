@@ -264,7 +264,7 @@ def _device_kernels(fn) -> int:
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,dtype,eps,route", [
-    ((2, 128, 128, 320), torch.bfloat16, 1e-5, "resident"),   # 264 blocks, two an SM
+    ((2, 128, 128, 320), torch.bfloat16, 1e-5, "resident"),   # 132 blocks, one an SM
     ((1, 96, 96, 512), torch.float32, 1e-6, "resident"),
     ((2, 128, 128, 640), torch.bfloat16, 1e-5, "streaming"),
     ((1, 1024, 1024, 128), torch.float32, 1e-6, "streaming"),  # the VAE's last level
@@ -303,22 +303,43 @@ def test_groupnorm_bit_equal_over_calls_and_streams(cuda, shape, dtype):
         assert torch.equal(first, y)
 
 
+# (route, dtype, vector bytes, shape, groups): a shape where the plan picks
+# each route at each vector width the kernel is built for, from the row's
+# bytes (C = 2 mod 4: 4-byte bf16 and 8-byte fp32 vectors; odd fp32 C: 4-byte
+# ones; bf16 rows of more than 512 8-byte vectors: 16-byte ones) and from x's
+# size or its groups (over 256 groups, or x over the resident grid's slabs:
+# streaming). ``tests/test_torch_port_groupnorm.py`` checks the plan's picks
+# on the CPU.
+GN_WIDTH_CASES = [
+    ("resident", torch.bfloat16, 8, (2, 40, 24, 320), 32),
+    ("resident", torch.bfloat16, 16, (1, 16, 24, 2560), 32),
+    ("resident", torch.bfloat16, 4, (2, 40, 24, 330), 30),
+    ("resident", torch.float32, 16, (2, 40, 24, 320), 32),
+    ("resident", torch.float32, 8, (2, 40, 24, 330), 30),
+    ("resident", torch.float32, 4, (2, 40, 24, 99), 33),
+    ("streaming", torch.bfloat16, 8, (2, 40, 24, 576), 288),
+    ("streaming", torch.bfloat16, 16, (1, 80, 80, 2560), 1),
+    ("streaming", torch.bfloat16, 4, (2, 40, 24, 578), 289),
+    ("streaming", torch.float32, 16, (2, 40, 24, 576), 288),
+    ("streaming", torch.float32, 8, (2, 40, 24, 578), 289),
+    ("streaming", torch.float32, 4, (2, 40, 24, 867), 289),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,param_dtype", [(torch.bfloat16, torch.bfloat16),
-                                               (torch.bfloat16, torch.float32),
-                                               (torch.float32, torch.float32)])
-@pytest.mark.parametrize("vec", [16, 8, 4])
-@pytest.mark.parametrize("route", ["resident", "streaming"])
-def test_groupnorm_every_route_and_vector_width_on_card(cuda, route, vec, dtype, param_dtype):
-    """Each route at each vector width against the twin, scale and bias in
-    bf16 or fp32."""
-    shape = (2, 40, 24, 320)
+@pytest.mark.parametrize("param_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("route,dtype,vec,shape,groups", GN_WIDTH_CASES,
+                         ids=[f"{r}-{str(d)[6:]}-{v}" for r, d, v, *_ in GN_WIDTH_CASES])
+def test_groupnorm_every_route_and_vector_width_on_card(cuda, route, dtype, vec, shape, groups,
+                                                        param_dtype):
+    """Each route at each vector width, where the plan picks it, against the
+    twin, scale and bias in bf16 or fp32."""
     x, scale, bias = _gn_inputs(cuda, shape, dtype, param_dtype, seed=4)
-    p = tgn.plan(shape, dtype, 32, route, vec)
+    p = tgn.plan(shape, dtype, groups)
     assert (p.route, p.vec) == (route, vec)
-    got = tgn._groupnorm_silu_cuda(x, scale, bias, 32, 1e-5, route=route, vec=vec)
+    got = tgn.groupnorm_silu(x, scale, bias, groups, 1e-5)
     torch.cuda.synchronize()
-    _gn_agrees(got, tgn.groupnorm_silu_ref(x, scale, bias, 32, 1e-5))
+    _gn_agrees(got, tgn.groupnorm_silu_ref(x, scale, bias, groups, 1e-5))
 
 
 @pytest.mark.gpu

@@ -9,16 +9,18 @@ directory can be timed beside this checkout in the same call, process by
 process. One JSON line a shape: its time cold (``chip_smoke.cold_calls``:
 distinct copies, more bytes than the L2 holds) and warm, its bound, and
 whether it agrees with the plain twin (bf16 allclose 1e-2, fp32 within 1e-4).
-With ``--variants`` (a checkout with ``groupnorm.plan``) also every route and
-vector width the plan did not pick, at the shapes in ``VARIANT_SHAPES``, each
-held to the same tolerance. The last line is ``{"ok": true, ...}``. Needs a
-CUDA device; imports torch only.
+The row is ``chip_smoke.gn_row``'s, the smoke run's own comparison. With
+``--variants`` (a checkout with ``groupnorm.plan``) also the plans the plan
+did not pick at the shapes in ``VARIANT_SHAPES``: the other vector widths of
+its route, and the streaming route where it picked the resident one, each
+swapped in for ``plan`` in this process and held to the same comparison.
+The last line is ``{"ok": true, ...}``. Needs a CUDA device; imports torch
+only.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import sys
 from pathlib import Path
 
@@ -33,6 +35,27 @@ VARIANT_SHAPES = [
     ((1, 96, 96, 512), "float32", 1e-6),
     ((1, 1024, 1024, 128), "float32", 1e-6),
 ]
+
+
+def other_plans(gn, shape, dtype) -> list:
+    """The plans ``gn.plan`` did not pick at ``shape``: its route at the
+    other vector widths the kernel takes there, and, where it picked the
+    resident route, the streaming one as the plan makes it for larger x
+    (whole rows, one slab a block on every SM)."""
+    import dataclasses
+
+    sms = gn._sms(0)
+    p = gn.plan(shape, dtype, 32, sms)
+    b, h, w, c = shape
+    width = p.groups_per_strip * c // 32 * dtype.itemsize
+    out = [dataclasses.replace(p, vec=v) for v in (16, 8, 4)
+           if v != p.vec and width % v == 0 and width // v <= gn.THREADS]
+    if p.route == "resident":
+        slabs = min(h * w, sms // b)
+        out.append(dataclasses.replace(
+            p, route="streaming", slabs=slabs, rows_per_block=-(-h * w // slabs),
+            smem_bytes=0, blocks=b * slabs, kernels=2, workspace_floats=b * slabs * 32 * 4))
+    return out
 
 
 def main() -> int:
@@ -58,53 +81,28 @@ def main() -> int:
     cs.emit({"ptxas": [ln.strip() for f in log for ln in f.read_text().splitlines()
                        if "registers" in ln or "spill" in ln or "smem" in ln]})
 
-    def measure(shape, dtype_name, eps, gen, **force):
-        x, scale, bias = cs.gn_inputs(shape, dtype_name, gen, device)
-        if force:
-            call = lambda x: gn._groupnorm_silu_cuda(x, scale, bias, 32, eps, **force)
-        else:
-            call = lambda x: gn.groupnorm_silu(x, scale, bias, 32, eps)
-        got, again = call(x), call(x)
-        want = gn.groupnorm_silu_ref(x, scale, bias, 32, eps)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        ok = (torch.allclose(got.float(), want.float(), rtol=1e-2, atol=1e-2)
-              if x.dtype == torch.bfloat16 else err <= 1e-4)
-        row = dict(shape=list(shape), dtype=dtype_name, max_abs_err=err, ok=ok,
-                   bit_equal=torch.equal(got, again))
-        del got, again, want
-        if hasattr(gn, "plan"):
-            p = gn.plan(shape, x.dtype, 32, force.get("route"), force.get("vec"))
-            row.update(route=p.route, vec=p.vec, groups_per_strip=p.groups_per_strip,
-                       slabs=p.slabs, blocks=p.blocks, smem_bytes=p.smem_bytes)
-        row.update(ms=cs.cuda_ms(cs.cold_calls(call, x)), ms_warm=cs.cuda_ms(lambda: call(x)),
-                   **cs.bound(2 * x.numel() * x.element_size()
-                              + 2 * shape[-1] * scale.element_size(), 10 * x.numel()))
-        row["vs_bound"] = row["ms"] / row["bound_ms"]
-        del x
-        torch.cuda.empty_cache()
-        return row
-
     gen = torch.Generator(device=device).manual_seed(1)
     bad = []
+
+    def measure(shape, dtype_name, eps, **extra):
+        try:
+            row = cs.gn_row(gn, shape, dtype_name, eps, gen, device)
+        except AssertionError as e:
+            row = dict(shape=list(shape), dtype=dtype_name, error=str(e)[:2000])
+            bad.append(row)
+        cs.emit({**extra, **row})
+
     for shape, dtype_name, eps, r1, t1 in cs.GN_CASES:
-        row = measure(shape, dtype_name, eps, gen)
-        cs.emit({"case": "plan", "calls_r1": r1, "calls_t1": t1, **row})
-        bad += [] if row["ok"] else [row]
+        measure(shape, dtype_name, eps, case="plan", calls_r1=r1, calls_t1=t1)
     if args.variants:
+        picked = gn.plan
         for shape, dtype_name, eps in VARIANT_SHAPES:
-            dtype = getattr(torch, dtype_name)
-            for route in ("resident", "streaming"):
-                for vec in (16, 8, 4):
-                    try:
-                        p = gn.plan(shape, dtype, 32, route, vec)
-                    except ValueError:
-                        continue
-                    if p.vec != vec:
-                        continue
-                    row = measure(shape, dtype_name, eps, gen, route=route, vec=vec)
-                    cs.emit({"case": "variant", **row})
-                    bad += [] if row["ok"] and row["bit_equal"] else [row]
+            for forced in other_plans(gn, shape, getattr(torch, dtype_name)):
+                gn.plan = lambda *_, forced=forced: forced
+                try:
+                    measure(shape, dtype_name, eps, case="variant")
+                finally:
+                    gn.plan = picked
     cs.emit({"ok": not bad, "bad": bad})
     return 0 if not bad else 1
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where kernel B3's time goes: edited copies of ``csrc/groupnorm_silu.cu``
-timed beside the sound build, on one NVIDIA GPU.
+"""Where kernel B3's time goes, and the cluster design beside it, on one
+NVIDIA GPU.
 
     python3 tools/torch_groupnorm_variants.py
 
@@ -14,12 +14,24 @@ streaming route's drops launch 2's merge. Their results are wrong and only
 their times are read: one JSON line a (variant, shape) with the device time
 of each kernel a call (``torch.profiler`` over 20 calls on the same input,
 so it is warm in L2) and the time a call cold (``chip_smoke.cuda_ms`` over
-``chip_smoke.cold_calls``). Last line ``{"ok": true}``. Needs a CUDA device;
-imports torch only.
+``chip_smoke.cold_calls``).
+
+Then the design with thread-block clusters (``tools/groupnorm_cluster_probe.cu``:
+a cluster of up to 16 blocks holds a strip of whole groups in shared memory,
+the blocks' statistics meet through distributed shared memory) at the shapes
+in ``CLUSTER_SHAPES``, at every strip width (groups a strip) and cluster size
+whose slabs fit a block's shared memory, with vector stores and with bulk
+(TMA) stores: one JSON line each with its time cold beside the shipped
+kernel's, the clusters a call and the clusters the card holds at once, each
+held to the shipped kernel's tolerance of the plain twin and bit-equal over
+two calls. Last line ``{"ok": true}`` (false, and exit code 1, if a cluster
+variant disagrees). Needs a CUDA device; imports torch only.
 """
 
 from __future__ import annotations
 
+import ctypes
+import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -56,6 +68,11 @@ EDITS = {
 RESIDENT = [((2, 128, 128, 320), "bfloat16"), ((2, 32, 32, 1280), "bfloat16"),
             ((1, 96, 96, 512), "float32")]
 STREAMING = [((2, 128, 128, 640), "bfloat16"), ((1, 1024, 1024, 128), "float32")]
+# the cluster design's shapes: R1's three commonest UNet shapes, the UNet's
+# largest group (983 KB at 960 channels) and the VAE's 128² level (1.05 MB)
+CLUSTER_SHAPES = [((2, 128, 128, 320), "bfloat16", 1e-5), ((2, 64, 64, 640), "bfloat16", 1e-5),
+                  ((2, 32, 32, 1280), "bfloat16", 1e-5), ((2, 128, 128, 960), "bfloat16", 1e-5),
+                  ((1, 128, 128, 512), "float32", 1e-6)]
 
 
 def kernel_us(fn, calls: int = 20) -> dict:
@@ -70,6 +87,84 @@ def kernel_us(fn, calls: int = 20) -> dict:
         torch.cuda.synchronize()
     return {e.key.split("::")[-1].split("<")[0][:24]: e.self_device_time_total / e.count
             for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def cluster_library() -> ctypes.CDLL:
+    from diffsensei_tpu_torch.ops import _build
+
+    src = ROOT / "tools" / "groupnorm_cluster_probe.cu"
+    out = _build.BUILD_DIR / "groupnorm_cluster_probe.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                           "-o", str(out), str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+    cs.emit({"cluster_ptxas": [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+                               if "registers" in ln or "spill" in ln]})
+    lib = ctypes.CDLL(str(out))
+    lib.gn_cluster.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float]
+                               + [ctypes.c_void_p] * 3)
+    lib.gn_cluster.restype = ctypes.c_int
+    return lib
+
+
+def cluster_design(device) -> bool:
+    """The cluster design at CLUSTER_SHAPES beside the shipped kernel; True
+    when every variant agrees with the twin and repeats its bits."""
+    import torch
+    from diffsensei_tpu_torch.ops import groupnorm as gn
+
+    lib = cluster_library()
+    gen = torch.Generator(device=device).manual_seed(1)
+    ok = True
+    for shape, dtype_name, eps in CLUSTER_SHAPES:
+        x, scale, bias = cs.gn_inputs(shape, dtype_name, gen, device)
+        b, h, w, c = shape
+        es = x.element_size()
+        want = gn.groupnorm_silu_ref(x, scale, bias, 32, eps).float()
+        shipped = cs.cuda_ms(cs.cold_calls(lambda x: gn.groupnorm_silu(x, scale, bias, 32, eps), x))
+        bound = cs.bound(2 * x.numel() * es + 2 * c * es, 10 * x.numel())["bound_ms"]
+        for ng in (1, 2, 4, 8, 16, 32):
+            for cluster in (2, 4, 8, 16):
+                for bulk in (0, 1):
+                    vec, active = ctypes.c_int(), ctypes.c_int()
+
+                    def call(x, query=False, ng=ng, cluster=cluster, bulk=bulk, vec=vec,
+                             active=active):
+                        y = torch.empty_like(x)
+                        err = lib.gn_cluster(
+                            x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                            int(es == 4), int(es == 4), int(es == 4), b, h * w, c, 32, ng,
+                            cluster, bulk, eps, torch.cuda.current_stream().cuda_stream,
+                            ctypes.byref(vec), ctypes.byref(active) if query else None)
+                        return y if err == 0 else err
+                    got = call(x, query=True)
+                    if isinstance(got, int):
+                        # cudaErrorInvalidValue: a layout it does not take (the
+                        # slab exceeds a block's shared memory; a row piece
+                        # bulk copies cannot move)
+                        if got != 1:
+                            raise RuntimeError(f"gn_cluster failed: cudaError {got}")
+                        continue
+                    again = call(x)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want).abs().max().item()
+                    agrees = (torch.allclose(got.float(), want, rtol=1e-2, atol=1e-2)
+                              if es == 2 else err <= 1e-4) and torch.equal(got, again)
+                    ok &= agrees
+                    clusters = b * 32 // ng
+                    ms = cs.cuda_ms(cs.cold_calls(call, x))
+                    cs.emit(dict(design="cluster", shape=list(shape), dtype=dtype_name,
+                                 groups_per_strip=ng, piece_bytes=ng * (c // 32) * es,
+                                 cluster=cluster, bulk_stores=bool(bulk), vec=vec.value,
+                                 clusters=clusters, clusters_at_once=active.value,
+                                 waves=clusters / max(active.value, 1), max_abs_err=err,
+                                 ok=agrees, ms=ms, shipped_ms=shipped, bound_ms=bound,
+                                 vs_shipped=ms / shipped))
+                    del got, again
+        del x, want
+        torch.cuda.empty_cache()
+    return ok
 
 
 def main() -> int:
@@ -99,20 +194,21 @@ def main() -> int:
             finally:
                 _build.CSRC, _build.BUILD_DIR = saved
         gen = torch.Generator(device=device).manual_seed(1)
-        cases = [(s, d, "resident") for s, d in RESIDENT] * (not name.startswith("streaming"))
-        cases += [(s, d, "streaming") for s, d in STREAMING] * (name in ("sound",
-                                                                         "streaming_no_merge"))
-        for shape, dtype_name, route in cases:
+        cases = RESIDENT * (not name.startswith("streaming"))
+        cases += STREAMING * (name in ("sound", "streaming_no_merge"))
+        for shape, dtype_name in cases:
             x, scale, bias = cs.gn_inputs(shape, dtype_name, gen, device)
-            call = lambda x: gn._groupnorm_silu_cuda(x, scale, bias, 32, 1e-5, route=route)
-            cs.emit(dict(variant=name, shape=list(shape), dtype=dtype_name, route=route,
+            call = lambda x: gn.groupnorm_silu(x, scale, bias, 32, 1e-5)
+            cs.emit(dict(variant=name, shape=list(shape), dtype=dtype_name,
+                         route=gn.plan(shape, x.dtype, 32, gn._sms(0)).route,
                          kernel_us=kernel_us(lambda: call(x)),
                          ms=cs.cuda_ms(cs.cold_calls(call, x))))
             del x
         gn._library.cache_clear()
+    ok = cluster_design(device)
     print(cs.nvidia_smi_line(), flush=True)
-    cs.emit({"ok": True})
-    return 0
+    cs.emit({"ok": ok})
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
