@@ -36,7 +36,14 @@ Run from the root of the repository. Phases, one JSON line each:
 7. serve: ``DiffSenseiServer.generate`` at full SDXL width with random
    weights: 1024² with 20 Euler steps and CFG, two characters and a dialog
    box; the 768x1344 bucket (its 96x168 latent decoded in two tiles); an
-   unconditioned 1024² panel;
+   unconditioned 1024² panel; serve_extras: R1's request on the same modules
+   through six legs (DDIM 4 steps unconditioned, DPM-Solver++ 12, Euler 20
+   with DeepCache N = 2 and N = 3 at split 2, DPM++ 12 with DeepCache N = 2,
+   Euler 20 on the int8 UNet), each leg's launches checked exactly and its
+   latent and image PSNR against R1's exact panel reported;
+   deep_cache_exact: a full-width 1024² UNet forward with ``return_deep`` and
+   one with its feature bit-equal (splits 2 and 1), and the interval-1 loop
+   bit-equal to the uncached loop over 2 steps;
 8. serve_agent: the same server with the SEED-X agent (int4 LLaMA-13B at
    full width, random weights) beside the SDXL stack on the one card: the
    1024² request again, its characters adapted by 500 greedy decode steps.
@@ -52,6 +59,10 @@ Run from the root of the repository. Phases, one JSON line each:
    ``configs/train/condition.yaml`` at full SDXL width (random weights,
    synthetic MangaZero pages from a numpy seed, the 1024² bucket, batch 1),
    one line a step; profile_train: ``torch.profiler`` over one of them;
+   train_lora: 3 more stage-2 steps with UNet LoRA (rank 64) set in memory:
+   only the adapters, the IP projections and the Resampler move, every base
+   UNet weight stays bit-equal, and the merged rank-0 UNet agrees with the
+   adapter UNet;
 13. dual_cross_attention (after phase 5): B5 against its plain twin at the
    UNet's cross-attention shapes, with times beside the twin and two
    ``F.scaled_dot_product_attention`` calls, each row's bound and occupancy;
@@ -1082,6 +1093,8 @@ def serve(device):
         before, calls_before = launch_counts(), gn_calls()
         t0 = time.perf_counter()
         img = server.generate(req)
+        if req is requests[0][0]:
+            r1 = (req, img)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         got = since(before)
@@ -1089,20 +1102,244 @@ def serve(device):
                        GN_CALLS_R1 if req is requests[0][0] else None)
         row = dict(height=req.height, width=req.width, steps=req.num_inference_steps,
                    conditioned=bool(req.character_images), seconds=seconds,
-                   shape=list(img.shape), finite=bool(np.isfinite(img).all()),
-                   min=float(img.min()), max=float(img.max()), mean=float(img.mean()),
-                   std=float(img.std()),
+                   **panel_row(img, req.height, req.width),
                    max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
                    # B3 launches of the decode over the 28 of one tile's decode
                    decode_tiles=(got["groupnorm"] - 34 * req.num_inference_steps) / 28,
                    launches=got)
         emit({"phase": "serve", **row})
-        if img.shape != (1, req.height, req.width, 3) or not row["finite"] \
-                or row["min"] < 0.0 or row["max"] > 1.0:
-            raise AssertionError(f"bad panel: {row}")
         if got != want:
             raise AssertionError(f"launch counts {got} != expected {want} for {row}")
-    return launch_counts(), mods, ids
+    return launch_counts(), mods, ids, r1
+
+
+def panel_row(img, height: int, width: int) -> dict:
+    """The serve gate's readings of a panel; raises unless it is finite, in
+    [0, 1] and of the bucket's shape."""
+    row = dict(shape=list(img.shape), finite=bool(np.isfinite(img).all()),
+               min=float(img.min()), max=float(img.max()), mean=float(img.mean()),
+               std=float(img.std()))
+    if img.shape != (1, height, width, 3) or not row["finite"] \
+            or row["min"] < 0.0 or row["max"] > 1.0:
+        raise AssertionError(f"bad panel: {row}")
+    return row
+
+
+def psnr(got, want, peak: float | None = None) -> float:
+    """10 log10(peak^2 / MSE) in float64; ``peak`` defaults to the range of
+    ``want`` (latent PSNR, as the JAX package's ``tools/bench_unet_int8.py``),
+    images use 1.0."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    mse = float(np.mean((got - want) ** 2))
+    peak = float(want.max() - want.min()) if peak is None else peak
+    return float("inf") if mse == 0 else 10.0 * np.log10(peak**2 / mse)
+
+
+class LatentTap:
+    """Keeps the final latents of every request: wraps the pipeline module's
+    ``_decode``, whose argument they are. Use as a context manager."""
+
+    def __enter__(self):
+        from diffsensei_tpu_torch.pipelines import pipeline
+
+        self.module, self.decode, self.latents = pipeline, pipeline._decode, []
+
+        def decode(vae, latents, scaling):
+            self.latents.append(latents.float().cpu().numpy())
+            return self.decode(vae, latents, scaling)
+        pipeline._decode = decode
+        return self
+
+    def __exit__(self, *exc):
+        self.module._decode = self.decode
+
+
+# the legs of serve_extras on R1's request (1024², CFG 7.5): (name, scheduler,
+# steps, DeepCache interval, conditioned, int8 UNet, expected launches). A full
+# UNet step runs B1 70, B3 34, B5 70 (B5 only with characters); a cached step at
+# split 2 runs levels 0 and 1 only: 10 resnets (B3 20) and 10 transformer layers
+# at 4096 tokens (B1 10, B5 10); the decode adds B3 28.
+def _legs():
+    def counts(steps, interval, conditioned):
+        full = len(range(0, steps, interval or 1))
+        cached = steps - full
+        b1 = 70 * full + 10 * cached
+        return expect(flash_fwd=b1, groupnorm=34 * full + 20 * cached + 28,
+                      dual=b1 if conditioned else 0)
+    legs = [("ddim_4_unconditioned", "ddim", 4, None, False, False),
+            ("dpmpp_12", "dpmsolver++", 12, None, True, False),
+            ("euler_20_deepcache_2", "euler_discrete", 20, 2, True, False),
+            ("euler_20_deepcache_3", "euler_discrete", 20, 3, True, False),
+            ("dpmpp_12_deepcache_2", "dpmsolver++", 12, 2, True, False),
+            ("euler_20_int8", "euler_discrete", 20, None, True, True)]
+    return [(*leg, counts(leg[2], leg[3], leg[4])) for leg in legs]
+
+
+def serve_extras(device, mods, r1) -> dict:
+    """The serving extras through ``DiffSenseiServer.generate`` on R1's
+    modules and request (its ids, characters, boxes and seed): DDIM,
+    DPM-Solver++ 2M, DeepCache at N = 2 and 3 (split 2), DPM++ with DeepCache,
+    and the int8 UNet. R1's exact panel is made again first as the reference.
+    The int8 UNet (``quantize_unet``) is made just before its leg, and the
+    bf16 UNet waits on the host while that leg runs, so each leg's peak is its
+    own stack's; both come back as they were after it. One line a leg:
+    seconds, peak memory, the launch counts (checked exactly), the serve
+    gate, and latent and image PSNR against R1's exact panel (and the DPM++
+    preview against DPM++ 12), reported and not gated."""
+    import dataclasses
+    import torch
+    from diffsensei_tpu_torch.core.config import PipelineConfig
+    from diffsensei_tpu_torch.models.quant_unet import quantize_unet, tree_bytes
+    from diffsensei_tpu_torch.pipelines.pipeline import DiffSenseiPipeline
+    from diffsensei_tpu_torch.serve.api import DiffSenseiServer
+
+    base_req, r1_img = r1
+    unconditioned = dataclasses.replace(base_req, character_images=(), ip_bbox=(),
+                                        dialog_bbox=())
+
+    def server(scheduler, unet=None):
+        m = mods if unet is None else dataclasses.replace(mods, unet=unet)
+        return DiffSenseiServer(DiffSenseiPipeline(m, PipelineConfig(scheduler=scheduler)))
+
+    def warm(srv, **knobs):
+        """A 2-step request off the clock (a new program shape: the DeepCache
+        calls, the int8 UNet); returns its launches, which the path's totals
+        leave out."""
+        before = launch_counts()
+        srv.generate(dataclasses.replace(base_req, num_inference_steps=2, **knobs))
+        torch.cuda.synchronize()
+        return since(before)
+
+    with LatentTap() as tap:
+        warm(server("euler_discrete"), deep_cache_interval=2)
+        reset_counts()
+        ref = server("euler_discrete").generate(base_req)
+        torch.cuda.synchronize()
+        ref_lat = tap.latents[-1]
+        emit({"phase": "serve_extras_reference", "equal_to_serve_r1":
+              bool(np.array_equal(ref, r1_img)), "launches": launch_counts()})
+        panels, warmed = {}, expect()
+        for name, scheduler, steps, interval, conditioned, int8, want in _legs():
+            int8_unet = None
+            if int8:
+                t0 = time.perf_counter()
+                int8_unet = quantize_unet(mods.unet)
+                torch.cuda.synchronize()
+                bf16_bytes, int8_bytes = tree_bytes(mods.unet), tree_bytes(int8_unet)
+                emit({"phase": "serve_extras_quantize", "seconds": time.perf_counter() - t0,
+                      "unet_bytes_bf16": bf16_bytes[0], "unet_bytes_int8": int8_bytes[0],
+                      "unet_int8_weight_bytes": int8_bytes[1]})
+                mods.unet.to("cpu")
+                gc.collect()
+                torch.cuda.empty_cache()
+                warmed = warm(server(scheduler, int8_unet))
+            req = dataclasses.replace(base_req if conditioned else unconditioned,
+                                      num_inference_steps=steps, deep_cache_interval=interval)
+            srv = server(scheduler, int8_unet)
+            torch.cuda.reset_peak_memory_stats()
+            before = launch_counts()
+            t0 = time.perf_counter()
+            img = srv.generate(req)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = since(before)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            check_gn_calls(gn_calls(), f"serve_extras {name}")
+            lat = tap.latents[-1]
+            panels[name] = (img, lat)
+            row = dict(leg=name, scheduler=scheduler, steps=steps,
+                       deep_cache_interval=interval, deep_cache_split=2 if interval else None,
+                       conditioned=conditioned, int8_unet=int8, seconds=seconds,
+                       max_memory_allocated_gib=peak, launches=got,
+                       **panel_row(img, req.height, req.width))
+            if conditioned:
+                row.update(latent_psnr_vs_r1_db=psnr(lat, ref_lat),
+                           image_psnr_vs_r1_db=psnr(img, ref, 1.0))
+            if name == "dpmpp_12_deepcache_2":
+                img12, lat12 = panels["dpmpp_12"]
+                row.update(latent_psnr_vs_dpmpp_12_db=psnr(lat, lat12),
+                           image_psnr_vs_dpmpp_12_db=psnr(img, img12, 1.0))
+            if int8:
+                row.update(unet_bytes_bf16=bf16_bytes[0], unet_bytes_int8=int8_bytes[0],
+                           bf16_unet_on=str(next(mods.unet.parameters()).device))
+                del srv, int8_unet
+                gc.collect()
+                torch.cuda.empty_cache()
+                mods.unet.to(device)
+            emit({"phase": "serve_extras", **row})
+            if got != want:
+                raise AssertionError(f"serve_extras {name}: launch counts {got} != {want}")
+    del panels
+    return {k: v - warmed[k] for k, v in launch_counts().items()}
+
+
+def deep_cache_exact(device, mods, r1_req) -> None:
+    """DeepCache's exactness on the card at full SDXL width: a 1024² CFG-batch
+    UNet forward with ``return_deep`` and one with the returned feature give
+    bit-equal noise (split 2 and split 1), with the full and the cached
+    call's launches checked; and the interval-1 loop gives the uncached
+    loop's latents and panel bit for bit over 2 steps of R1's request."""
+    import dataclasses
+    import torch
+    from diffsensei_tpu_torch.models.unet import attention_levels, level_spatial_shape
+    from diffsensei_tpu_torch.ops.masked_ip import build_ip_attention_bias
+    from diffsensei_tpu_torch.pipelines.pipeline import DiffSenseiPipeline
+    from diffsensei_tpu_torch.serve.api import DiffSenseiServer
+
+    unet, cfg = mods.unet, mods.unet.config
+    manga = cfg.manga
+    g = torch.Generator(device=device).manual_seed(7)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=device)
+    boxes = torch.zeros((2, manga.max_num_ips, 4), device=device)
+    boxes[1, :2] = torch.tensor([[0.05, 0.1, 0.5, 0.95], [0.5, 0.2, 0.95, 0.9]])
+    dialog = torch.zeros((2, manga.max_num_dialogs, 4), device=device)
+    dialog[1, 0] = torch.tensor([0.1, 0.02, 0.6, 0.2])
+    args = (rnd(2, 128, 128, 4), torch.full((2,), 501.0, device=device),
+            rnd(2, 77, cfg.cross_attention_dim).bfloat16(),
+            rnd(2, cfg.pooled_projection_dim).bfloat16(),
+            torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * 2, device=device))
+    kw = dict(ip_hidden_states=rnd(2, manga.num_context_image_tokens,
+                                   cfg.cross_attention_dim).bfloat16(),
+              ip_attn_bias={lv: build_ip_attention_bias(
+                  boxes, *level_spatial_shape(cfg, 128, 128, lv), manga.num_vision_tokens,
+                  manga.num_dummy_tokens) for lv in attention_levels(cfg)},
+              ip_scale=0.6, dialog_bbox=dialog)
+    full_want = expect(flash_fwd=70, groupnorm=34, dual=70)
+    # split 2: levels 0 and 1 (10 resnets, 10 transformer layers at 4096
+    # tokens); split 1: level 0 only (2 + 3 resnets, no attention)
+    cached_want = {2: expect(flash_fwd=10, groupnorm=20, dual=10), 1: expect(groupnorm=10)}
+    rows = []
+    with torch.inference_mode():
+        for split in (2, 1):
+            counts = [launch_counts()]
+            full, deep = unet(*args, **kw, return_deep=True, cache_split=split)
+            counts.append(launch_counts())
+            cached = unet(*args, **kw, deep_feature=deep, cache_split=split)
+            counts.append(launch_counts())
+            plain = unet(*args, **kw)
+            torch.cuda.synchronize()
+            full_counts, cached_counts = ({k: b[k] - a[k] for k in KERNELS}
+                                          for a, b in zip(counts, counts[1:]))
+            rows.append(dict(split=split, deep_shape=list(deep.shape),
+                             cached_equal=bool(torch.equal(full, cached)),
+                             plain_equal=bool(torch.equal(full, plain)),
+                             max_abs_diff=float((full.float() - cached.float()).abs().max()),
+                             full_launches=full_counts, cached_launches=cached_counts))
+    server = DiffSenseiServer(DiffSenseiPipeline(mods))
+    req = dataclasses.replace(r1_req, num_inference_steps=2)
+    with LatentTap() as tap:
+        exact = server.generate(req)
+        once = server.generate(dataclasses.replace(req, deep_cache_interval=1))
+    loop = dict(interval_1_panel_equal=bool(np.array_equal(exact, once)),
+                interval_1_latents_equal=bool(np.array_equal(*tap.latents)))
+    emit({"phase": "deep_cache_exact", "forwards": rows, **loop})
+    for r in rows:
+        if not (r["cached_equal"] and r["plain_equal"]):
+            raise AssertionError(f"DeepCache is not exact on the card: {r}")
+        if r["full_launches"] != full_want or r["cached_launches"] != cached_want[r["split"]]:
+            raise AssertionError(f"DeepCache launch counts: {r}")
+    if not all(loop.values()):
+        raise AssertionError(f"the interval-1 loop differs from the uncached loop: {loop}")
 
 
 def serve_agent(device, mods, ids, max_new_tokens: int = 500) -> dict:
@@ -1353,6 +1590,166 @@ def train(device) -> dict:
                              f"!= {want}")
     profile_train(prof, clock["profiled_s"], PROFILED_STEP + 1)
     return totals
+
+
+LORA_STEPS, LORA_RANK = 3, 64
+
+
+def train_lora(device) -> dict:
+    """Stage 2 with UNet LoRA through the port's CLI on
+    ``configs/train/condition.yaml``, changed in memory as ``train`` changes
+    it and further: ``unet_trained_parameters: lora``, ``lora_rank: 64``,
+    ``max_train_steps: 3``, a checkpoint at step 3. Checks: finite losses,
+    the checkpoint, only the adapters, the IP projections and the Resampler
+    moved while every base UNet weight stayed bit-equal (checksums on the
+    host), the same launch counts on every step; then, with the adapters' B
+    drawn at random, the merged rank-0 UNet (``quant_unet.merge_lora``)
+    against the adapter UNet on one 1024² forward within 5e-2 of its largest
+    magnitude (bf16)."""
+    import pathlib
+    import tempfile
+    import torch
+    import yaml
+    from diffsensei_tpu_torch.models.lora import LoRADense
+    from diffsensei_tpu_torch.models.quant_unet import merge_lora
+    from diffsensei_tpu_torch.train import cli
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before, built = {}, {}
+    build_models = cli.build_models
+
+    def capture(*args, **kwargs):
+        mods = build_models(*args, **kwargs)
+        before["unet"] = checksums(mods.unet, dtype_free=True)
+        before["resampler"] = checksums(mods.resampler, dtype_free=True)
+        built["mods"] = mods
+        return mods
+
+    rows, clock = [], {}
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rows.append(dict(step=step, **{k: float(v) for k, v in metrics.items()},
+                         host_s=now - clock["last"],
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         launches=since(clock["counts"])))
+        torch.cuda.reset_peak_memory_stats()
+        clock.update(last=time.perf_counter(), counts=launch_counts())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        write_mangazero(tmp)
+        cfg = yaml.safe_load(pathlib.Path("configs/train/condition.yaml").read_text())
+        cfg.pop("weights")
+        cfg["model"].update(init="random", unet_trained_parameters="lora", lora_rank=LORA_RANK)
+        cfg["train_data"].update(ann_path=str(tmp / "annotations.json"), image_root=str(tmp))
+        cfg["trainer"].update(max_train_steps=LORA_STEPS, log_every=1,
+                              checkpoint_every=LORA_STEPS, log_dir=str(tmp / "logs"))
+        (tmp / "config.yaml").write_text(yaml.safe_dump(cfg))
+        cli.build_models = capture
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = clock["last"] = time.perf_counter()
+        clock["counts"] = launch_counts()
+        try:
+            state = cli.main(["--config", str(tmp / "config.yaml")], on_step=on_step)
+        finally:
+            cli.build_models = build_models
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        totals = launch_counts()
+        check_gn_calls(gn_calls(), "train_lora")
+        logged = [json.loads(line) for line in (tmp / "logs" / "metrics.jsonl").read_text()
+                  .splitlines()]
+        ckpt = sorted((tmp / "logs").glob("step-*/ckpt.pt"))
+        saved = torch.load(ckpt[-1], map_location="cpu", weights_only=False, mmap=True)["state"]
+        saved_adapters = sum("lora_" in k for k in saved["params"]) if ckpt else 0
+
+    for row, rec in zip(rows, logged):
+        row.update(step_s=rec["time/step_s"], data_s=rec["time/data_s"])
+        emit({"phase": "train_lora", **row})
+    mods = built.pop("mods")
+    after = {"unet": checksums(mods.unet, dtype_free=True),
+             "resampler": checksums(mods.resampler, dtype_free=True)}
+    groups = {"lora_A": [], "lora_B": [], "ip": [], "resampler": [], "base_unet": []}
+    for module in ("unet", "resampler"):
+        for name, sums in before[module].items():
+            group = ("resampler" if module == "resampler" else "lora_A" if "lora_A" in name
+                     else "lora_B" if "lora_B" in name else "ip" if "_ip" in name
+                     else "base_unet")
+            groups[group].append(after[module][name] != sums)
+    moved = {k: f"{sum(v)}/{len(v)}" for k, v in groups.items()}
+
+    # merge: B drawn at random (std 0.1: A B moves each weight by about half
+    # its own std) so the adapters count, then one forward each; the base UNet
+    # with the adapters dropped, a planted wrong merge, must miss the bound
+    g = torch.Generator(device=device).manual_seed(11)
+    with torch.no_grad():
+        for mod in mods.unet.modules():
+            if isinstance(mod, LoRADense) and mod.lora_rank:
+                mod.lora_B.weight.normal_(0.0, 0.1, generator=g)
+    cfg_u, manga = mods.unet.config, mods.unet.config.manga
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=device)
+    args = (rnd(1, 128, 128, 4), torch.full((1,), 501.0, device=device),
+            rnd(1, 77, cfg_u.cross_attention_dim), rnd(1, cfg_u.pooled_projection_dim),
+            torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]], device=device))
+    ip = rnd(1, manga.num_context_image_tokens, cfg_u.cross_attention_dim)
+    with torch.inference_mode():
+        adapted = mods.unet(*args, ip_hidden_states=ip).float()
+    rel = {}
+    for name, rank0 in (("merged", merge_lora), ("adapters_dropped", drop_lora)):
+        unet = rank0(mods.unet)
+        with torch.inference_mode():
+            out = unet(*args, ip_hidden_states=ip).float()
+        rel[name] = ((out - adapted).abs().max() / adapted.abs().max()).item()
+        del unet, out
+    merge_rel = rel["merged"]
+    del mods
+    summary = dict(steps=len(rows), seconds=seconds, checkpoints=[p.parent.name for p in ckpt],
+                   checkpoint_adapters=saved_adapters, trainable_tensors=len(state.params),
+                   trainable_params=sum(p.numel() for p in state.params.values()),
+                   moved=moved, merged_rel_err=merge_rel, merged_bound=5e-2,
+                   adapters_dropped_rel_err=rel["adapters_dropped"], launches=totals)
+    emit({"phase": "train_lora_summary", **summary})
+    # a step as T1's, but the 3 resnets before the first adapted layer (down
+    # level 0 and the first of level 1) need no backward, so remat replays 28
+    # of the UNet's 34 B3 calls: B3 34 + 28 + 20 in the VAE encoder
+    want = expect(flash_fwd=140, flash_dq=70, flash_dkv=70, groupnorm=82, dual=140)
+    if len(rows) != LORA_STEPS or not all(np.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"a bad loss: {rows}")
+    n_adapters = len(groups["lora_A"]) + len(groups["lora_B"])
+    if [p.parent.name for p in ckpt] != [f"step-{LORA_STEPS}"] or saved_adapters != n_adapters:
+        raise AssertionError(f"checkpoint or its adapters missing: {summary}")
+    if any(groups["base_unet"]) or not (all(groups["lora_B"]) and all(groups["ip"])
+                                        and all(groups["resampler"]) and any(groups["lora_A"])):
+        raise AssertionError(f"the wrong weights moved: {moved}")
+    if any(r["launches"] != want for r in rows):
+        raise AssertionError(f"launch counts per step {[r['launches'] for r in rows]} != {want}")
+    if not merge_rel <= 5e-2:
+        raise AssertionError(f"the merged UNet disagrees with the adapters: {merge_rel}")
+    if not rel["adapters_dropped"] > 5e-2:
+        raise AssertionError(f"the merge check cannot tell a dropped adapter: {rel}")
+    return totals
+
+
+def drop_lora(unet):
+    """A rank-0 copy of ``unet`` without its adapters: the merge check's
+    planted fault."""
+    import torch
+    from diffsensei_tpu_torch.models.quant_unet import merge_lora
+
+    with torch.no_grad():
+        saved = [(m.lora_B.weight, m.lora_B.weight.clone()) for m in unet.modules()
+                 if getattr(m, "lora_rank", 0)]
+        for w, _ in saved:
+            w.zero_()
+        try:
+            return merge_lora(unet)
+        finally:
+            for w, b in saved:
+                w.copy_(b)
 
 
 def profile_train(prof, wall_s: float, step: int, phase: str = "profile_train") -> None:
@@ -1737,11 +2134,14 @@ def main() -> int:
     check_reference_train(device)
     check_reference_train_mllm(device)
     paths = {}
-    paths["serve"], mods, ids = serve(device)
+    paths["serve"], mods, ids, r1 = serve(device)
+    paths["serve_extras"] = serve_extras(device, mods, r1)
+    deep_cache_exact(device, mods, r1[0])
     paths["serve_agent"] = serve_agent(device, mods, ids)
     del mods
     torch.cuda.empty_cache()
     paths["train"] = train(device)
+    paths["train_lora"] = train_lora(device)
     paths["train_mllm"] = train_mllm(device)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

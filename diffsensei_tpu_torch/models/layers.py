@@ -35,6 +35,34 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
 
 
+class Int8Linear(nn.Module):
+    """Weight-only int8, per output channel (the JAX ``LoRADense`` with
+    ``quantized=True``): ``y = (x @ Q) * s + b`` in x's dtype, with ``Q``
+    int8 ``[in, out]`` (``kernel_q``), ``s`` fp32 ``[out]``
+    (``kernel_scale``) and an optional bias. Serving only: nothing trains
+    it, and the int8 values are exact in bf16."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=None, device=None):
+        super().__init__()
+        frozen = lambda shape, dt: nn.Parameter(torch.empty(shape, dtype=dt, device=device),
+                                                requires_grad=False)
+        self.kernel_q = frozen((in_features, out_features), torch.int8)
+        self.kernel_scale = frozen((out_features,), torch.float32)
+        self.bias = (nn.Parameter(torch.empty(out_features, dtype=dtype, device=device))
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x, self.kernel_q.to(x.dtype)) * self.kernel_scale.to(x.dtype)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
+
+
+def linear(in_features: int, out_features: int, bias: bool = True,
+           quantized: bool = False, **kw) -> nn.Module:
+    """A ``Linear``, or its ``Int8Linear`` serving form where ``quantized``."""
+    return (Int8Linear if quantized else Linear)(in_features, out_features, bias=bias, **kw)
+
+
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` in the input's dtype."""
 
@@ -177,16 +205,18 @@ class GEGLUFeedForward(nn.Module):
     ``net.0.proj``, ``net.2``).
 
     GELU policy of the JAX package (ROADMAP trap C2): the exact erf form in
-    fp32, the tanh form in bf16."""
+    fp32, the tanh form in bf16. ``quantized`` serves both projections in
+    int8 (``Int8Linear``)."""
 
-    def __init__(self, dim: int, mult: int = 4, dtype=None, device=None):
+    def __init__(self, dim: int, mult: int = 4, quantized: bool = False, dtype=None,
+                 device=None):
         super().__init__()
+        kw = dict(quantized=quantized, dtype=dtype, device=device)
         inner = dim * mult
         geglu = nn.Module()
-        geglu.proj = Linear(dim, inner * 2, dtype=dtype, device=device)
+        geglu.proj = linear(dim, inner * 2, **kw)
         # net.1 is diffusers' dropout slot: no parameters, identity at inference
-        self.net = nn.ModuleList([geglu, nn.Identity(),
-                                  Linear(inner, dim, dtype=dtype, device=device)])
+        self.net = nn.ModuleList([geglu, nn.Identity(), linear(inner, dim, **kw)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.net[0].proj(x).chunk(2, dim=-1)

@@ -20,8 +20,14 @@ Training: ``enable_remat`` checkpoints each ``ResnetBlock2D`` and each
 transformer stack (``torch.utils.checkpoint``, full recompute, the JAX
 ``remat_blocks`` with policy None), and ``compute_dtype`` lets fp32 trainable
 parameters sit in a bf16 UNet: every layer casts its parameters to the
-activations' dtype at use. DeepCache and context parallelism wait for later
-slices.
+activations' dtype at use. ``config.lora_rank > 0`` puts adapters on
+``to_q``, ``to_k``, ``to_v`` and ``to_out.0`` of both attentions
+(``models/lora.py``), never on the IP projections.
+
+Serving: ``quantized=True`` builds the weight-only int8 layout of
+``models/quant_unet.py`` (every transformer matmul an ``Int8Linear``), and
+``forward``'s ``return_deep`` / ``deep_feature`` / ``cache_split`` are the
+JAX package's DeepCache. Context parallelism waits for a later slice.
 """
 
 from __future__ import annotations
@@ -34,9 +40,9 @@ from torch.utils.checkpoint import checkpoint
 
 from diffsensei_tpu_torch.core.config import UNetConfig
 from diffsensei_tpu_torch.models.layers import (
-    Conv2d, Downsample2D, GEGLUFeedForward, GroupNorm, LayerNorm, Linear, ResnetBlock2D,
-    TimestepEmbedding, Upsample2D, timestep_embedding)
-from diffsensei_tpu_torch.models.lora import LoRADense
+    Conv2d, Downsample2D, GEGLUFeedForward, GroupNorm, LayerNorm, ResnetBlock2D,
+    TimestepEmbedding, Upsample2D, linear, timestep_embedding)
+from diffsensei_tpu_torch.models.lora import projection
 from diffsensei_tpu_torch.ops.attention import multi_head_attention
 from diffsensei_tpu_torch.ops.dual_cross_attention import dual_cross_attention, uses_kernel
 from diffsensei_tpu_torch.ops.masked_ip import rasterize_dialog_embedding
@@ -53,16 +59,16 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 class SelfAttention(nn.Module):
-    """Spatial self-attention (``attn1``)."""
+    """Spatial self-attention (``attn1``). ``kw``: ``lora_rank``,
+    ``quantized``, ``dtype``, ``device`` of the projections."""
 
-    def __init__(self, dim: int, heads: int, dtype=None, device=None):
+    def __init__(self, dim: int, heads: int, **kw):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
         self.heads = heads
-        self.to_q = LoRADense(dim, dim, bias=False, **kw)
-        self.to_k = LoRADense(dim, dim, bias=False, **kw)
-        self.to_v = LoRADense(dim, dim, bias=False, **kw)
-        self.to_out = nn.ModuleList([LoRADense(dim, dim, **kw)])
+        self.to_q = projection(dim, dim, bias=False, **kw)
+        self.to_k = projection(dim, dim, bias=False, **kw)
+        self.to_v = projection(dim, dim, bias=False, **kw)
+        self.to_out = nn.ModuleList([projection(dim, dim, **kw)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q = _split_heads(self.to_q(x), self.heads)
@@ -72,20 +78,22 @@ class SelfAttention(nn.Module):
 
 
 class MangaCrossAttention(nn.Module):
-    """Text cross-attention plus masked IP cross-attention (``attn2``)."""
+    """Text cross-attention plus masked IP cross-attention (``attn2``). The
+    IP projections take no adapter (the reference's peft targets exclude
+    them) and are int8 where the others are."""
 
-    def __init__(self, dim: int, context_dim: int, heads: int, dtype=None,
-                 device=None):
+    def __init__(self, dim: int, context_dim: int, heads: int, lora_rank: int = 0,
+                 quantized: bool = False, dtype=None, device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(quantized=quantized, dtype=dtype, device=device)
         self.heads = heads
-        self.to_q = LoRADense(dim, dim, bias=False, **kw)
-        self.to_k = LoRADense(context_dim, dim, bias=False, **kw)
-        self.to_v = LoRADense(context_dim, dim, bias=False, **kw)
-        self.to_out = nn.ModuleList([LoRADense(dim, dim, **kw)])
+        self.to_q = projection(dim, dim, bias=False, lora_rank=lora_rank, **kw)
+        self.to_k = projection(context_dim, dim, bias=False, lora_rank=lora_rank, **kw)
+        self.to_v = projection(context_dim, dim, bias=False, lora_rank=lora_rank, **kw)
+        self.to_out = nn.ModuleList([projection(dim, dim, lora_rank=lora_rank, **kw)])
         self.processor = nn.Module()
-        self.processor.to_k_ip = Linear(context_dim, dim, bias=False, **kw)
-        self.processor.to_v_ip = Linear(context_dim, dim, bias=False, **kw)
+        self.processor.to_k_ip = linear(context_dim, dim, bias=False, **kw)
+        self.processor.to_v_ip = linear(context_dim, dim, bias=False, **kw)
 
     def forward(self, x: torch.Tensor, ctx_text: torch.Tensor,
                 ctx_ip: Optional[torch.Tensor] = None,
@@ -112,16 +120,17 @@ class BasicTransformerBlock(nn.Module):
     """self-attention, manga cross-attention, GEGLU FFN; each pre-LayerNorm
     with a residual."""
 
-    def __init__(self, dim: int, context_dim: int, heads: int, dtype=None,
-                 device=None):
+    def __init__(self, dim: int, context_dim: int, heads: int, lora_rank: int = 0,
+                 quantized: bool = False, dtype=None, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        pkw = dict(kw, lora_rank=lora_rank, quantized=quantized)
         self.norm1 = LayerNorm(dim, eps=1e-5, **kw)
-        self.attn1 = SelfAttention(dim, heads, **kw)
+        self.attn1 = SelfAttention(dim, heads, **pkw)
         self.norm2 = LayerNorm(dim, eps=1e-5, **kw)
-        self.attn2 = MangaCrossAttention(dim, context_dim, heads, **kw)
+        self.attn2 = MangaCrossAttention(dim, context_dim, heads, **pkw)
         self.norm3 = LayerNorm(dim, eps=1e-5, **kw)
-        self.ff = GEGLUFeedForward(dim, **kw)
+        self.ff = GEGLUFeedForward(dim, quantized=quantized, **kw)
 
     def forward(self, x, ctx_text, ctx_ip, ip_bias, ip_scale):
         x = x + self.attn1(self.norm1(x))
@@ -133,15 +142,16 @@ class Transformer2D(nn.Module):
     """GroupNorm (eps 1e-6, plain) -> proj_in -> N blocks -> proj_out, residual."""
 
     def __init__(self, num_layers: int, channels: int, context_dim: int,
-                 heads: int, norm_num_groups: int = 32, dtype=None, device=None):
+                 heads: int, norm_num_groups: int = 32, lora_rank: int = 0,
+                 quantized: bool = False, dtype=None, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.norm = GroupNorm(norm_num_groups, channels, eps=1e-6, **kw)
-        self.proj_in = Linear(channels, channels, **kw)
+        self.proj_in = linear(channels, channels, quantized=quantized, **kw)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(channels, context_dim, heads, **kw)
+            [BasicTransformerBlock(channels, context_dim, heads, lora_rank, quantized, **kw)
              for _ in range(num_layers)])
-        self.proj_out = Linear(channels, channels, **kw)
+        self.proj_out = linear(channels, channels, quantized=quantized, **kw)
 
     def forward(self, x, ctx_text, ctx_ip, ip_bias, ip_scale):
         b, h, w, c = x.shape
@@ -174,11 +184,17 @@ class UNetMangaModel(nn.Module):
     (dummy block first), the per-level IP biases ``{level: [B, S_level, D + I*V]}``,
     ``ip_scale`` and the dialog boxes ``[B, max_num_dialogs, 4]``. It returns
     the predicted noise ``[B, H, W, out_channels]`` in the module's dtype.
+
+    ``config.lora_rank`` sizes the attention adapters; ``quantized`` builds
+    the int8 serving layout (rank 0 only), whose weights come from
+    ``models/quant_unet.py``.
     """
 
-    def __init__(self, config: UNetConfig, dtype=torch.float32, device=None):
+    def __init__(self, config: UNetConfig, dtype=torch.float32, device=None,
+                 quantized: bool = False):
         super().__init__()
         cfg = self.config = config
+        self.quantized = quantized
         kw = dict(dtype=dtype, device=device)
         chans = cfg.block_out_channels
         groups = cfg.norm_num_groups
@@ -194,7 +210,8 @@ class UNetMangaModel(nn.Module):
 
         def transformer(level, layers):
             return Transformer2D(layers, chans[level], cfg.cross_attention_dim,
-                                 chans[level] // cfg.head_dim, groups, **kw)
+                                 chans[level] // cfg.head_dim, groups, cfg.lora_rank,
+                                 quantized, **kw)
 
         skips = [chans[0]]
         prev = chans[0]
@@ -261,7 +278,21 @@ class UNetMangaModel(nn.Module):
                 time_ids: torch.Tensor, ip_hidden_states: Optional[torch.Tensor] = None,
                 ip_attn_bias: Optional[Dict[int, torch.Tensor]] = None,
                 ip_scale: float = 1.0,
-                dialog_bbox: Optional[torch.Tensor] = None) -> torch.Tensor:
+                dialog_bbox: Optional[torch.Tensor] = None,
+                deep_feature: Optional[torch.Tensor] = None, cache_split: int = 2,
+                return_deep: bool = False):
+        """The predicted noise; with ``return_deep`` also the deep feature.
+
+        DeepCache (the JAX ``UNetMangaModel.__call__``): ``return_deep=True``
+        also returns the up path's feature just after the upsample out of
+        level ``cache_split``, the output of the deep subtree (down levels >=
+        ``cache_split``, the mid block, up levels >= ``cache_split``).
+        ``deep_feature`` (an earlier ``return_deep``'s) skips that subtree:
+        the down path stops before the level-``cache_split - 1`` downsample
+        and the up path starts at level ``cache_split - 1`` from the feature.
+        A cached call with ``return_deep`` passes the feature through. The
+        contract: ``full(x)[0] == forward(x, deep_feature=full(x)[1])`` bit
+        for bit; reusing a feature across steps is the only approximation."""
         cfg = self.config
         dt = self.dtype
         if timesteps.dim() == 0:
@@ -288,33 +319,50 @@ class UNetMangaModel(nn.Module):
             return self._block(attn, x, ctx_text, ctx_ip, bias, ip_scale)
 
         n = len(cfg.block_out_channels)
+        use_cache = deep_feature is not None
+        if (use_cache or return_deep) and not 1 <= cache_split < n:
+            raise ValueError(f"cache_split must be in [1, {n - 1}], got {cache_split}")
         skips = [x]
         for level, stage in enumerate(self.down_blocks):
+            if use_cache and level >= cache_split:
+                break
             for j, resnet in enumerate(stage.resnets):
                 x = self._block(resnet, x, temb)
                 if len(stage.attentions):
                     x = attend(stage.attentions[j], x, level)
                 skips.append(x)
-            if level < n - 1:
+            # the level-(split - 1) downsample feeds only the skipped subtree
+            if level < n - 1 and not (use_cache and level == cache_split - 1):
                 x = stage.downsamplers[0](x)
                 skips.append(x)
 
-        mid = self.mid_block
-        x = self._block(mid.resnets[0], x, temb)
-        x = attend(mid.attentions[0], x, n - 1)
-        x = self._block(mid.resnets[1], x, temb)
+        if use_cache:
+            x = deep_feature.to(dt)
+        else:
+            mid = self.mid_block
+            x = self._block(mid.resnets[0], x, temb)
+            x = attend(mid.attentions[0], x, n - 1)
+            x = self._block(mid.resnets[1], x, temb)
 
+        deep_out = None
         for rev, stage in enumerate(self.up_blocks):
             level = n - 1 - rev
+            if use_cache and level >= cache_split:
+                continue
             for j, resnet in enumerate(stage.resnets):
                 x = self._block(resnet, torch.cat([x, skips.pop()], dim=-1), temb)
                 if len(stage.attentions):
                     x = attend(stage.attentions[j], x, level)
             if level > 0:
                 x = stage.upsamplers[0](x, output_size=tuple(skips[-1].shape[1:3]))
+                if return_deep and level == cache_split:
+                    deep_out = x
 
         x = torch.nn.functional.silu(self.conv_norm_out(x))
-        return self.conv_out(x)
+        out = self.conv_out(x)
+        if return_deep:
+            return out, (deep_feature if deep_out is None else deep_out)
+        return out
 
 
 def attention_levels(cfg: UNetConfig) -> Tuple[int, ...]:

@@ -3,17 +3,18 @@
 
 Two CLIP text encoders, CLIP-H + Magi ViTMAE + Resampler for the
 characters, masked-IP biases built once per call per attention level, a CFG
-Euler loop over ``UNetMangaModel`` (a Python loop; the JAX package's
-``fori_loop``), and the fp32 VAE decode. CFG rows are ``[uncond | cond]``;
-the uncond half gets all-zero boxes (ROADMAP trap C4). The SEED-X agent's
-per-character tokens (``ip_image_embeds``) are pasted over the resampler's
-character block.
+sampler loop over ``UNetMangaModel`` (a Python loop; the JAX package's
+``fori_loop``: Euler, DDIM or DPM-Solver++ 2M by ``PipelineConfig.scheduler``,
+with the JAX package's DeepCache), and the fp32 VAE decode. CFG rows are
+``[uncond | cond]``; the uncond half gets all-zero boxes (ROADMAP trap C4).
+The SEED-X agent's per-character tokens (``ip_image_embeds``) are pasted
+over the resampler's character block.
 
 The decode goes through ``tiled_decode`` (tile 96, overlap 24) whenever a
 latent side exceeds 128, as the JAX ``_decode_any`` does: every 1024-class
 bucket but 1024x1024 is decoded in tiles.
 
-Left for later slices: the other samplers, DeepCache, CUDA graphs.
+Left for later slices: CUDA graphs.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from diffsensei_tpu_torch.core.config import (
     VAEConfig, VisionEncoderConfig)
 from diffsensei_tpu_torch.models.resampler import Resampler
 from diffsensei_tpu_torch.models.schedulers import (
-    SamplerState, make_sampler, scale_model_input, step as scheduler_step)
+    SamplerState, make_sampler, multistep_step, scale_model_input, step as scheduler_step)
 from diffsensei_tpu_torch.models.text_encoder import CLIPTextEncoder
 from diffsensei_tpu_torch.models.unet import (
     UNetMangaModel, attention_levels, level_spatial_shape)
@@ -109,17 +110,22 @@ class PipelineModules:
         return mods
 
     @classmethod
-    def tiny(cls, device="cuda", seed: int = 0) -> "PipelineModules":
+    def tiny(cls, device="cuda", seed: int = 0, lora_rank: int = 0) -> "PipelineModules":
         """The tiny stack of the JAX ``PipelineModules.tiny`` configs (the CPU
-        tests pass ``device="cpu"``)."""
-        return cls.build(tiny_configs(), torch.float32, device, seed)
+        tests pass ``device="cpu"``), UNet adapters of ``lora_rank``."""
+        cfgs = tiny_configs()
+        cfgs["unet"] = dataclasses.replace(cfgs["unet"], lora_rank=lora_rank)
+        return cls.build(cfgs, torch.float32, device, seed)
 
     @classmethod
-    def sdxl(cls, device="cuda", seed: int = 0) -> "PipelineModules":
+    def sdxl(cls, device="cuda", seed: int = 0, lora_rank: int = 0) -> "PipelineModules":
         """Full-width stack: SDXL UNet with the manga modules and the
         encoders in bf16, fp32 VAE (CLIP-L + OpenCLIP-bigG, CLIP ViT-H + Magi
-        ViTMAE, the DiffSensei Resampler); random weights from ``seed``."""
-        mods = cls.build(sdxl_configs(), torch.bfloat16, device, seed)
+        ViTMAE, the DiffSensei Resampler); random weights from ``seed``; UNet
+        adapters of ``lora_rank``."""
+        cfgs = sdxl_configs()
+        cfgs["unet"] = dataclasses.replace(cfgs["unet"], lora_rank=lora_rank)
+        mods = cls.build(cfgs, torch.bfloat16, device, seed)
         for mod in (mods.unet, mods.vae):
             mod.to(memory_format=torch.channels_last)  # conv weights for NHWC inputs
         return mods
@@ -137,19 +143,38 @@ class PipelineModules:
 def _denoise(unet: UNetMangaModel, sampler: SamplerState, latents: torch.Tensor,
              ctx, pooled, time_ids, ip_tokens, ip_biases, dialog_bbox,
              guidance_scale: float, ip_scale: float,
-             callback: Optional[Callable[[int, torch.Tensor], None]] = None
+             callback: Optional[Callable[[int, torch.Tensor], None]] = None,
+             cache_interval: Optional[int] = None, cache_split: int = 2
              ) -> torch.Tensor:
-    """CFG Euler loop; conditioning arrives doubled ``[uncond; cond]`` on dim 0."""
+    """The CFG sampler loop; conditioning arrives doubled ``[uncond; cond]``
+    on dim 0. DPM-Solver++ carries the previous step's x0 (zeros at step 0).
+
+    ``cache_interval=N`` is DeepCache: the UNet's deep subtree (levels >=
+    ``cache_split`` and the mid block) runs on every N-th step, and the
+    steps between reuse its feature (the JAX ``lax.cond(i % N == 0, full,
+    cached)`` as a host ``if``). N = 1 is exact; N > 1 approximates."""
+    def unet_eps(lat_in, t, **kw):
+        return unet(lat_in, t, ctx, pooled, time_ids, ip_hidden_states=ip_tokens,
+                    ip_attn_bias=ip_biases, ip_scale=ip_scale, dialog_bbox=dialog_bbox, **kw)
+
+    deep = None       # step 0 is a full step, so nothing reads a cache before one exists
+    prev_x0 = torch.zeros_like(latents) if sampler.is_multistep else None
     lat = latents
     for i in range(sampler.num_steps):
         lat_in = scale_model_input(sampler, torch.cat([lat, lat], dim=0), i)
         t = sampler.timesteps[i].expand(lat_in.shape[0])
-        eps = unet(lat_in, t, ctx, pooled, time_ids, ip_hidden_states=ip_tokens,
-                   ip_attn_bias=ip_biases, ip_scale=ip_scale,
-                   dialog_bbox=dialog_bbox).float()
-        eps_neg, eps_pos = eps.chunk(2, dim=0)
-        lat = scheduler_step(sampler, eps_neg + guidance_scale * (eps_pos - eps_neg),
-                             i, lat)
+        if cache_interval is None:
+            eps = unet_eps(lat_in, t)
+        elif i % cache_interval == 0:
+            eps, deep = unet_eps(lat_in, t, return_deep=True, cache_split=cache_split)
+        else:
+            eps = unet_eps(lat_in, t, deep_feature=deep, cache_split=cache_split)
+        eps_neg, eps_pos = eps.float().chunk(2, dim=0)
+        guided = eps_neg + guidance_scale * (eps_pos - eps_neg)
+        if sampler.is_multistep:
+            lat, prev_x0 = multistep_step(sampler, guided, i, lat, prev_x0)
+        else:
+            lat = scheduler_step(sampler, guided, i, lat)
         if callback is not None:
             callback(i, lat)
     return lat
@@ -315,7 +340,8 @@ class DiffSenseiPipeline:
                  dialog_bbox: Optional[Sequence[Sequence[float]]] = None,
                  snap_to_buckets: bool = True, prompt_ids: Optional[Dict] = None,
                  return_latents: bool = False,
-                 callback: Optional[Callable[[int, torch.Tensor], None]] = None
+                 callback: Optional[Callable[[int, torch.Tensor], None]] = None,
+                 deep_cache_interval: Optional[int] = None, deep_cache_split: int = 2
                  ) -> torch.Tensor:
         """Generate panels: ``[num_samples, H, W, 3]`` fp32 in [0, 1].
 
@@ -324,7 +350,11 @@ class DiffSenseiPipeline:
         so a caller can split a request across calls, or feed two
         implementations the same draw. ``callback(i, latents)`` sees the
         latents after every denoising step. ``ip_image_embeds``
-        ``[n, V, D_cross]`` are pasted over the encoded characters."""
+        ``[n, V, D_cross]`` are pasted over the encoded characters.
+        ``deep_cache_interval=N`` (opt-in) recomputes the UNet's deep subtree
+        (levels >= ``deep_cache_split`` and the mid block) on every N-th step
+        only (``_denoise``); the masked-IP cross-attention of the shallow
+        levels stays live on every step."""
         cfg = self.config
         m = self.m
         manga = m.manga
@@ -377,7 +407,8 @@ class DiffSenseiPipeline:
         latents = _denoise(
             m.unet, sampler, latents, ctx.repeat_interleave(num_samples, dim=0),
             pooled.repeat_interleave(num_samples, dim=0), time_ids, ip_tokens,
-            ip_biases, dialog_arr, gscale, ipscale, callback)
+            ip_biases, dialog_arr, gscale, ipscale, callback, deep_cache_interval,
+            deep_cache_split)
         if return_latents:
             return latents
         return _decode(m.vae, latents, self.vae_scaling)

@@ -5,13 +5,14 @@ character crops through the CLIP preprocessing, optionally the SEED-X agent
 adapting the character embeddings to the prompt (blended by ``mllm_scale``,
 reference ``scripts/demo/gradio.py:60-109``), the request's latents drawn
 once from its seed, then the pipeline, batched or one sample at a time by the
-auto-batch rule.
+auto-batch rule. ``generate_pil`` gives PIL images; ``warmup`` runs each
+served size once at start.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +40,10 @@ class GenerationRequest:
     ip_scale: Optional[float] = None
     mllm_scale: Optional[float] = None   # only used when an agent is attached
     prompt_ids: Optional[dict] = None    # pre-tokenized prompts (no tokenizer files)
+    # DeepCache: the UNet's deep subtree runs on every N-th denoise step only
+    # (None or 1 exact; 2-3 faster and approximate)
+    deep_cache_interval: Optional[int] = None
+    deep_cache_split: int = 2
 
 
 class DiffSenseiServer:
@@ -121,6 +126,8 @@ class DiffSenseiServer:
             ip_scale=req.ip_scale,
             dialog_bbox=list(req.dialog_bbox)[: manga.max_num_dialogs] or None,
             prompt_ids=req.prompt_ids,
+            deep_cache_interval=req.deep_cache_interval,
+            deep_cache_split=req.deep_cache_split,
         )
         height, width = snap_to_bucket(req.height, req.width)
         lat = self.initial_latents(
@@ -136,3 +143,28 @@ class DiffSenseiServer:
             [pipe(req.prompt, height=height, width=width, num_samples=1,
                   latents=lat[i:i + 1], **kwargs).cpu().numpy()
              for i in range(req.num_samples)], axis=0)
+
+    def generate_pil(self, req: GenerationRequest) -> List[Image.Image]:
+        arr = (self.generate(req) * 255).round().astype(np.uint8)
+        return [Image.fromarray(a) for a in arr]
+
+    def warmup(self, sizes: Sequence[Tuple[int, int]],
+               num_inference_steps: Optional[int] = None,
+               deep_cache_interval: Optional[int] = None, deep_cache_split: int = 2) -> None:
+        """Run one conditioned single-panel request at each ``(H, W)`` before
+        serving, with the knobs production will use, so that the kernels are
+        built and cuDNN's plans and the caching allocator's pools are made off
+        a user's clock (the JAX server compiles its programs here). Its
+        characters and boxes run kernel B5 too. No CUDA graph is captured."""
+        manga = self.pipeline.m.manga
+        prompt_ids = None
+        if self.pipeline.m.tokenizer is None:
+            prompt_ids = {k: np.zeros((1, 77), np.int64)
+                          for k in ("ids", "neg_ids", "ids_2", "neg_ids_2")}
+        for h, w in sizes:
+            self.pipeline("", height=h, width=w, num_inference_steps=num_inference_steps,
+                          generator=torch.Generator().manual_seed(0), prompt_ids=prompt_ids,
+                          deep_cache_interval=deep_cache_interval,
+                          deep_cache_split=deep_cache_split,
+                          ip_pixel_values=torch.zeros((manga.max_num_ips, 224, 224, 3)),
+                          ip_bbox=[[0.0, 0.0, 0.5, 0.5]], dialog_bbox=[[0.1, 0.1, 0.4, 0.3]])

@@ -8,13 +8,14 @@ every kernel wrapper takes its plain twin.
 
 Ported: stages ``t2i`` (1), ``condition`` (2) and ``mllm`` (3: the SEED-X
 agent with LoRA on its LLaMA, ``model.agent``), the presets ``tiny`` and
-``sdxl`` with ``init: random``, per-block remat (``model.remat``) and
-per-layer LLaMA remat (``model.agent.remat``), gradient accumulation,
-checkpoints and resume. Refused with an error rather than ignored: a
-``weights:`` group (the checkpoint loaders of ``utils/load.py``),
-``unet_trained_parameters: lora`` (UNet LoRA adapters), ``param_dtype`` other
-than float32, tokenizer files, a named remat policy, and
-``trainer.parallel: fsdp`` (multi-GPU layouts).
+``sdxl`` with ``init: random``, ``unet_trained_parameters`` ``full``,
+``new``, ``ip`` and ``lora`` (UNet adapters of ``model.lora_rank``),
+per-block remat (``model.remat``) and per-layer LLaMA remat
+(``model.agent.remat``), gradient accumulation, checkpoints and resume.
+Refused with an error rather than ignored: a ``weights:`` group (the
+checkpoint loaders of ``utils/load.py``), ``param_dtype`` other than
+float32, tokenizer files, a named remat policy, and ``trainer.parallel:
+fsdp`` (multi-GPU layouts).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from diffsensei_tpu_torch.data.bucket_dataset import (
     BucketDatasetConfig, MangaTrainSizeBucketDataset)
 from diffsensei_tpu_torch.data.loader import PrefetchLoader
 from diffsensei_tpu_torch.data.mllm_dataset import MangaTrainMLLMDataset, MLLMTokenSpec
+from diffsensei_tpu_torch.models.lora import ensure_lora_init
 from diffsensei_tpu_torch.models.mllm.seed_x import ContinuousLVLM
 from diffsensei_tpu_torch.models.schedulers import DDPMSchedule
 from diffsensei_tpu_torch.pipelines.pipeline import PipelineModules
@@ -61,10 +63,14 @@ def hash_tokenizer(vocab_size: int = 49408, length: int = 77) -> Callable[[str],
 
 def build_models(model_cfg: Dict[str, Any], device="cuda", seed: int = 0) -> PipelineModules:
     """The diffusion stack of the ``model:`` group, random flax-like weights
-    from ``seed``."""
+    from ``seed``. ``unet_trained_parameters: lora`` gives the UNet adapters
+    of ``model.lora_rank`` (the reference's stage-1/2 LoRA mode), which must
+    be positive."""
+    lora_rank = 0
     if model_cfg.get("unet_trained_parameters") == "lora":
-        raise NotImplementedError("unet_trained_parameters: lora needs the LoRA adapters, "
-                                  "which are not ported yet")
+        lora_rank = int(model_cfg.get("lora_rank", 0))
+        if lora_rank <= 0:
+            raise ValueError("unet_trained_parameters: lora requires model.lora_rank > 0")
     if model_cfg.get("param_dtype", "float32") != "float32":
         raise NotImplementedError("param_dtype: only float32 trainables are ported")
     preset = model_cfg.get("preset", "tiny")
@@ -73,9 +79,9 @@ def build_models(model_cfg: Dict[str, Any], device="cuda", seed: int = 0) -> Pip
         raise NotImplementedError(f"init: {init} needs a weights: group, which is not "
                                   "ported yet; use init: random")
     if preset == "tiny":
-        mods = PipelineModules.tiny(device=device, seed=seed)
+        mods = PipelineModules.tiny(device=device, seed=seed, lora_rank=lora_rank)
     elif preset == "sdxl":
-        mods = PipelineModules.sdxl(device=device, seed=seed)
+        mods = PipelineModules.sdxl(device=device, seed=seed, lora_rank=lora_rank)
     else:
         raise ValueError(f"unknown model preset {preset}")
     if model_cfg.get("remat", False):
@@ -162,6 +168,8 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> Tr
 
     mcfg = dict(cfg.get("model", {}))
     modules = build_models(mcfg, device, seed)
+    # a dead (all-zero) adapter never trains: gaussian-init it, as the JAX CLI does
+    ensure_lora_init(modules.unet, seed=seed)
     manga = modules.manga
 
     # data ------------------------------------------------------------------

@@ -148,10 +148,23 @@ def _resnet(sd: StateDict, base: str, node: Dict) -> None:
         _conv(sd, base + "conv_shortcut", node["conv_shortcut"])
 
 
+def _unet_dense(sd: StateDict, name: str, node: Dict) -> None:
+    """A UNet ``LoRADense`` (or ``nn.Dense``): the base as ``_projection``
+    moves it (an int8 ``kernel_q`` stays int8), the bias, and the adapters
+    ``lora_a`` ``[in, r]`` / ``lora_b`` ``[r, out]`` as ``lora_A.weight`` /
+    ``lora_B.weight``."""
+    _projection(sd, name, node)
+    if "bias" in node:
+        sd[f"{name}.bias"] = _a(node["bias"])
+    if "lora_a" in node:
+        sd[f"{name}.lora_A.weight"] = _a(node["lora_a"]).T
+        sd[f"{name}.lora_B.weight"] = _a(node["lora_b"]).T
+
+
 def _transformer(sd: StateDict, base: str, node: Dict, num_layers: int) -> None:
     _norm(sd, base + "norm", node["norm"])
-    _lin(sd, base + "proj_in", node["proj_in"])
-    _lin(sd, base + "proj_out", node["proj_out"])
+    _unet_dense(sd, base + "proj_in", node["proj_in"])
+    _unet_dense(sd, base + "proj_out", node["proj_out"])
     for k in range(num_layers):
         blk = node[f"blocks_{k}"]
         tb = f"{base}transformer_blocks.{k}."
@@ -160,18 +173,21 @@ def _transformer(sd: StateDict, base: str, node: Dict, num_layers: int) -> None:
         for attn in ("attn1", "attn2"):
             a = blk[attn]
             for n in ("to_q", "to_k", "to_v"):
-                _lin(sd, f"{tb}{attn}.{n}", a[n])
-            _lin(sd, f"{tb}{attn}.to_out.0", a["to_out"])
+                _unet_dense(sd, f"{tb}{attn}.{n}", a[n])
+            _unet_dense(sd, f"{tb}{attn}.to_out.0", a["to_out"])
         # the released checkpoints keep the IP projections in the processor
-        _lin(sd, f"{tb}attn2.processor.to_k_ip", blk["attn2"]["to_k_ip"])
-        _lin(sd, f"{tb}attn2.processor.to_v_ip", blk["attn2"]["to_v_ip"])
-        _lin(sd, tb + "ff.net.0.proj", blk["ff"]["proj_in"])
-        _lin(sd, tb + "ff.net.2", blk["ff"]["proj_out"])
+        _unet_dense(sd, f"{tb}attn2.processor.to_k_ip", blk["attn2"]["to_k_ip"])
+        _unet_dense(sd, f"{tb}attn2.processor.to_v_ip", blk["attn2"]["to_v_ip"])
+        _unet_dense(sd, tb + "ff.net.0.proj", blk["ff"]["proj_in"])
+        _unet_dense(sd, tb + "ff.net.2", blk["ff"]["proj_out"])
 
 
 def sdxl_unet(params: Dict, cfg) -> StateDict:
-    """``UNetMangaModel`` tree (rank 0, not quantized) -> diffusers
-    ``UNet2DConditionModel`` names plus ``dialog_bbox_embedding``."""
+    """``UNetMangaModel`` tree -> diffusers ``UNet2DConditionModel`` names
+    plus ``dialog_bbox_embedding``. A tree with LoRA leaves gives the
+    adapters of a ``lora_rank`` UNet; a ``quantize_unet_params`` tree gives
+    the ``quantized=True`` UNet's int8 ``kernel_q`` (load it without a
+    dtype cast) and fp32 ``kernel_scale``."""
     p = params["params"]
     sd: StateDict = {}
     tl = cfg.transformer_layers_per_block

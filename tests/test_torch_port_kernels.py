@@ -554,3 +554,98 @@ def test_dual_cross_attention_rejects_what_it_does_not_take(cuda):
     long = torch.zeros((1, 2, 129, 64), device=cuda).bfloat16()
     with pytest.raises(ValueError):
         tdca.dual_cross_attention(q, kt, vt, long, long, None)               # 129 IP keys
+
+
+def _cut_down_unet(cuda, quantized=False):
+    """SDXL widths and heads, depth cut to one block a level: a 64x64 latent
+    gives 1024 tokens at level 1 (B1) and 256 at level 2."""
+    from diffsensei_tpu_torch.core.config import UNetConfig
+    from diffsensei_tpu_torch.models.unet import UNetMangaModel
+    from diffsensei_tpu_torch.utils.init import init_flax_like_
+
+    cfg = UNetConfig(block_out_channels=(320, 640, 1280), transformer_layers_per_block=(0, 1, 1),
+                     layers_per_block=1, mid_transformer_layers=1)
+    unet = UNetMangaModel(cfg, torch.bfloat16, device=cuda, quantized=quantized)
+    return init_flax_like_(unet, torch.Generator(device=cuda).manual_seed(0)).eval()
+
+
+def _unet_call_inputs(cuda, cfg, lh=64, lw=64):
+    from diffsensei_tpu_torch.models.unet import attention_levels, level_spatial_shape
+    from diffsensei_tpu_torch.ops.masked_ip import build_ip_attention_bias
+
+    m = cfg.manga
+    g = torch.Generator(device=cuda).manual_seed(1)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=cuda)
+    boxes = torch.zeros((2, m.max_num_ips, 4), device=cuda)
+    boxes[1, :2] = torch.tensor([[0.05, 0.1, 0.5, 0.95], [0.5, 0.2, 0.95, 0.9]])
+    args = (rnd(2, lh, lw, 4), torch.full((2,), 400.0, device=cuda),
+            rnd(2, 77, cfg.cross_attention_dim), rnd(2, cfg.pooled_projection_dim),
+            torch.tensor([[512.0, 512, 0, 0, 512, 512]] * 2, device=cuda))
+    kw = dict(ip_hidden_states=rnd(2, m.num_context_image_tokens, cfg.cross_attention_dim),
+              ip_attn_bias={lv: build_ip_attention_bias(
+                  boxes, *level_spatial_shape(cfg, lh, lw, lv), m.num_vision_tokens,
+                  m.num_dummy_tokens) for lv in attention_levels(cfg)},
+              ip_scale=0.6)
+    return args, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [1, 2])
+def test_deep_cache_is_bit_exact_through_the_kernels_on_card(cuda, split):
+    """``forward(x, deep_feature=full(x)[1])`` repeats ``full(x)[0]`` bit for
+    bit with B1, B3 and B5 on the path; the cached call skips the deep
+    subtree's launches."""
+    unet = _cut_down_unet(cuda)
+    args, kw = _unet_call_inputs(cuda, unet.config)
+    counts = lambda: (tfa.launches, tgn.launches, tdca.launches)
+    with torch.inference_mode():
+        c0 = counts()
+        full, deep = unet(*args, **kw, return_deep=True, cache_split=split)
+        c1 = counts()
+        cached = unet(*args, **kw, deep_feature=deep, cache_split=split)
+        again, passed = unet(*args, **kw, deep_feature=deep, cache_split=split,
+                             return_deep=True)
+        c2 = counts()
+        plain = unet(*args, **kw)
+    torch.cuda.synchronize()
+    full_calls = [b - a for a, b in zip(c0, c1)]
+    cached_calls = [(b - a) // 2 for a, b in zip(c1, c2)]
+    # (B1, B3, B5): B1 at level 1's 1024 tokens (3 layers), B3 in 11 resnets,
+    # B5 in all 7 cross-attentions; a cached call at split 2 keeps levels 0 and
+    # 1 (6 resnets, 3 layers), at split 1 level 0 only (3 resnets)
+    assert full_calls == [3, 22, 7]
+    assert cached_calls == ([3, 12, 3] if split == 2 else [0, 6, 0])
+    assert torch.equal(full, cached) and torch.equal(full, again) and torch.equal(full, plain)
+    assert passed is deep
+
+
+@pytest.mark.gpu
+def test_int8_cross_attention_runs_b5_like_its_twin_on_card(cuda):
+    """The int8 ``MangaCrossAttention`` at SDXL level-1 width (640 channels,
+    10 heads, 4096 tokens, CFG batch 2) in bf16 computes both attentions in
+    one B5 launch; the same weights in fp32 take the plain twin."""
+    import copy
+
+    from diffsensei_tpu_torch.core.config import MangaConfig
+    from diffsensei_tpu_torch.models.unet import MangaCrossAttention
+    from diffsensei_tpu_torch.ops.masked_ip import build_ip_attention_bias
+    from diffsensei_tpu_torch.utils.init import init_flax_like_
+
+    m = MangaConfig()
+    attn = MangaCrossAttention(640, 2048, 10, quantized=True, dtype=torch.bfloat16, device=cuda)
+    init_flax_like_(attn, torch.Generator(device=cuda).manual_seed(2)).eval()
+    assert attn.processor.to_k_ip.kernel_q.dtype == torch.int8
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((2, 4096, 640), generator=g, device=cuda)
+    ctx = torch.randn((2, 77, 2048), generator=g, device=cuda)
+    ip = torch.randn((2, m.num_context_image_tokens, 2048), generator=g, device=cuda)
+    boxes = torch.rand((2, m.max_num_ips, 4), generator=g, device=cuda).sort(-1).values
+    bias = build_ip_attention_bias(boxes, 64, 64, m.num_vision_tokens, m.num_dummy_tokens)
+    before = tdca.launches
+    with torch.inference_mode():
+        got = attn(x.bfloat16(), ctx.bfloat16(), ip.bfloat16(), bias, 0.6)
+        want = copy.deepcopy(attn).float()(x, ctx, ip, bias, 0.6)
+    torch.cuda.synchronize()
+    assert tdca.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert ((got.float() - want).abs().max() / want.abs().max()).item() <= 2e-2

@@ -264,8 +264,13 @@ def test_euler_tables_and_step_match_jax(steps):
 
 
 def test_only_euler_is_ported():
-    with pytest.raises(ValueError):
-        tsched.make_sampler("ddim", 10)
+    """Once only Euler was ported; now the JAX package's three kinds are
+    (``test_torch_port_serving_extras.py``), and any other kind raises."""
+    for kind in ("euler_discrete", "ddim", "dpmsolver++"):
+        assert tsched.make_sampler(kind, 10).kind == kind
+    for kind in ("pndm", "euler_ancestral", ""):
+        with pytest.raises(ValueError, match="unknown sampler"):
+            tsched.make_sampler(kind, 10)
 
 
 # ---------------------------------------------------------------------------

@@ -217,9 +217,16 @@ def test_lr_schedules_match_jax(name):
         toptim.make_lr_schedule("reduce_on_plateau", 1.0)
 
 
-@pytest.mark.parametrize("mode", ["full", "new", "ip"])
-def test_unet_trainable_mask_selects_the_jax_set(stacks, mode):
-    jm, tm = stacks
+@pytest.fixture(scope="module")
+def lora_stacks():
+    """``stacks`` with UNet adapters of rank 4 on both sides."""
+    jpipe, tpipe = tiny_pipelines(lora_rank=4)
+    return jpipe.m, tpipe.m
+
+
+@pytest.mark.parametrize("mode", ["full", "new", "ip", "lora"])
+def test_unet_trainable_mask_selects_the_jax_set(request, mode):
+    jm, tm = request.getfixturevalue("lora_stacks" if mode == "lora" else "stacks")
     jmask = jax.tree.leaves(joptim.unet_trainable_mask(jm.unet_params, mode))
     names = port_names(jm.unet_params, lambda t: from_jax.sdxl_unet(t, jm.unet.config))
     want = {name for name, i in names.items() if jmask[i]}
@@ -632,7 +639,7 @@ def test_cli_trains_stage1(tmp_path):
     ("model:\n", "model:\n  param_dtype: bfloat16\n"),
     ("model:\n", "weights: {unet: unet.safetensors}\nmodel:\n"),
     ("trainer:\n", "trainer:\n  parallel: fsdp\n"),
-    ("unet_trained_parameters: new", "unet_trained_parameters: lora"),
+    ("remat: true", "remat: true\n  remat_policy: dots"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, edit):
     cfg = _write_run(tmp_path)
@@ -642,3 +649,17 @@ def test_cli_refuses_what_is_not_ported(tmp_path, edit):
         f.write(text.replace(*edit, 1))
     with pytest.raises(NotImplementedError):
         cli.main(["--config", cfg, "--device", "cpu"])
+
+
+def test_cli_lora_needs_a_rank(tmp_path):
+    """``unet_trained_parameters: lora`` without a positive ``model.lora_rank``
+    would train only the IP projections: refused, as the JAX CLI does."""
+    cfg = _write_run(tmp_path)
+    with open(cfg) as f:
+        text = f.read()
+    for rank in ("", "\n  lora_rank: 0"):
+        with open(cfg, "w") as f:
+            f.write(text.replace("unet_trained_parameters: new",
+                                 "unet_trained_parameters: lora" + rank))
+        with pytest.raises(ValueError, match="lora_rank"):
+            cli.main(["--config", cfg, "--device", "cpu"])

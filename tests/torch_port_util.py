@@ -99,9 +99,10 @@ def agents(cfg, seed=0, quantized=False):
     return jagent, tagent
 
 
-def tiny_pipelines():
+def tiny_pipelines(lora_rank=0):
     """(JAX pipeline, port pipeline on the CPU) of the tiny configs, with the
-    same random weights: JAX trees carried across by ``from_jax``."""
+    same random weights: JAX trees carried across by ``from_jax``; UNet
+    adapters of ``lora_rank`` (random, nonzero A and B) on both sides."""
     import jax.numpy as jnp
 
     from diffsensei_tpu.models.resampler import Resampler as JResampler
@@ -117,7 +118,7 @@ def tiny_pipelines():
     manga = cfgs["unet"].manga
     ids = jnp.zeros((1, 77), jnp.int32)
     img = jnp.zeros((1, 224, 224, 3))
-    ucfg = cfgs["unet"]
+    ucfg = cfgs["unet"] = dataclasses.replace(cfgs["unet"], lora_rank=lora_rank)
     jm = jpipeline.PipelineModules(
         unet=JUNet(ucfg), vae=JVAE(cfgs["vae"]),
         text_encoder=JText(cfgs["text_encoder"]), text_encoder_2=JText(cfgs["text_encoder_2"]),
@@ -142,7 +143,7 @@ def tiny_pipelines():
                                  rcfg.embedding_dim)),
         jnp.zeros((1, manga.max_num_ips, rcfg.magi_embedding_dim)), seed=7)
 
-    tm = tpipeline.PipelineModules.tiny(device="cpu")
+    tm = tpipeline.PipelineModules.tiny(device="cpu", lora_rank=lora_rank)
     sds = {
         "unet": from_jax.sdxl_unet(jm.unet_params, ucfg),
         "text_encoder": from_jax.clip_text(jm.text_encoder_params,
