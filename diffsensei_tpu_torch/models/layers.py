@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from diffsensei_tpu_torch.ops.groupnorm import groupnorm_silu
+from diffsensei_tpu_torch.ops.groupnorm import groupnorm_silu, groupnorm_silu_ref, kernel_takes
 
 
 def _cast(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
@@ -98,7 +98,10 @@ class GroupNorm(nn.GroupNorm):
 class FusedGroupNormSiLU(nn.Module):
     """GroupNorm + SiLU through kernel B3 (``ops/groupnorm.py``); the
     parameter names are ``nn.GroupNorm``'s. Kernel and twin read the scale
-    and shift in fp32 whatever their dtype, so they need no cast."""
+    and shift in fp32 whatever their dtype, so they need no cast. A CUDA
+    input the kernel does not take (``kernel_takes``: a dtype other than bf16
+    or fp32, a shape ``plan`` rejects) runs the twin, as the JAX entry
+    does; the choice is made before any launch."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
                  dtype=None, device=None):
@@ -109,8 +112,11 @@ class FusedGroupNormSiLU(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels, dtype=dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return groupnorm_silu(x.contiguous(), self.weight, self.bias,
-                              self.num_groups, self.eps)
+        x = x.contiguous()
+        if x.device.type == "cuda" and not kernel_takes(x, self.weight, self.bias,
+                                                         self.num_groups):
+            return groupnorm_silu_ref(x, self.weight, self.bias, self.num_groups, self.eps)
+        return groupnorm_silu(x, self.weight, self.bias, self.num_groups, self.eps)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,

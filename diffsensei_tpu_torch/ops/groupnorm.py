@@ -16,7 +16,8 @@ normalize; x is read twice). See the source for the design.
 
 ``groupnorm_silu`` runs the kernel for CUDA tensors and the plain twin
 ``groupnorm_silu_ref`` for CPU tensors; any other device, or a CUDA input the
-kernel does not take, raises. ``launches`` counts wrapper calls that launched
+kernel does not take, raises. ``kernel_takes`` says which inputs those are,
+without raising: the model layer sends them to the twin. ``launches`` counts wrapper calls that launched
 the kernel, ``calls`` the same by ``(shape, dtype name)``. When an input
 requires a gradient the call goes through ``GroupNormSiLUFn``, whose backward
 recomputes the twin and takes its VJP, as the JAX ``_fused_bwd``
@@ -45,6 +46,7 @@ SMEM_MAX = 232_448       # dynamic shared memory a block may use on the H100
 EXTRA_BYTES = (2 * THREADS * 8 + THREADS + 3 * MAX_GROUPS) * 4
 SLAB_MAX = SMEM_MAX - EXTRA_BYTES    # a resident block's slab
 MIN_SLAB_BYTES = 32768   # a sample is not cut into slabs smaller than this
+MAX_BATCH = 65535        # samples a call (csrc: the grid's z extent)
 
 launches = 0
 calls: collections.Counter = collections.Counter()
@@ -77,19 +79,28 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-@functools.lru_cache(maxsize=None)
 def plan(shape: Tuple[int, int, int, int], dtype: torch.dtype, num_groups: int,
          sms: int = SMS) -> Plan:
     """The kernel's plan for NHWC ``shape`` of ``dtype`` (bf16 or fp32) on a
     card of ``sms`` SMs: resident wherever x fits in the shared memory of a
     grid of one block an SM, else streaming. Raises what the kernel does not
     take."""
+    p = _plan(tuple(shape), dtype, num_groups, sms)
+    if isinstance(p, str):
+        raise ValueError(p)
+    return p
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(shape: Tuple[int, int, int, int], dtype: torch.dtype, num_groups: int,
+          sms: int) -> Plan | str:
+    """``plan``'s work: the plan, or why the kernel does not take the shape."""
     b, h, w, c = shape
     hw = h * w
     if dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"groupnorm_silu: no kernel for {dtype}")
-    if b < 1 or hw < 1 or num_groups < 1 or c % num_groups:
-        raise ValueError(f"groupnorm_silu: {c} channels, {num_groups} groups, shape {shape}")
+        return f"groupnorm_silu: no kernel for {dtype}"
+    if b < 1 or b > MAX_BATCH or hw < 1 or num_groups < 1 or c % num_groups:
+        return f"groupnorm_silu: {c} channels, {num_groups} groups, shape {shape}"
     es = 2 if dtype == torch.bfloat16 else 4
     cg, row = c // num_groups, c * es
     # four values a thread first (8-byte bf16 vectors measured 3-10% faster
@@ -117,8 +128,26 @@ def plan(shape: Tuple[int, int, int, int], dtype: torch.dtype, num_groups: int,
             slabs = max(1, min(hw, sms // (b * strips)))
             return Plan("streaming", v, ng, strips, slabs, _ceil(hw, slabs), 0,
                         b * strips * slabs, 2, b * strips * slabs * ng * 4)
-    raise ValueError(f"groupnorm_silu: no kernel for {c} channels of {dtype} in "
-                     f"{num_groups} groups")
+    return f"groupnorm_silu: no kernel for {c} channels of {dtype} in {num_groups} groups"
+
+
+def kernel_takes(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                 num_groups: int) -> bool:
+    """Whether the CUDA kernel takes these inputs: every check of the
+    launching wrapper, made from dtypes, shapes and addresses alone, without
+    raising. ``FusedGroupNormSiLU`` sends the rest to the plain twin, as the
+    JAX entry does (``diffsensei_tpu/ops/groupnorm.py:120``). It reads no
+    device state but the card's SM count, so it answers for CPU tensors too
+    (as if they were on an H100)."""
+    if x.dim() != 4 or not x.is_contiguous() or x.dtype not in (torch.bfloat16, torch.float32):
+        return False
+    c = x.shape[-1]
+    if any(t.device != x.device or tuple(t.shape) != (c,) or not t.is_contiguous()
+           or t.dtype not in (torch.bfloat16, torch.float32) for t in (scale, bias)):
+        return False
+    sms = _sms(x.device.index) if x.device.type == "cuda" else SMS
+    p = _plan(tuple(x.shape), x.dtype, num_groups, sms)
+    return not isinstance(p, str) and x.data_ptr() % p.vec == 0
 
 
 def groupnorm_silu_ref(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

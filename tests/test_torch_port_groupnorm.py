@@ -73,6 +73,60 @@ def test_plan_covers_every_path_shape(shape, dtype_name):
         assert strip_bytes // p.vec <= tgn.THREADS and p.smem_bytes == 0
 
 
+def _misaligned(shape, dtype):
+    """A contiguous tensor of ``shape`` one element past an aligned start."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+# (name, x, scale dtype, bias dtype, groups): inputs the kernel does not take
+GN_TWIN_CASES = [
+    ("float16_x", lambda: torch.zeros(1, 8, 8, 64, dtype=torch.float16), None, None, 32),
+    ("float64_x", lambda: torch.zeros(1, 8, 8, 64, dtype=torch.float64), None, None, 32),
+    ("float16_scale", lambda: torch.zeros(1, 8, 8, 64), torch.float16, None, 32),
+    ("float16_bias", lambda: torch.zeros(1, 8, 8, 64), None, torch.float16, 32),
+    ("odd_bf16_channels", lambda: torch.zeros(1, 8, 8, 33, dtype=torch.bfloat16), None, None, 3),
+    ("group_over_8kb", lambda: torch.zeros(1, 2, 2, 4160), None, None, 2),
+    ("batch_over_65535", lambda: torch.zeros(65536, 1, 1, 32), None, None, 32),
+    ("misaligned_x", lambda: _misaligned((1, 4, 4, 64), torch.bfloat16), None, None, 32),
+]
+
+
+@pytest.mark.parametrize("name,make_x,scale_dtype,bias_dtype,groups", GN_TWIN_CASES,
+                         ids=[c[0] for c in GN_TWIN_CASES])
+def test_layer_routes_what_the_kernel_does_not_take_to_the_twin(
+        monkeypatch, name, make_x, scale_dtype, bias_dtype, groups):
+    """``kernel_takes`` refuses each input ``plan`` or the dtype checks
+    reject, from dtypes, shapes and addresses alone, and ``FusedGroupNormSiLU``
+    then computes the twin's result (as the JAX entry runs its plain path)."""
+    x = make_x()
+    c = x.shape[-1]
+    layer = layers.FusedGroupNormSiLU(groups, c)
+    with torch.no_grad():
+        layer.weight.copy_(torch.linspace(0.5, 1.5, c))
+        layer.bias.copy_(torch.linspace(-0.2, 0.2, c))
+    pdt = x.dtype if x.dtype in (torch.bfloat16, torch.float32) else torch.float32
+    layer.weight.data = layer.weight.data.to(scale_dtype or pdt)
+    layer.bias.data = layer.bias.data.to(bias_dtype or pdt)
+    x.copy_(torch.linspace(-1, 1, x.numel()).view(x.shape))   # in place: keeps the address
+    assert not tgn.kernel_takes(x, layer.weight, layer.bias, groups)
+    with torch.no_grad():
+        got = layer(x)
+        want = tgn.groupnorm_silu_ref(x, layer.weight, layer.bias, groups, layer.eps)
+    assert got.dtype == x.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,dtype_name", sorted({(c[0], c[1]) for c in chip_smoke.GN_CASES}),
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_kernel_takes_every_path_shape(shape, dtype_name):
+    """Every shape the served and trained paths launch stays on the kernel,
+    with the bf16 UNet's and the fp32 VAE's parameter dtypes."""
+    dtype = getattr(torch, dtype_name)
+    x = torch.empty(shape, dtype=dtype, device="meta")
+    p = torch.empty(shape[-1], dtype=dtype, device="meta")
+    assert tgn.kernel_takes(x, p, p.float(), 32)
+
+
 def test_plan_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         tgn.plan((1, 8, 8, 64), torch.float16, 32)

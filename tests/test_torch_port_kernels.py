@@ -358,6 +358,35 @@ def test_groupnorm_rejects_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,groups", [
+    ((2, 32, 32, 320), torch.float16, 32),     # a float16 UNet's ResnetBlock
+    ((1, 8, 8, 33), torch.bfloat16, 3),        # odd bf16 rows: plan has no vector width
+    ((1, 2, 2, 4160), torch.float32, 2),       # a group wider than 8 KB
+])
+def test_groupnorm_layer_runs_the_twin_for_what_the_kernel_does_not_take(cuda, shape, dtype,
+                                                                          groups):
+    """``FusedGroupNormSiLU`` on the card: an input the kernel does not take
+    gives the twin's result and launches nothing; a bf16 input it takes still
+    launches once."""
+    from diffsensei_tpu_torch.models.layers import FusedGroupNormSiLU
+
+    layer = FusedGroupNormSiLU(groups, shape[-1], dtype=dtype, device=cuda)
+    x, scale, bias = _gn_inputs(cuda, shape, dtype)
+    with torch.no_grad():
+        layer.weight.copy_(scale)
+        layer.bias.copy_(bias)
+        before = tgn.launches
+        got = layer(x)
+        torch.cuda.synchronize()
+        assert tgn.launches == before
+        assert got.dtype == dtype and torch.equal(got, tgn.groupnorm_silu_ref(x, scale, bias,
+                                                                            groups))
+        if dtype == torch.float16:      # the same layer in bf16 runs the kernel
+            layer.bfloat16()(x.bfloat16())
+            assert tgn.launches == before + 1
+
+
+@pytest.mark.gpu
 def test_dispatcher_sends_long_bf16_attention_to_the_kernel(cuda):
     q = torch.randn(1, 2, 1024, 64, device=cuda).bfloat16()
     short = torch.randn(1, 2, 77, 64, device=cuda).bfloat16()
