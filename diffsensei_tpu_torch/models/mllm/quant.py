@@ -3,9 +3,12 @@
 
 The tree functions are the JAX package's numpy host code, copied: they take
 and return nested dicts in the JAX layout (``.../base/kernel``, ``lm_head``)
-and give the same bytes. ``quantize_agent`` does the same arithmetic on the
-port's ``ContinuousLVLM``: LoRA merged into each projection, then every
+and give the same bytes. ``quantize_llm_state`` does the same arithmetic on
+the port's LLM state dict: LoRA merged into each projection, then every
 projection and ``lm_head`` quantized; embeddings and norms stay as they are.
+``quantize_agent`` applies it to an agent on its device;
+``quantize_agent_on_host`` to a checkpoint on the host, for an agent built on
+the meta device, so that only the quantized LLM reaches the card.
 
 * int8: per output channel, symmetric, ``scale = max|w[:, j]| / 127``.
 * int4: group-wise symmetric (``g = gcd(128, in)``), range +-7, output
@@ -17,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,41 +108,77 @@ def quantize_llm_params(params: Any, bits: int = 8) -> Any:
     return walk(params)
 
 
+def quantize_llm_state(state: Mapping[str, torch.Tensor], bits: int = 8,
+                       alpha: Optional[float] = None) -> Dict[str, torch.Tensor]:
+    """A float LLM's state dict (the port's names, adapters included, any
+    device) -> the state dict of the quantized, LoRA-free LLM on the host:
+    each projection's adapters merged in fp32 and rounded to its weight's
+    dtype, then ``.base.weight`` / ``lm_head.weight`` quantized to
+    ``.kernel_q`` / ``.kernel_scale``; embeddings and norms pass through."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    host = lambda t: t.detach().float().cpu().numpy()
+    out = {}
+    for key, value in state.items():
+        if ".lora_" in key:
+            continue
+        if not (key.endswith(".base.weight") or key == "lm_head.weight"):
+            out[key] = value
+            continue
+        owner = key.removesuffix(".weight")
+        kern = host(value).T
+        adapter = owner.removesuffix(".base")
+        if f"{adapter}.lora_A.weight" in state and owner != "lm_head":
+            merged = _merge(kern, host(state[f"{adapter}.lora_A.weight"]).T,
+                            host(state[f"{adapter}.lora_B.weight"]).T, alpha)
+            # round to the weight's dtype, as the JAX tree's astype does
+            kern = torch.from_numpy(merged).to(value.dtype).float().numpy()
+        for name, q in _quantize(kern, bits).items():
+            out[f"{owner}.{name}"] = torch.from_numpy(q)
+    return out
+
+
+def _quantized_llm(config, bits: int, dtype):
+    from diffsensei_tpu_torch.models.mllm.llama import LlamaForCausalLM
+
+    with torch.device("meta"):
+        return LlamaForCausalLM(config, quantized="int4" if bits == 4 else "int8", dtype=dtype)
+
+
 @torch.no_grad()
 def quantize_agent(agent, alpha: Optional[float] = None, bits: int = 8):
     """``ContinuousLVLM`` -> the same agent with a quantized, LoRA-free LLM
     (``bits=8`` int8 per channel, ``bits=4`` group-wise int4), on the same
     device and in the same dtype. The resamplers are shared, not copied."""
-    from diffsensei_tpu_torch.models.mllm.llama import LlamaForCausalLM, LoRADense
-
-    if bits not in (4, 8):
-        raise ValueError(f"bits must be 4 or 8, got {bits}")
     src = agent.llm
     if src.quantized:
         raise ValueError("the agent's LLM is already quantized")
-    host = lambda t: t.detach().float().cpu().numpy()
-    # projection weights by the name of their base (``...q_proj.base``, ``lm_head``)
-    dense = {f"{name}.base": mod for name, mod in src.named_modules()
-             if isinstance(mod, LoRADense)}
-    dense["lm_head"] = src.lm_head
-    state = {}
-    for key, value in src.state_dict().items():
-        owner = key.rsplit(".", 1)[0]
-        if owner not in dense and ".lora_" not in key:
-            state[key] = value            # embeddings and norms pass through
-    for name, mod in dense.items():
-        lin = mod.base if isinstance(mod, LoRADense) else mod
-        kern = host(lin.weight).T
-        if isinstance(mod, LoRADense) and mod.lora_rank:
-            merged = _merge(kern, host(mod.lora_A.weight).T, host(mod.lora_B.weight).T, alpha)
-            # round to the weight's dtype, as the JAX tree's astype does
-            kern = torch.from_numpy(merged).to(lin.weight.dtype).float().numpy()
-        for key, value in _quantize(kern, bits).items():
-            state[f"{name}.{key}"] = torch.from_numpy(value)
-    device = src.lm_head.weight.device
-    with torch.device("meta"):
-        qllm = LlamaForCausalLM(src.config, quantized="int4" if bits == 4 else "int8",
-                                dtype=src.dtype)
-    qllm.to_empty(device=device).load_state_dict(state)
+    state = quantize_llm_state(src.state_dict(), bits, alpha)
+    qllm = _quantized_llm(src.config, bits, src.dtype)
+    qllm.to_empty(device=src.lm_head.weight.device).load_state_dict(state)
     qllm.eval().requires_grad_(False)
+    return dataclasses.replace(agent, llm=qllm)
+
+
+@torch.no_grad()
+def quantize_agent_on_host(agent, entries: Mapping[str, Mapping[str, torch.Tensor]],
+                           bits: int = 8, device="cuda", alpha: Optional[float] = None):
+    """The serve CLI's ``--quantize-llm`` load: ``agent`` built on the meta
+    device and its checkpoint's state dicts (``utils.load.agent_entries``,
+    host tensors) -> the agent with the quantized LLM and both resamplers on
+    ``device``. The float LLM is cast to the agent's dtype and quantized on
+    the host, so it never reaches the card; the bytes are ``quantize_agent``'s
+    for the same weights. A checkpoint without a resampler group raises."""
+    from diffsensei_tpu_torch.utils.load import assign
+
+    for name in ("llm", "input_resampler", "output_resampler"):
+        if name not in entries:
+            raise ValueError(f"--quantize-llm: the agent checkpoint is missing the {name} group")
+    llm = agent.llm
+    state = quantize_llm_state({k: v.to(llm.dtype) for k, v in entries["llm"].items()},
+                               bits, alpha)
+    qllm = _quantized_llm(llm.config, bits, llm.dtype)
+    assign(qllm, state, device, "llm")
+    for name in ("input_resampler", "output_resampler"):
+        assign(getattr(agent, name), entries[name], device, name)
     return dataclasses.replace(agent, llm=qllm)

@@ -68,9 +68,11 @@ class ContinuousLVLM:
     @classmethod
     def build(cls, config: AgentConfig, dtype: torch.dtype = torch.float32,
               lora_rank: Optional[int] = None, quantized=False, device="cuda",
-              seed: int = 0, remat: bool = False) -> "ContinuousLVLM":
+              seed: int = 0, remat: bool = False, init: str = "random") -> "ContinuousLVLM":
         """Random flax-like weights drawn on ``device`` from ``seed``, every
-        parameter frozen.
+        parameter frozen; ``init="none"`` leaves the modules on the meta
+        device for a checkpoint loader (``utils.load.load_agent_weights``,
+        ``quant.quantize_agent_on_host``).
 
         ``quantized`` ("int8"/True or "int4") builds the weight-only quantized
         serving LLM without LoRA; real weights come through
@@ -90,9 +92,13 @@ class ContinuousLVLM:
                                          dtype=dtype),
                         QwenResampler(config.input_resampler, dtype=dtype),
                         QwenResampler(config.output_resampler, dtype=dtype))
-        gen = torch.Generator(device=device).manual_seed(seed)
+        if init not in ("random", "none"):
+            raise ValueError(f"init must be 'random' or 'none', got {init!r}")
+        gen = torch.Generator(device=device).manual_seed(seed) if init == "random" else None
         for mod in agent.networks():
-            init_flax_like_(mod.to_empty(device=device), gen).eval().requires_grad_(False)
+            if gen is not None:
+                init_flax_like_(mod.to_empty(device=device), gen)
+            mod.eval().requires_grad_(False)
         agent.llm.remat = remat
         return agent
 

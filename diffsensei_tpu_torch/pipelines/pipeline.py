@@ -83,6 +83,9 @@ class PipelineModules:
     resampler: Optional[Resampler] = None
     tokenizer: Any = None      # callable(str, ...) like an HF tokenizer, or None
     tokenizer_2: Any = None
+    device: Optional[torch.device] = None   # where the builder put (or will put) the weights
+
+    INITS = ("random", "zeros", "none")
 
     @property
     def manga(self) -> MangaConfig:
@@ -90,9 +93,16 @@ class PipelineModules:
 
     @classmethod
     def build(cls, configs: Dict[str, Any], dtype: torch.dtype = torch.float32,
-              device="cuda", seed: int = 0) -> "PipelineModules":
-        """Modules for ``configs`` with flax-like random weights drawn on
-        ``device`` from ``seed``. The VAE is always fp32."""
+              device="cuda", seed: int = 0, init: str = "random",
+              channels_last: bool = False) -> "PipelineModules":
+        """Modules for ``configs`` on ``device``; the VAE is always fp32.
+        ``init``: "random" draws flax-like weights from ``seed``; "zeros"
+        fills every parameter with zeros (the JAX ``init="zeros"``); "none"
+        leaves the modules on the meta device for a checkpoint loader
+        (``utils/load.py``), then ``fill_missing_params``. ``channels_last``
+        lays the UNet's and the VAE's conv weights out for NHWC inputs."""
+        if init not in cls.INITS:
+            raise ValueError(f"init must be one of {cls.INITS}, got {init!r}")
         device = torch.device(device)
         with torch.device("meta"):
             mods = cls(
@@ -102,33 +112,56 @@ class PipelineModules:
                 text_encoder_2=CLIPTextEncoder(configs["text_encoder_2"], dtype),
                 image_encoder=VisionTransformer(configs["image_encoder"], dtype),
                 magi_encoder=VisionTransformer(configs["magi_encoder"], dtype),
-                resampler=Resampler(configs["resampler"], dtype))
-        gen = torch.Generator(device=device).manual_seed(seed)
+                resampler=Resampler(configs["resampler"], dtype), device=device)
+        if init == "random":
+            gen = torch.Generator(device=device).manual_seed(seed)
+            for mod in mods.networks().values():
+                init_flax_like_(mod.to_empty(device=device), gen)
+        if channels_last:
+            for mod in (mods.unet, mods.vae):
+                mod.to(memory_format=torch.channels_last)
         for mod in mods.networks().values():
-            init_flax_like_(mod.to_empty(device=device), gen).eval()
-            mod.requires_grad_(False)
+            mod.eval().requires_grad_(False)
+        if init == "zeros":
+            mods.fill_missing_params()
         return mods
 
     @classmethod
-    def tiny(cls, device="cuda", seed: int = 0, lora_rank: int = 0) -> "PipelineModules":
+    def tiny(cls, device="cuda", seed: int = 0, lora_rank: int = 0,
+             init: str = "random") -> "PipelineModules":
         """The tiny stack of the JAX ``PipelineModules.tiny`` configs (the CPU
         tests pass ``device="cpu"``), UNet adapters of ``lora_rank``."""
         cfgs = tiny_configs()
         cfgs["unet"] = dataclasses.replace(cfgs["unet"], lora_rank=lora_rank)
-        return cls.build(cfgs, torch.float32, device, seed)
+        return cls.build(cfgs, torch.float32, device, seed, init)
 
     @classmethod
-    def sdxl(cls, device="cuda", seed: int = 0, lora_rank: int = 0) -> "PipelineModules":
+    def sdxl(cls, device="cuda", seed: int = 0, lora_rank: int = 0,
+             init: str = "random") -> "PipelineModules":
         """Full-width stack: SDXL UNet with the manga modules and the
         encoders in bf16, fp32 VAE (CLIP-L + OpenCLIP-bigG, CLIP ViT-H + Magi
-        ViTMAE, the DiffSensei Resampler); random weights from ``seed``; UNet
-        adapters of ``lora_rank``."""
+        ViTMAE, the DiffSensei Resampler); weights by ``init`` (random from
+        ``seed`` by default; the JAX builder's default is zeros); UNet
+        adapters of ``lora_rank``; the UNet's and VAE's conv weights
+        ``channels_last``."""
         cfgs = sdxl_configs()
         cfgs["unet"] = dataclasses.replace(cfgs["unet"], lora_rank=lora_rank)
-        mods = cls.build(cfgs, torch.bfloat16, device, seed)
-        for mod in (mods.unet, mods.vae):
-            mod.to(memory_format=torch.channels_last)  # conv weights for NHWC inputs
-        return mods
+        return cls.build(cfgs, torch.bfloat16, device, seed, init, channels_last=True)
+
+    def fill_missing_params(self, device=None) -> None:
+        """Zero-fill every parameter still on the meta device, on ``device``
+        (default the builder's), in its dtype and layout; loaded weights stay
+        (the JAX ``fill_missing_params``, which zero-fills the components
+        whose trees are still ``None``)."""
+        device = torch.device(device) if device is not None else self.device
+        for mod in self.networks().values():
+            current = mod.state_dict(keep_vars=True)
+            zeros = {name: torch.empty_strided(p.shape, p.stride(), dtype=p.dtype,
+                                               device=device).zero_()
+                     for name, p in current.items() if p.is_meta}
+            if zeros:
+                mod.load_state_dict(zeros, strict=len(zeros) == len(current), assign=True)
+                mod.eval().requires_grad_(False)
 
     def networks(self) -> Dict[str, torch.nn.Module]:
         """The stages' modules by field name (absent ones left out)."""
@@ -214,9 +247,13 @@ class DiffSenseiPipeline:
         return self._ids(out["input_ids"])
 
     def encode_prompt(self, prompt: str, negative_prompt: str = "", ids=None,
-                      neg_ids=None, ids_2=None, neg_ids_2=None
+                      neg_ids=None, ids_2=None, neg_ids_2=None,
+                      prompt_2: Optional[str] = None,
+                      negative_prompt_2: Optional[str] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns ``(ctx [2, 77, D_cross], pooled [2, P])``, row 0 negative."""
+        """Returns ``(ctx [2, 77, D_cross], pooled [2, P])``, row 0 negative.
+        ``prompt_2`` / ``negative_prompt_2`` go to the second (OpenCLIP-bigG)
+        encoder (the SDXL dual prompt); they default to the primary ones."""
         m = self.m
         if ids is None:
             ids = self._tokenize(m.tokenizer, prompt)
@@ -226,8 +263,9 @@ class DiffSenseiPipeline:
                 ids_2, neg_ids_2 = ids, neg_ids
             else:
                 tok2 = m.tokenizer_2 or m.tokenizer
-                ids_2 = self._tokenize(tok2, prompt)
-                neg_ids_2 = self._tokenize(tok2, negative_prompt)
+                ids_2 = self._tokenize(tok2, prompt if prompt_2 is None else prompt_2)
+                neg_ids_2 = self._tokenize(tok2, negative_prompt if negative_prompt_2 is None
+                                           else negative_prompt_2)
         both = torch.cat([self._ids(neg_ids), self._ids(ids)], dim=0)
         both_2 = torch.cat([self._ids(neg_ids_2), self._ids(ids_2)], dim=0)
         h1, _ = m.text_encoder(both)
@@ -324,10 +362,12 @@ class DiffSenseiPipeline:
                 cfg_pad(dialog_bbox, manga.max_num_dialogs))
 
     @torch.inference_mode()
-    def __call__(self, prompt: str = "", *, height: int = 1024, width: int = 1024,
+    def __call__(self, prompt: str = "", *, prompt_2: Optional[str] = None,
+                 height: int = 1024, width: int = 1024,
                  num_inference_steps: Optional[int] = None,
                  guidance_scale: Optional[float] = None,
                  negative_prompt: Optional[str] = None,
+                 negative_prompt_2: Optional[str] = None,
                  original_size: Optional[Tuple[int, int]] = None,
                  crops_coords_top_left: Tuple[int, int] = (0, 0),
                  target_size: Optional[Tuple[int, int]] = None,
@@ -349,7 +389,9 @@ class DiffSenseiPipeline:
         replacing the ``generator`` draw (the diffusers ``latents=`` surface),
         so a caller can split a request across calls, or feed two
         implementations the same draw. ``callback(i, latents)`` sees the
-        latents after every denoising step. ``ip_image_embeds``
+        latents after every denoising step. ``prompt_2`` /
+        ``negative_prompt_2`` feed the second text encoder (default: the
+        primary prompts). ``ip_image_embeds``
         ``[n, V, D_cross]`` are pasted over the encoded characters.
         ``deep_cache_interval=N`` (opt-in) recomputes the UNet's deep subtree
         (levels >= ``deep_cache_split`` and the mid block) on every N-th step
@@ -370,7 +412,9 @@ class DiffSenseiPipeline:
             height, width = snap_to_bucket(height, width)
         lh, lw = height // self.latent_scale, width // self.latent_scale
 
-        ctx, pooled = self.encode_prompt(prompt, neg, **(prompt_ids or {}))
+        ctx, pooled = self.encode_prompt(prompt, neg, prompt_2=prompt_2,
+                                         negative_prompt_2=negative_prompt_2,
+                                         **(prompt_ids or {}))
 
         use_ip = ((ip_pixel_values is not None or ip_image_embeds is not None)
                   and m.resampler is not None)

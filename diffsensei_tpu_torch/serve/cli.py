@@ -1,18 +1,25 @@
 """Headless generation from the command line (port of
 ``diffsensei_tpu/serve/cli.py``):
 
-  python -m diffsensei_tpu_torch.serve.cli --preset sdxl --prompt "a young man" \\
-      --scheduler dpmsolver++ --steps 12 --deep-cache 2 --quantize-unet \\
+  python -m diffsensei_tpu_torch.serve.cli --preset sdxl --weights <artifact dir> \\
+      --tokenizer <clip tokenizer dir> --tokenizer-2 <second tokenizer dir> \\
+      --prompt "a young man" --scheduler dpmsolver++ --steps 12 --deep-cache 2 \\
       --char-image hero.png --ip-bbox 0,0,0.5,1 --out panel.png
 
-It runs on the card unless ``--device cpu`` asks for the CPU. The stack has
-random flax-like weights from seed 0 (``PipelineModules.tiny`` / ``sdxl``):
-no checkpoint or tokenizer files are loaded yet, so prompts become token ids
-by the train CLI's CRC-32 word hashing. The flags that need the weight
-loaders, tokenizer files, the SEED-X agent's checkpoint or several cards
-(``--weights``, ``--tokenizer``, ``--tokenizer-2``, ``--agent-weights``,
-``--mllm-tokenizer``, ``--quantize-llm``, ``--quantize-llm-bits``,
-``--context-parallel``) raise ``NotImplementedError``.
+It runs on the card unless ``--device cpu`` asks for the CPU. ``--weights``
+takes what ``utils.load.load_weights_any`` takes: a YAML file of component
+paths, a released artifact directory (``image_generator/...``) or a file of
+the train CLI's ``export_weights``. Under ``--preset sdxl`` the stack is built
+on the meta device, loaded, and whatever no checkpoint covered is zeros (with
+no ``--weights`` at all, everything: a warning says so); ``--preset tiny``
+starts from random weights of seed 0. ``--tokenizer`` / ``--tokenizer-2``
+are CLIP tokenizer directories (``vocab.json``, ``merges.txt``); without
+them prompts become ids by the train CLI's CRC-32 word hashing.
+``--agent-weights`` loads the SEED-X agent; with ``--quantize-llm`` its
+checkpoint is quantized on the host (``--quantize-llm-bits`` 8 or 4) and only
+the quantized LLM and the resamplers reach the card. ``--mllm-tokenizer``
+(ROADMAP A5: it needs sentencepiece) and ``--context-parallel`` (A11) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,9 +30,7 @@ import os
 from typing import List, Sequence
 
 # flag -> the ROADMAP item (queue A) that ports what it needs
-NOT_PORTED = {"weights": "A5", "tokenizer": "A5", "tokenizer_2": "A5", "agent_weights": "A5",
-              "mllm_tokenizer": "A5", "quantize_llm": "A5", "quantize_llm_bits": "A5",
-              "context_parallel": "A11"}
+NOT_PORTED = {"mllm_tokenizer": "A5", "context_parallel": "A11"}
 
 
 def parse_bbox(values: Sequence[str]) -> List[List[float]]:
@@ -43,12 +48,22 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--preset", default="tiny", choices=["tiny", "sdxl"])
     parser.add_argument("--device", default="cuda",
                         help="torch device; the card unless 'cpu' is asked for")
-    for flag in ("--weights", "--tokenizer", "--tokenizer-2", "--agent-weights",
-                 "--mllm-tokenizer"):
-        parser.add_argument(flag, default=None, help="not ported yet")
-    parser.add_argument("--quantize-llm", action="store_true", help="not ported yet")
-    parser.add_argument("--quantize-llm-bits", type=int, default=None, choices=[4, 8],
-                        help="not ported yet")
+    parser.add_argument("--weights", default=None,
+                        help="a YAML file of component checkpoint paths, a released "
+                             "artifact directory (image_generator/...) or a file of "
+                             "train.checkpoint.export_weights")
+    parser.add_argument("--tokenizer", default=None,
+                        help="CLIP tokenizer directory (vocab.json, merges.txt); hashed ids "
+                             "without one")
+    parser.add_argument("--tokenizer-2", default=None,
+                        help="the second text encoder's tokenizer (default --tokenizer)")
+    parser.add_argument("--agent-weights", default=None,
+                        help="ContinuousLVLM checkpoint (mllm/agent/pytorch_model.bin layout)")
+    parser.add_argument("--mllm-tokenizer", default=None, help="not ported yet")
+    parser.add_argument("--quantize-llm", action="store_true",
+                        help="quantize the agent's LLM on the host (weight-only)")
+    parser.add_argument("--quantize-llm-bits", type=int, default=8, choices=[4, 8],
+                        help="8: per-channel int8; 4: group-wise int4")
     parser.add_argument("--context-parallel", action="store_true", help="not ported yet")
     parser.add_argument("--quantize-unet", action="store_true",
                         help="serve the UNet's transformer matmuls as weight-only int8")
@@ -80,6 +95,28 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def load_agent(args, modules, device):
+    """The SEED-X agent of ``--agent-weights`` in the UNet's dtype:
+    ``AgentConfig()`` for ``--preset sdxl``, ``AgentConfig.tiny()`` for tiny.
+    With ``--quantize-llm`` it is built on the meta device and its checkpoint
+    quantized on the host; else built with random weights of seed 1 and
+    overlaid by the checkpoint's groups, as the JAX CLI does."""
+    from diffsensei_tpu_torch.core.config import AgentConfig
+    from diffsensei_tpu_torch.models.mllm.quant import quantize_agent_on_host
+    from diffsensei_tpu_torch.models.mllm.seed_x import ContinuousLVLM
+    from diffsensei_tpu_torch.utils.load import (
+        agent_entries, load_agent_weights, load_torch_file, split_agent_ckpt)
+
+    acfg = AgentConfig() if args.preset == "sdxl" else AgentConfig.tiny()
+    dtype = modules.unet.dtype
+    if not args.quantize_llm:
+        agent = ContinuousLVLM.build(acfg, dtype=dtype, device=device, seed=1)
+        return load_agent_weights(agent, args.agent_weights)
+    agent = ContinuousLVLM.build(acfg, dtype=dtype, device=device, init="none")
+    entries = agent_entries(agent, split_agent_ckpt(load_torch_file(args.agent_weights)))
+    return quantize_agent_on_host(agent, entries, bits=args.quantize_llm_bits, device=device)
+
+
 def main(argv=None) -> List[str]:
     """Generate the request of ``argv``; returns the paths written."""
     args = build_parser().parse_args(argv)
@@ -96,16 +133,34 @@ def main(argv=None) -> List[str]:
     from diffsensei_tpu_torch.pipelines.pipeline import DiffSenseiPipeline, PipelineModules
     from diffsensei_tpu_torch.serve.api import DiffSenseiServer, GenerationRequest
     from diffsensei_tpu_torch.train.cli import hash_tokenizer
+    from diffsensei_tpu_torch.utils.load import load_weights_any
+    from diffsensei_tpu_torch.utils.tokenizer import CLIPTokenizer
 
     device = torch.device(args.device)
-    build = PipelineModules.sdxl if args.preset == "sdxl" else PipelineModules.tiny
-    modules = build(device=device, seed=0)
+    if args.preset == "sdxl":
+        # the loaders write every component they find; the rest is zeros
+        modules = PipelineModules.sdxl(device=device, init="none")
+        if args.weights:
+            modules = load_weights_any(modules, args.weights)
+        else:
+            print("# WARNING: sdxl preset with no --weights serves ZERO weights")
+        modules.fill_missing_params()
+    else:
+        modules = PipelineModules.tiny(device=device, seed=0)
+        if args.weights:
+            modules = load_weights_any(modules, args.weights)
     if args.quantize_unet:
         modules.unet = quantize_unet(modules.unet)
+    if args.tokenizer:
+        modules.tokenizer = CLIPTokenizer.from_pretrained(args.tokenizer)
+        modules.tokenizer_2 = CLIPTokenizer.from_pretrained(args.tokenizer_2 or args.tokenizer)
+    agent = load_agent(args, modules, device) if args.agent_weights else None
     pcfg = PipelineConfig()
     if args.scheduler:
         pcfg = dataclasses.replace(pcfg, scheduler=args.scheduler)
-    server = DiffSenseiServer(DiffSenseiPipeline(modules, pcfg))
+    # without --mllm-tokenizer there is no token spec: the server leaves the agent
+    # idle, as the JAX CLI's does
+    server = DiffSenseiServer(DiffSenseiPipeline(modules, pcfg), agent=agent)
 
     if args.warmup:
         sizes = [tuple(int(v) for v in hw.split("x")) for hw in args.warmup.split(",")]
@@ -114,9 +169,14 @@ def main(argv=None) -> List[str]:
                       deep_cache_interval=args.deep_cache,
                       deep_cache_split=args.deep_cache_split)
 
-    tok = hash_tokenizer(modules.text_encoder.config.vocab_size)
-    tok_2 = hash_tokenizer(modules.text_encoder_2.config.vocab_size)
-    neg = args.negative_prompt or ""
+    if modules.tokenizer is not None:
+        prompt_ids = None
+    else:
+        tok = hash_tokenizer(modules.text_encoder.config.vocab_size)
+        tok_2 = hash_tokenizer(modules.text_encoder_2.config.vocab_size)
+        neg = args.negative_prompt or ""
+        prompt_ids = dict(ids=tok(args.prompt)[None], neg_ids=tok(neg)[None],
+                          ids_2=tok_2(args.prompt)[None], neg_ids_2=tok_2(neg)[None])
     req = GenerationRequest(
         prompt=args.prompt, negative_prompt=args.negative_prompt,
         height=args.height, width=args.width, num_inference_steps=args.steps,
@@ -124,9 +184,7 @@ def main(argv=None) -> List[str]:
         character_images=[Image.open(p).convert("RGB") for p in args.char_image],
         ip_bbox=parse_bbox(args.ip_bbox), dialog_bbox=parse_bbox(args.dialog_bbox),
         ip_scale=args.ip_scale, deep_cache_interval=args.deep_cache,
-        deep_cache_split=args.deep_cache_split,
-        prompt_ids=dict(ids=tok(args.prompt)[None], neg_ids=tok(neg)[None],
-                        ids_2=tok_2(args.prompt)[None], neg_ids_2=tok_2(neg)[None]))
+        deep_cache_split=args.deep_cache_split, prompt_ids=prompt_ids)
 
     images = server.generate_pil(req)
     base, ext = os.path.splitext(args.out)

@@ -7,15 +7,20 @@ groups. It runs on the card unless ``--device cpu`` asks for the CPU, where
 every kernel wrapper takes its plain twin.
 
 Ported: stages ``t2i`` (1), ``condition`` (2) and ``mllm`` (3: the SEED-X
-agent with LoRA on its LLaMA, ``model.agent``), the presets ``tiny`` and
-``sdxl`` with ``init: random``, ``unet_trained_parameters`` ``full``,
-``new``, ``ip`` and ``lora`` (UNet adapters of ``model.lora_rank``),
-per-block remat (``model.remat``) and per-layer LLaMA remat
-(``model.agent.remat``), gradient accumulation, checkpoints and resume.
-Refused with an error rather than ignored: a ``weights:`` group (the
-checkpoint loaders of ``utils/load.py``), ``param_dtype`` other than
-float32, tokenizer files, a named remat policy, and ``trainer.parallel:
-fsdp`` (multi-GPU layouts).
+agent with LoRA on its LLaMA, ``model.agent``), the presets ``tiny`` (random
+weights; ``init`` and ``param_dtype`` ignored, as the JAX CLI ignores them)
+and ``sdxl`` (``init: zeros`` by default, ``random`` or ``none``;
+``param_dtype: float32`` trains fp32 copies of the trainables, ``bfloat16``
+trains them in bf16 with no fp32 masters), the ``weights:`` group of
+checkpoint files (``utils.load.apply_ported_weights``, after the build and
+before the adapters' init), ``train_data.tokenizer_path`` /
+``tokenizer_2_path`` (CLIP tokenizer directories; CRC-32 word hashing
+without them), ``unet_trained_parameters`` ``full``, ``new``, ``ip`` and
+``lora`` (UNet adapters of ``model.lora_rank``), per-block remat
+(``model.remat``) and per-layer LLaMA remat (``model.agent.remat``),
+gradient accumulation, checkpoints and resume. Refused with an error rather
+than ignored: a named remat policy and ``trainer.parallel: fsdp`` (multi-GPU
+layouts).
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ from diffsensei_tpu_torch.train.mllm_step import Stage3Config, agent_trainables,
 from diffsensei_tpu_torch.train.optim import (
     make_lr_schedule, make_optimizer, partition_params, unet_trainable_mask)
 from diffsensei_tpu_torch.train.runner import RunConfig, run_training
+from diffsensei_tpu_torch.utils.load import apply_ported_weights
+from diffsensei_tpu_torch.utils.tokenizer import load_tokenizer
 
 
 def hash_tokenizer(vocab_size: int = 49408, length: int = 77) -> Callable[[str], np.ndarray]:
@@ -62,31 +69,40 @@ def hash_tokenizer(vocab_size: int = 49408, length: int = 77) -> Callable[[str],
 
 
 def build_models(model_cfg: Dict[str, Any], device="cuda", seed: int = 0) -> PipelineModules:
-    """The diffusion stack of the ``model:`` group, random flax-like weights
-    from ``seed``. ``unet_trained_parameters: lora`` gives the UNet adapters
-    of ``model.lora_rank`` (the reference's stage-1/2 LoRA mode), which must
-    be positive."""
+    """The diffusion stack of the ``model:`` group: the tiny preset with
+    random flax-like weights from ``seed``, the sdxl preset by ``init``
+    (zeros unless set; a ``weights:`` group overlays checkpoints next).
+    ``unet_trained_parameters: lora`` gives the UNet adapters of
+    ``model.lora_rank`` (the reference's stage-1/2 LoRA mode), which must be
+    positive."""
     lora_rank = 0
     if model_cfg.get("unet_trained_parameters") == "lora":
         lora_rank = int(model_cfg.get("lora_rank", 0))
         if lora_rank <= 0:
             raise ValueError("unet_trained_parameters: lora requires model.lora_rank > 0")
-    if model_cfg.get("param_dtype", "float32") != "float32":
-        raise NotImplementedError("param_dtype: only float32 trainables are ported")
     preset = model_cfg.get("preset", "tiny")
-    init = model_cfg.get("init", "random" if preset == "tiny" else "zeros")
-    if init != "random":
-        raise NotImplementedError(f"init: {init} needs a weights: group, which is not "
-                                  "ported yet; use init: random")
     if preset == "tiny":
         mods = PipelineModules.tiny(device=device, seed=seed, lora_rank=lora_rank)
     elif preset == "sdxl":
-        mods = PipelineModules.sdxl(device=device, seed=seed, lora_rank=lora_rank)
+        mods = PipelineModules.sdxl(device=device, seed=seed, lora_rank=lora_rank,
+                                    init=model_cfg.get("init", "zeros"))
     else:
         raise ValueError(f"unknown model preset {preset}")
     if model_cfg.get("remat", False):
         mods.unet.enable_remat(model_cfg.get("remat_policy"))
     return mods
+
+
+def trainable_dtype(model_cfg: Dict[str, Any]) -> Optional[torch.dtype]:
+    """The trainables' dtype: fp32 copies (``param_dtype: float32``, the
+    default), or the sdxl preset's bf16 weights as they are (``bfloat16``:
+    None, no fp32 masters). The tiny preset ignores ``param_dtype``."""
+    name = model_cfg.get("param_dtype", "float32")
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"param_dtype must be float32 or bfloat16, got {name!r}")
+    if name == "bfloat16" and model_cfg.get("preset", "tiny") == "sdxl":
+        return None
+    return torch.float32
 
 
 def build_agent(model_cfg: Dict[str, Any], modules: PipelineModules, device="cuda",
@@ -149,9 +165,6 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> Tr
     stage = cfg.get("stage", "condition")
     if stage not in ("t2i", "condition", "mllm"):
         raise ValueError(f"unknown stage {stage}")
-    if cfg.get("weights"):
-        raise NotImplementedError("the weights: group needs utils/load.py, which is not "
-                                  "ported yet; remove it and set model.init: random")
     trainer = dict(cfg.get("trainer", {}))
     if trainer.get("parallel", "dp") != "dp":
         raise NotImplementedError(f"trainer.parallel: {trainer['parallel']} waits for the "
@@ -167,15 +180,19 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> Tr
     max_steps = int(trainer.get("max_train_steps", 1000))
 
     mcfg = dict(cfg.get("model", {}))
+    param_dtype = trainable_dtype(mcfg)
     modules = build_models(mcfg, device, seed)
+    modules = apply_ported_weights(modules, cfg.get("weights") or {})
+    left = [name for name, mod in modules.networks().items()
+            if any(p.is_meta for p in mod.parameters())]
+    if left:
+        raise ValueError(f"init: none needs the weights: group to cover {left}")
     # a dead (all-zero) adapter never trains: gaussian-init it, as the JAX CLI does
     ensure_lora_init(modules.unet, seed=seed)
     manga = modules.manga
 
     # data ------------------------------------------------------------------
     td = dict(cfg.get("train_data", {}))
-    if td.get("tokenizer_path") or td.get("tokenizer_2_path"):
-        raise NotImplementedError("tokenizer files are not supported yet")
     ds_cfg = BucketDatasetConfig(
         t_drop_rate=td.get("t_drop_rate", 0.05), i_drop_rate=td.get("i_drop_rate", 0.05),
         max_num_ips=manga.max_num_ips, max_num_ip_sources=td.get("max_num_ip_sources", 1),
@@ -183,8 +200,10 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> Tr
         ip_self_condition_rate=td.get("ip_self_condition_rate", 0.5),
         ip_flip_rate=td.get("ip_flip_rate", 0.5), batch_size=td.get("batch_size", 8))
     data_kw = dict(ann_path=td["ann_path"], image_root=td.get("image_root", ""),
-                   tokenize=hash_tokenizer(modules.text_encoder.config.vocab_size),
-                   tokenize_2=hash_tokenizer(modules.text_encoder_2.config.vocab_size),
+                   tokenize=load_tokenizer(td.get("tokenizer_path"),
+                                           modules.text_encoder.config.vocab_size),
+                   tokenize_2=load_tokenizer(td.get("tokenizer_2_path"),
+                                             modules.text_encoder_2.config.vocab_size),
                    config=ds_cfg)
     if stage == "mllm":
         agent = build_agent(mcfg, modules, device, seed)
@@ -225,11 +244,13 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> Tr
                 manga=manga, ip_contrastive=mcfg.get("ip_contrastive_loss"),
                 ip_contrastive_weight=mcfg.get("ip_contrastive_loss_weight", 0.1)))
             mode = mcfg.get("unet_trained_parameters", "new")
-        trainable, _ = partition_params(modules.unet, unet_trainable_mask(modules.unet, mode))
+        trainable, _ = partition_params(modules.unet, unet_trainable_mask(modules.unet, mode),
+                                        param_dtype)
         params = {f"unet.{k}": p for k, p in trainable.items()}
         if stage == "condition":
             res = modules.resampler
-            trainable, _ = partition_params(res, {k: True for k, _ in res.named_parameters()})
+            trainable, _ = partition_params(res, {k: True for k, _ in res.named_parameters()},
+                                            param_dtype)
             params.update({f"resampler.{k}": p for k, p in trainable.items()})
 
     opt_cfg = dict(cfg.get("optimizer", {}))

@@ -105,18 +105,21 @@ def unet_trainable_mask(unet: nn.Module, mode: str) -> Dict[str, bool]:
     return mask
 
 
-def partition_params(module: nn.Module, mask: Mapping[str, bool]
+def partition_params(module: nn.Module, mask: Mapping[str, bool],
+                     dtype: Optional[torch.dtype] = torch.float32
                      ) -> Tuple[Dict[str, nn.Parameter], Dict[str, nn.Parameter]]:
     """Split ``module``'s parameters into ``(trainable, frozen)`` by ``mask``:
     ``requires_grad`` on the first, off on the second. Trainables are held in
-    fp32 (the flax ``param_dtype``); the module keeps computing in its former
-    dtype, since its layers cast at use."""
+    ``dtype`` (the flax ``param_dtype``: fp32 by default; None keeps each in
+    its own dtype); the module keeps computing in its former dtype, since its
+    layers cast at use."""
     if hasattr(module, "compute_dtype"):
         module.compute_dtype = module.dtype
     trainable, frozen = {}, {}
     for name, p in module.named_parameters():
         if mask[name]:
-            p.data = p.data.float()
+            if dtype is not None:
+                p.data = p.data.to(dtype)
             trainable[name] = p.requires_grad_(True)
         else:
             frozen[name] = p.requires_grad_(False)

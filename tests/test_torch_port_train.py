@@ -636,8 +636,8 @@ def test_cli_trains_stage1(tmp_path):
 
 
 @pytest.mark.parametrize("edit", [
-    ("model:\n", "model:\n  param_dtype: bfloat16\n"),
-    ("model:\n", "weights: {unet: unet.safetensors}\nmodel:\n"),
+    ("remat: true", "remat: true\n  remat_policy: dots_attn"),
+    ("remat: true", "remat: true\n  remat_policy: dots_deepest"),
     ("trainer:\n", "trainer:\n  parallel: fsdp\n"),
     ("remat: true", "remat: true\n  remat_policy: dots"),
 ])

@@ -99,10 +99,13 @@ def agents(cfg, seed=0, quantized=False):
     return jagent, tagent
 
 
-def tiny_pipelines(lora_rank=0):
+def tiny_pipelines(lora_rank=0, text_vocab=None, magi_vitmae=False):
     """(JAX pipeline, port pipeline on the CPU) of the tiny configs, with the
     same random weights: JAX trees carried across by ``from_jax``; UNet
-    adapters of ``lora_rank`` (random, nonzero A and B) on both sides."""
+    adapters of ``lora_rank`` (random, nonzero A and B) on both sides; text
+    encoders of ``text_vocab`` tokens where given; a ViTMAE-layout Magi
+    encoder (no embedding LayerNorm, as the full-size one) where
+    ``magi_vitmae``."""
     import jax.numpy as jnp
 
     from diffsensei_tpu.models.resampler import Resampler as JResampler
@@ -119,6 +122,11 @@ def tiny_pipelines(lora_rank=0):
     ids = jnp.zeros((1, 77), jnp.int32)
     img = jnp.zeros((1, 224, 224, 3))
     ucfg = cfgs["unet"] = dataclasses.replace(cfgs["unet"], lora_rank=lora_rank)
+    if magi_vitmae:
+        cfgs["magi_encoder"] = dataclasses.replace(cfgs["magi_encoder"], use_pre_layernorm=False)
+    if text_vocab is not None:
+        for name in ("text_encoder", "text_encoder_2"):
+            cfgs[name] = dataclasses.replace(cfgs[name], vocab_size=text_vocab)
     jm = jpipeline.PipelineModules(
         unet=JUNet(ucfg), vae=JVAE(cfgs["vae"]),
         text_encoder=JText(cfgs["text_encoder"]), text_encoder_2=JText(cfgs["text_encoder_2"]),
@@ -143,7 +151,7 @@ def tiny_pipelines(lora_rank=0):
                                  rcfg.embedding_dim)),
         jnp.zeros((1, manga.max_num_ips, rcfg.magi_embedding_dim)), seed=7)
 
-    tm = tpipeline.PipelineModules.tiny(device="cpu", lora_rank=lora_rank)
+    tm = tpipeline.PipelineModules.build(cfgs, device="cpu")
     sds = {
         "unet": from_jax.sdxl_unet(jm.unet_params, ucfg),
         "text_encoder": from_jax.clip_text(jm.text_encoder_params,
