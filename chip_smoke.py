@@ -36,7 +36,15 @@ Run from the root of the repository. Phases, one JSON line each:
 7. serve: ``DiffSenseiServer.generate`` at full SDXL width with random
    weights: 1024² with 20 Euler steps and CFG, two characters and a dialog
    box; the 768x1344 bucket (its 96x168 latent decoded in two tiles); an
-   unconditioned 1024² panel; serve_extras: R1's request on the same modules
+   unconditioned 1024² panel; serve_weights: R1's modules written as a
+   released artifact directory (the UNet and the Resampler as torch files,
+   the rest as safetensors, about 9 GB in a temp dir kept for the train
+   phases), loaded into ``PipelineModules.sdxl(init="none")`` through
+   ``utils.load.load_weights_any`` (every parameter's dtype, device and
+   strides R1's), R1's request from it bit-equal to R1's panel with R1's
+   launches, then the serve CLI once on the directory with ``--weights`` and
+   a CLIP vocabulary the smoke writes (``--tokenizer``); serve_extras: R1's
+   request on the same modules
    through six legs (DDIM 4 steps unconditioned, DPM-Solver++ 12, Euler 20
    with DeepCache N = 2 and N = 3 at split 2, DPM++ 12 with DeepCache N = 2,
    Euler 20 on the int8 UNet), each leg's launches checked exactly and its
@@ -46,7 +54,13 @@ Run from the root of the repository. Phases, one JSON line each:
    bit-equal to the uncached loop over 2 steps;
 8. serve_agent: the same server with the SEED-X agent (int4 LLaMA-13B at
    full width, random weights) beside the SDXL stack on the one card: the
-   1024² request again, its characters adapted by 500 greedy decode steps.
+   1024² request again, its characters adapted by 500 greedy decode steps;
+   agent_weights: a 2-layer SEED-X-width agent (LoRA r 64) written as a
+   ``pytorch_model.bin`` with peft names and ``module.`` prefixes, loaded by
+   the serve CLI's ``--quantize-llm --quantize-llm-bits 4`` path (built on
+   the meta device, quantized on the host): bytes equal to
+   ``quantize_agent`` of the agent in memory, 8 greedy ids equal, B6 15
+   launches a token, the load's device peak below the bf16 LLM's bytes.
 9. profile_decode: ``torch.profiler`` over 16 of the agent's decode steps:
    device time and kernels a token, the device's busy share, the top kernels;
 10. flash_attention_bwd (run after phase 5): B2 (dQ) and B4 (dK/dV) against
@@ -56,9 +70,11 @@ Run from the root of the repository. Phases, one JSON line each:
 11. reference_train (after phase 6): one stage-2 loss and backward on a
    cut-down SDXL-width stack, bf16 on the card against fp32 on the CPU;
 12. train: 6 stage-2 steps through the port's train CLI on
-   ``configs/train/condition.yaml`` at full SDXL width (random weights,
-   synthetic MangaZero pages from a numpy seed, the 1024² bucket, batch 1),
-   one line a step; profile_train: ``torch.profiler`` over one of them;
+   ``configs/train/condition.yaml`` at full SDXL width (its ``weights:``
+   group pointed at serve_weights' files, ``init: zeros``; synthetic
+   MangaZero pages from a numpy seed, the 1024² bucket, batch 1), one line a
+   step; profile_train: ``torch.profiler`` over one of them; train_bf16: 2
+   more with ``param_dtype: bfloat16`` (bf16 trainables, no fp32 copies);
    train_lora: 3 more stage-2 steps with UNet LoRA (rank 64) set in memory:
    only the adapters, the IP projections and the Resampler move, every base
    UNet weight stays bit-equal, and the merged rank-0 UNet agrees with the
@@ -78,7 +94,8 @@ Run from the root of the repository. Phases, one JSON line each:
 
 The kernels' launch counts are set to 0 before each served or trained path
 and checked after it (every kernel, every path), and B3's calls by shape
-with them (every shape a GN_CASES row; R1, R4 and T1 exactly). Then the kernels line, the card's ``nvidia-smi`` line and, last,
+with them (every shape a GN_CASES row; R1, R1 from files, R4 and T1
+exactly). Then the kernels line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. Needs one CUDA device; imports nothing of JAX.
 """
@@ -87,9 +104,12 @@ from __future__ import annotations
 
 import gc
 import json
+import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1113,6 +1133,177 @@ def serve(device):
     return launch_counts(), mods, ids, r1
 
 
+# safetensors dtype names of the tensors the smoke writes
+ST_DTYPES = {"float32": "F32", "bfloat16": "BF16"}
+
+
+def write_safetensors(path, sd) -> None:
+    """A state dict as a ``.safetensors`` file without the ``safetensors``
+    package: an 8-byte little-endian header length, the JSON header (padded
+    to 8 bytes), then each tensor's raw bytes in order."""
+    import struct
+    import torch
+
+    host = {k: v.detach().cpu().contiguous() for k, v in sd.items()}
+    header, offset = {}, 0
+    for k, t in host.items():
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": ST_DTYPES[str(t.dtype).removeprefix("torch.")],
+                     "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for t in host.values():
+            f.write(t.reshape(-1).view(torch.uint8).numpy().data)
+
+
+PROMPT_WORDS = ["two", "girls", "talk", "on", "a", "rainy", "street", "one", "holds", "an",
+                "umbrella", "speech", "bubble", "manga", "panel", "night", "city", "lights"]
+
+
+def write_clip_vocab(root) -> None:
+    """A CLIP tokenizer directory: the 256 byte symbols (ids 0-255), their
+    ``</w>`` forms (256-511), the prefix merges of ``PROMPT_WORDS`` (each word
+    merged left to right into one token), and ``<|startoftext|>`` /
+    ``<|endoftext|>`` at CLIP's 49406 / 49407."""
+    from diffsensei_tpu_torch.utils.tokenizer import bytes_to_unicode
+
+    root.mkdir(parents=True, exist_ok=True)
+    symbols = list(bytes_to_unicode().values())
+    vocab = symbols + [s + "</w>" for s in symbols]
+    merges = []
+    for word in PROMPT_WORDS:
+        parts = list(word[:-1]) + [word[-1] + "</w>"]
+        while len(parts) > 1:
+            pair = (parts[0], parts[1])
+            if pair not in merges:
+                merges.append(pair)
+            parts = [parts[0] + parts[1]] + parts[2:]
+    vocab += list(dict.fromkeys("".join(m) for m in merges if "".join(m) not in vocab))
+    ids = {t: i for i, t in enumerate(vocab)}
+    ids.update({"<|startoftext|>": 49406, "<|endoftext|>": 49407})
+    (root / "vocab.json").write_text(json.dumps(ids, ensure_ascii=False), encoding="utf-8")
+    (root / "merges.txt").write_text("#version: 0.2\n" + "\n".join(" ".join(m) for m in merges)
+                                     + "\n", encoding="utf-8")
+
+
+# the released artifact layout (``diffsensei_tpu/utils/load.py:60-75``): the
+# UNet and the Resampler as torch files, the rest as safetensors
+ARTIFACT = {"unet": "unet/pytorch_model.bin",
+            "resampler": "image_proj_model/pytorch_model.bin",
+            "vae": "vae/diffusion_pytorch_model.safetensors",
+            "text_encoder": "text_encoder/model.safetensors",
+            "text_encoder_2": "text_encoder_2/model.safetensors",
+            "image_encoder": "clip_image_encoder/model.safetensors",
+            "magi_encoder": "magi_image_encoder/model.safetensors"}
+
+
+def artifact_paths(root) -> dict:
+    """The component files of the artifact directory at ``root``."""
+    return {name: str(root / "image_generator" / rel) for name, rel in ARTIFACT.items()}
+
+
+def serve_weights(device, mods, r1, root) -> dict:
+    """R1's modules written as a released artifact directory under ``root``
+    (kept for the train phases), loaded through ``utils.load.load_weights_any``
+    into ``PipelineModules.sdxl(init="none")``: every parameter's dtype,
+    device and strides those of ``mods``, none left on meta; R1's request
+    from the loaded stack bit-equal to R1's panel with R1's launches; then
+    the serve CLI once on the directory with a CLIP vocabulary the smoke
+    writes (``--tokenizer``), 1024², 20 Euler steps, no characters."""
+    import torch
+    from diffsensei_tpu_torch.pipelines.pipeline import DiffSenseiPipeline, PipelineModules
+    from diffsensei_tpu_torch.serve import cli
+    from diffsensei_tpu_torch.serve.api import DiffSenseiServer
+    from diffsensei_tpu_torch.utils.load import load_weights_any
+
+    t0 = time.perf_counter()
+    for name, path in artifact_paths(root).items():
+        path = pathlib.Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        sd = getattr(mods, name).state_dict()
+        if path.suffix == ".bin":
+            torch.save({k: v.detach().cpu().contiguous() for k, v in sd.items()}, path)
+        else:
+            write_safetensors(path, sd)
+    write_s = time.perf_counter() - t0
+    disk = sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loaded = load_weights_any(PipelineModules.sdxl(device=device, init="none"), str(root))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() / 2**30
+    mismatched, on_meta = [], []
+    for name, mod in mods.networks().items():
+        got = dict(getattr(loaded, name).named_parameters())
+        for k, p in mod.named_parameters():
+            q = got[k]
+            on_meta += [f"{name}.{k}"] if q.is_meta else []
+            if (q.dtype, q.device, q.stride()) != (p.dtype, p.device, p.stride()):
+                mismatched.append(f"{name}.{k}")
+
+    req, want = r1
+    server = DiffSenseiServer(DiffSenseiPipeline(loaded))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    calls_before = gn_calls()
+    t0 = time.perf_counter()
+    img = server.generate(req)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launch_counts()
+    check_gn_calls(gn_calls(calls_before), "serve_weights", GN_CALLS_R1)
+    row = dict(write_s=write_s, load_s=load_s, disk_gb=disk / 1e9,
+               load_peak_gib=load_peak, seconds=seconds,
+               bit_equal_to_r1=bool(np.array_equal(img, want)),
+               max_abs_diff_to_r1=float(np.abs(img - want).max()),
+               params_checked=sum(1 for m in mods.networks().values() for _ in m.parameters()),
+               layout_mismatches=mismatched[:8], on_meta=on_meta[:8],
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=got, **panel_row(img, req.height, req.width))
+    emit({"phase": "serve_weights", **row})
+    want_counts = expect(flash_fwd=20 * 70, groupnorm=20 * 34 + 28, dual=20 * 70)
+    if mismatched or on_meta or not row["bit_equal_to_r1"] or got != want_counts:
+        raise AssertionError(f"the loaded stack differs from the in-memory one: {row}")
+    del server, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the serve CLI on the same directory, with tokenizer files
+    write_clip_vocab(root / "tokenizer")
+    out = root / "cli_panel.png"
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    paths = cli.main(["--preset", "sdxl", "--weights", str(root), "--tokenizer",
+                      str(root / "tokenizer"), "--prompt",
+                      "two girls talk on a rainy street, one holds an umbrella",
+                      "--height", "1024", "--width", "1024", "--steps", "20",
+                      "--out", str(out)])
+    torch.cuda.synchronize()
+    cli_launches = since(before)
+    from PIL import Image
+
+    panel = np.asarray(Image.open(out))
+    row = dict(seconds=time.perf_counter() - t0, paths=paths, shape=list(panel.shape),
+               mean=float(panel.mean()), std=float(panel.std()),
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=cli_launches)
+    emit({"phase": "serve_weights_cli", **row})
+    gc.collect()
+    torch.cuda.empty_cache()
+    if panel.shape != (1024, 1024, 3) or cli_launches != expect(flash_fwd=20 * 70,
+                                                               groupnorm=20 * 34 + 28):
+        raise AssertionError(f"the serve CLI's panel or launches are wrong: {row}")
+    return launch_counts()
+
+
 def panel_row(img, height: int, width: int) -> dict:
     """The serve gate's readings of a panel; raises unless it is finite, in
     [0, 1] and of the bucket's shape."""
@@ -1451,6 +1642,125 @@ def serve_agent(device, mods, ids, max_new_tokens: int = 500) -> dict:
     return launches
 
 
+def peft_llama_names(sd) -> dict:
+    """The port's LLaMA state dict under the names of a peft-wrapped HF
+    ``LlamaForCausalLM`` (the reference's stage-3 export): ``base_model.model.``
+    before the HF names, ``.base_layer.`` in the projections,
+    ``lora_A.default``."""
+    out = {}
+    for k, v in sd.items():
+        k = (k.replace(".attn.", ".self_attn.").replace(".input_norm.", ".input_layernorm.")
+             .replace(".post_norm.", ".post_attention_layernorm.")
+             .replace(".base.weight", ".base_layer.weight")
+             .replace(".lora_A.weight", ".lora_A.default.weight")
+             .replace(".lora_B.weight", ".lora_B.default.weight"))
+        out["base_model.model." + (k if k.startswith("lm_head") else "model." + k)] = v
+    return out
+
+
+AGENT_DECODE_STEPS = 8
+
+
+def agent_weights(device, root, num_layers: int = 2, prompt_len: int = 24) -> dict:
+    """A ``num_layers``-layer SEED-X-width agent (LLaMA width 5120, vocab
+    32330, the two Qwen resamplers, LoRA r 64 with B drawn at random; bf16,
+    random weights) written under ``root`` as ``pytorch_model.bin`` with peft
+    LLaMA names, the ``llm.`` / ``input_resampler.`` / ``output_resampler.``
+    groups and a ``module.`` prefix (and the resamplers' fixed ``pos_embed``,
+    which the loader drops); loaded by the serve CLI's ``--quantize-llm
+    --quantize-llm-bits 4`` path (built on the meta device, quantized on the
+    host). Checks: the packed int4 weights and scales and every other tensor
+    byte-equal to ``quantize_agent`` of the agent in memory; 8 greedy decode
+    steps with the same ids as that agent's, B6 launched 7 x layers + 1 times
+    a token; the load's peak device memory below the bf16 LLM's bytes."""
+    import dataclasses
+    import torch
+    from diffsensei_tpu_torch.core.config import AgentConfig
+    from diffsensei_tpu_torch.models.mllm.llama import LoRADense, init_caches
+    from diffsensei_tpu_torch.models.mllm.quant import quantize_agent, quantize_agent_on_host
+    from diffsensei_tpu_torch.models.mllm.seed_x import ContinuousLVLM
+    from diffsensei_tpu_torch.utils.load import agent_entries, load_torch_file, split_agent_ckpt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    acfg = AgentConfig()
+    acfg = dataclasses.replace(acfg, llm=dataclasses.replace(acfg.llm, num_layers=num_layers))
+    agent = ContinuousLVLM.build(acfg, dtype=torch.bfloat16, device=device, seed=7)
+    gen = torch.Generator(device=device).manual_seed(8)
+    with torch.no_grad():
+        for mod in agent.llm.modules():
+            if isinstance(mod, LoRADense) and mod.lora_rank:
+                mod.lora_B.weight.normal_(0.0, 0.02, generator=gen)
+    llm_bytes = sum(p.numel() * p.element_size() for p in agent.llm.parameters())
+
+    t0 = time.perf_counter()
+    ckpt = {f"llm.{k}": v for k, v in peft_llama_names(agent.llm.state_dict()).items()}
+    for name in ("input_resampler", "output_resampler"):
+        mod = getattr(agent, name)
+        ckpt.update({f"{name}.{k}": v for k, v in mod.state_dict().items()})
+        ckpt[f"{name}.pos_embed"] = torch.zeros(mod.query.shape)
+    path = root / "agent" / "pytorch_model.bin"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({f"module.{k}": v.detach().cpu().contiguous() for k, v in ckpt.items()}, path)
+    write_s = time.perf_counter() - t0
+    del ckpt
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    meta = ContinuousLVLM.build(acfg, dtype=torch.bfloat16, device=device, init="none")
+    entries = agent_entries(meta, split_agent_ckpt(load_torch_file(str(path))))
+    loaded = quantize_agent_on_host(meta, entries, bits=4, device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() - base
+    del entries
+
+    want = quantize_agent(agent, bits=4)
+    unequal = []
+    for name in ("llm", "input_resampler", "output_resampler"):
+        w, g = getattr(want, name).state_dict(), getattr(loaded, name).state_dict()
+        unequal += [f"{name}.{k}" for k in w if k not in g or w[k].dtype != g[k].dtype
+                    or not torch.equal(w[k], g[k])]
+
+    ids = torch.from_numpy(np.random.default_rng(9).integers(3, acfg.llm.vocab_size,
+                                                             (1, prompt_len))).to(device)
+
+    def greedy(llm):
+        caches = init_caches(acfg.llm, 1, prompt_len + AGENT_DECODE_STEPS, torch.bfloat16,
+                             device)
+        logits, _, caches = llm(ids, positions=torch.arange(prompt_len, device=device)[None],
+                                caches=caches, cache_index=0)
+        out = []
+        for i in range(AGENT_DECODE_STEPS):
+            out.append(logits[0, -1].argmax())
+            logits, _, caches = llm(out[-1].view(1, 1), positions=torch.full(
+                (1, 1), prompt_len + i, device=device), caches=caches,
+                cache_index=prompt_len + i)
+        return [int(t) for t in out]
+
+    with torch.inference_mode():
+        want_ids = greedy(want.llm)
+        reset_counts()
+        got_ids = greedy(loaded.llm)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    row = dict(layers=num_layers, lora_rank=acfg.lora.rank, write_s=write_s,
+               disk_gb=path.stat().st_size / 1e9, load_s=load_s,
+               load_peak_gib=load_peak / 2**30, bf16_llm_gib=llm_bytes / 2**30,
+               int4_llm_gib=sum(p.numel() * p.element_size()
+                                for p in loaded.llm.parameters()) / 2**30,
+               unequal=unequal[:8], ids=got_ids, ids_equal=got_ids == want_ids,
+               launches=counts)
+    emit({"phase": "agent_weights", **row})
+    # the last decode step's logits are not fed back: 8 steps, 8 B6 forwards after the prefill
+    want_counts = expect(int4=AGENT_DECODE_STEPS * (7 * num_layers + 1))
+    if unequal or got_ids != want_ids or counts != want_counts or load_peak >= llm_bytes:
+        raise AssertionError(f"the agent loaded from its checkpoint is wrong: {row}")
+    return counts
+
+
 def write_mangazero(root, pages: int = 8, seed: int = 8) -> None:
     """A MangaZero-format page set from a numpy seed: each page one
     1024x1024 frame (the 1024² bucket) with four characters and two dialog
@@ -1481,35 +1791,75 @@ def write_mangazero(root, pages: int = 8, seed: int = 8) -> None:
 TRAIN_STEPS, PROFILED_STEP = 6, 5
 
 
-def train(device) -> dict:
-    """Stage 2 through the port's CLI (``train.cli.main``) on
-    ``configs/train/condition.yaml`` at full SDXL width with four changes:
-    ``init: random``, no ``weights:`` group, the synthetic data paths (and
-    the log directory beside them), ``max_train_steps: 6, log_every: 1,
-    checkpoint_every: 3``. Each step's loss, seconds, peak memory and kernel
-    launches; step ``PROFILED_STEP`` under ``torch.profiler``. Checks: finite
-    losses, checkpoints at steps 3 and 6, the trainables moved and the frozen
-    UNet weights did not, the same launch counts on every step."""
-    import pathlib
-    import tempfile
-    import torch
+def condition_config(tmp, weights_root, model=None, trainer=None, **groups) -> pathlib.Path:
+    """``configs/train/condition.yaml`` with its ``weights:`` group pointed at
+    the artifact files of ``serve_weights`` (``init`` left at the sdxl
+    default, zeros), the synthetic data paths and the log directory under
+    ``tmp``, ``model`` and ``trainer`` entries updated and other groups
+    replaced; written to ``tmp/config.yaml``."""
     import yaml
-    from torch.profiler import ProfilerActivity, profile
-    from diffsensei_tpu_torch.train import cli, optim
 
-    snap, built = {}, {}
-    build_models = cli.build_models
+    cfg = yaml.safe_load(pathlib.Path("configs/train/condition.yaml").read_text())
+    cfg.update(groups, weights=artifact_paths(weights_root))
+    cfg["model"].update(model or {})
+    cfg["train_data"].update(ann_path=str(tmp / "annotations.json"), image_root=str(tmp))
+    cfg["trainer"].update(trainer or {}, log_dir=str(tmp / "logs"))
+    (tmp / "config.yaml").write_text(yaml.safe_dump(cfg))
+    return tmp / "config.yaml"
 
-    def capture(*args, **kwargs):     # the CLI's models, for the moved/frozen check
-        mods = build_models(*args, **kwargs)
-        mask = optim.unet_trainable_mask(mods.unet, "new")
+
+def snapshot_after_overlay(cli, snap, built, mode="new"):
+    """Wrap ``cli.apply_ported_weights`` so that the CLI's modules are kept
+    and their UNet and Resampler copied to the host just after the weights
+    group is applied; returns the original to put back."""
+    from diffsensei_tpu_torch.train import optim
+
+    apply = cli.apply_ported_weights
+
+    def capture(modules, weights):
+        mods = apply(modules, weights)
+        mask = optim.unet_trainable_mask(mods.unet, mode)
         for name, p in mods.unet.named_parameters():   # on the host: no device memory
             snap[("unet", name, mask[name])] = p.detach().cpu()
         for name, p in mods.resampler.named_parameters():
             snap[("resampler", name, True)] = p.detach().cpu()
         built["mods"] = mods
         return mods
+    cli.apply_ported_weights = capture
+    return apply
 
+
+def moved_and_frozen(snap, mods) -> dict:
+    """Per group, whether each snapshot parameter changed: the UNet's and the
+    Resampler's trainables, and the frozen UNet weights."""
+    import torch
+
+    moved = {"unet": [], "resampler": [], "frozen_unet": []}
+    live = {("unet", n): p for n, p in mods.unet.named_parameters()}
+    live.update({("resampler", n): p for n, p in mods.resampler.named_parameters()})
+    for (module, name, trains), before in snap.items():
+        changed = not torch.equal(live[(module, name)].detach().float().cpu(), before.float())
+        moved["frozen_unet" if not trains else module].append(changed)
+    return moved
+
+
+def train(device, weights_root) -> dict:
+    """Stage 2 through the port's CLI (``train.cli.main``) on
+    ``configs/train/condition.yaml`` at full SDXL width, its ``weights:``
+    group pointed at the artifact files ``serve_weights`` wrote (R1's random
+    weights; ``init: zeros``, the config's default for sdxl, then the
+    overlay), with the synthetic data paths (and the log directory beside
+    them) and ``max_train_steps: 6, log_every: 1, checkpoint_every: 3``. Each
+    step's loss, seconds, peak memory and kernel launches; step
+    ``PROFILED_STEP`` under ``torch.profiler``. Checks: finite losses,
+    checkpoints at steps 3 and 6, the trainables moved and the frozen UNet
+    weights did not (against a host copy taken after the overlay), the same
+    launch counts on every step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from diffsensei_tpu_torch.train import cli
+
+    snap, built = {}, {}
     rows, prof = [], profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     clock = {}
 
@@ -1532,23 +1882,18 @@ def train(device) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         write_mangazero(tmp)
-        cfg = yaml.safe_load(pathlib.Path("configs/train/condition.yaml").read_text())
-        cfg.pop("weights")
-        cfg["model"]["init"] = "random"
-        cfg["train_data"].update(ann_path=str(tmp / "annotations.json"), image_root=str(tmp))
-        cfg["trainer"].update(max_train_steps=TRAIN_STEPS, log_every=1, checkpoint_every=3,
-                              log_dir=str(tmp / "logs"))
-        (tmp / "config.yaml").write_text(yaml.safe_dump(cfg))
+        config = condition_config(tmp, weights_root, trainer=dict(
+            max_train_steps=TRAIN_STEPS, log_every=1, checkpoint_every=3))
 
-        cli.build_models = capture
+        apply = snapshot_after_overlay(cli, snap, built)
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = clock["last"] = time.perf_counter()
         clock["counts"] = launch_counts()
         try:
-            state = cli.main(["--config", str(tmp / "config.yaml")], on_step=on_step)
+            state = cli.main(["--config", str(config)], on_step=on_step)
         finally:
-            cli.build_models = build_models
+            cli.apply_ported_weights = apply
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         totals = launch_counts()
@@ -1560,14 +1905,9 @@ def train(device) -> dict:
     for row, rec in zip(rows, logged):
         row.update(step_s=rec["time/step_s"], data_s=rec["time/data_s"])
         emit({"phase": "train", **row})
-    moved = {"unet": [], "resampler": [], "frozen_unet": []}
     mods = built.pop("mods")
-    live = {("unet", n): p for n, p in mods.unet.named_parameters()}
-    live.update({("resampler", n): p for n, p in mods.resampler.named_parameters()})
-    for (module, name, trains), before in snap.items():
-        changed = not torch.equal(live[(module, name)].detach().float().cpu(), before.float())
-        moved["frozen_unet" if not trains else module].append(changed)
-    del snap, live, mods
+    moved = moved_and_frozen(snap, mods)
+    del snap, mods
     summary = dict(steps=len(rows), seconds=seconds, checkpoints=checkpoints,
                    trainable_tensors=len(state.params),
                    trainable_params=sum(p.numel() for p in state.params.values()),
@@ -1589,6 +1929,82 @@ def train(device) -> dict:
         raise AssertionError(f"launch counts per step {[r['launches'] for r in rows]} "
                              f"!= {want}")
     profile_train(prof, clock["profiled_s"], PROFILED_STEP + 1)
+    return totals
+
+
+BF16_STEPS = 2
+
+
+def train_bf16(device, weights_root) -> dict:
+    """Stage 2 as ``train`` runs it (the ``weights:`` group, ``init:
+    zeros``) with ``param_dtype: bfloat16``: the trainables are trained in
+    bf16 with no fp32 copies. 2 steps, no checkpoint, at a constant rate of
+    1e-2: an AdamW step moves a weight by about the rate, and a bf16 weight
+    near 1 (the norm scales) keeps its value under a step below half its
+    ulp (2^-8), as the config's warmup start (1e-7) is. Checks: finite
+    losses, every trainable bf16 and moved, the frozen UNet weights
+    bit-equal, the launch counts of a T1 step on each step; reports the
+    peak memory."""
+    import torch
+    from diffsensei_tpu_torch.train import cli
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    snap, built, rows, clock = {}, {}, [], {}
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        rows.append(dict(step=step, **{k: float(v) for k, v in metrics.items()},
+                         host_s=time.perf_counter() - clock["last"],
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         launches=since(clock["counts"])))
+        torch.cuda.reset_peak_memory_stats()
+        clock.update(last=time.perf_counter(), counts=launch_counts())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        write_mangazero(tmp)
+        config = condition_config(
+            tmp, weights_root, model=dict(param_dtype="bfloat16"),
+            trainer=dict(max_train_steps=BF16_STEPS, log_every=1, checkpoint_every=1000),
+            optimizer=dict(lr=1e-2, weight_decay=0.01, max_grad_norm=1.0),
+            lr_scheduler=dict(name="constant"))
+        apply = snapshot_after_overlay(cli, snap, built)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = clock["last"] = time.perf_counter()
+        clock["counts"] = launch_counts()
+        try:
+            state = cli.main(["--config", str(config)], on_step=on_step)
+        finally:
+            cli.apply_ported_weights = apply
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    totals = launch_counts()
+    for row in rows:
+        emit({"phase": "train_bf16", **row})
+    mods = built.pop("mods")
+    moved = moved_and_frozen(snap, mods)
+    dtypes = sorted({str(p.dtype) for p in state.params.values()})
+    del snap, mods
+    summary = dict(steps=len(rows), seconds=seconds, trainable_dtypes=dtypes,
+                   trainable_tensors=len(state.params),
+                   trainable_bytes=sum(p.numel() * p.element_size()
+                                       for p in state.params.values()),
+                   moved_unet=f"{sum(moved['unet'])}/{len(moved['unet'])}",
+                   moved_resampler=f"{sum(moved['resampler'])}/{len(moved['resampler'])}",
+                   moved_frozen_unet=f"{sum(moved['frozen_unet'])}/{len(moved['frozen_unet'])}",
+                   peak_gib=max(r["peak_gib"] for r in rows), launches=totals)
+    emit({"phase": "train_bf16_summary", **summary})
+    want = expect(flash_fwd=140, flash_dq=70, flash_dkv=70, groupnorm=88, dual=140)
+    if len(rows) != BF16_STEPS or not all(np.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"a bad loss: {rows}")
+    if dtypes != ["torch.bfloat16"] or not (all(moved["unet"]) and all(moved["resampler"])
+                                            and not any(moved["frozen_unet"])):
+        raise AssertionError(f"bf16 trainables did not move or frozen weights did: {summary}")
+    if any(r["launches"] != want for r in rows):
+        raise AssertionError(f"launch counts per step {[r['launches'] for r in rows]} "
+                             f"!= {want}")
     return totals
 
 
@@ -2135,12 +2551,20 @@ def main() -> int:
     check_reference_train_mllm(device)
     paths = {}
     paths["serve"], mods, ids, r1 = serve(device)
-    paths["serve_extras"] = serve_extras(device, mods, r1)
-    deep_cache_exact(device, mods, r1[0])
-    paths["serve_agent"] = serve_agent(device, mods, ids)
-    del mods
-    torch.cuda.empty_cache()
-    paths["train"] = train(device)
+    # R1's weights as checkpoint files, for serve_weights and the train phases
+    weights_root = pathlib.Path(tempfile.mkdtemp(prefix="diffsensei_weights_"))
+    try:
+        paths["serve_weights"] = serve_weights(device, mods, r1, weights_root)
+        paths["serve_extras"] = serve_extras(device, mods, r1)
+        deep_cache_exact(device, mods, r1[0])
+        paths["serve_agent"] = serve_agent(device, mods, ids)
+        paths["agent_weights"] = agent_weights(device, weights_root)
+        del mods
+        torch.cuda.empty_cache()
+        paths["train"] = train(device, weights_root)
+        paths["train_bf16"] = train_bf16(device, weights_root)
+    finally:
+        shutil.rmtree(weights_root, ignore_errors=True)
     paths["train_lora"] = train_lora(device)
     paths["train_mllm"] = train_mllm(device)
     if "jax" in sys.modules:

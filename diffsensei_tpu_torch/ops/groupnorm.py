@@ -17,8 +17,9 @@ normalize; x is read twice). See the source for the design.
 ``groupnorm_silu`` runs the kernel for CUDA tensors and the plain twin
 ``groupnorm_silu_ref`` for CPU tensors; any other device, or a CUDA input the
 kernel does not take, raises. ``kernel_takes`` says which inputs those are,
-without raising: the model layer sends them to the twin. ``launches`` counts wrapper calls that launched
-the kernel, ``calls`` the same by ``(shape, dtype name)``. When an input
+without raising: the model layer sends them to the twin. ``launches`` counts
+wrapper calls that launched the kernel, ``calls`` the same by ``(shape, dtype
+name)``. When an input
 requires a gradient the call goes through ``GroupNormSiLUFn``, whose backward
 recomputes the twin and takes its VJP, as the JAX ``_fused_bwd``
 (``groupnorm.py:102``) does: there is no backward kernel, on the TPU either.

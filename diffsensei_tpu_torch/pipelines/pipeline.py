@@ -83,7 +83,7 @@ class PipelineModules:
     resampler: Optional[Resampler] = None
     tokenizer: Any = None      # callable(str, ...) like an HF tokenizer, or None
     tokenizer_2: Any = None
-    device: Optional[torch.device] = None   # where the builder put (or will put) the weights
+    device: Optional[torch.device] = None   # where ``build`` put (or will put) the weights
 
     INITS = ("random", "zeros", "none")
 
@@ -141,7 +141,7 @@ class PipelineModules:
         """Full-width stack: SDXL UNet with the manga modules and the
         encoders in bf16, fp32 VAE (CLIP-L + OpenCLIP-bigG, CLIP ViT-H + Magi
         ViTMAE, the DiffSensei Resampler); weights by ``init`` (random from
-        ``seed`` by default; the JAX builder's default is zeros); UNet
+        ``seed`` by default; the JAX ``sdxl``'s default is zeros); UNet
         adapters of ``lora_rank``; the UNet's and VAE's conv weights
         ``channels_last``."""
         cfgs = sdxl_configs()
@@ -150,7 +150,7 @@ class PipelineModules:
 
     def fill_missing_params(self, device=None) -> None:
         """Zero-fill every parameter still on the meta device, on ``device``
-        (default the builder's), in its dtype and layout; loaded weights stay
+        (default ``build``'s), in its dtype and layout; loaded weights stay
         (the JAX ``fill_missing_params``, which zero-fills the components
         whose trees are still ``None``)."""
         device = torch.device(device) if device is not None else self.device
@@ -236,6 +236,8 @@ class DiffSenseiPipeline:
         return self.m.unet.conv_in.weight.device
 
     def _ids(self, ids) -> torch.Tensor:
+        if isinstance(ids, torch.Tensor):      # a tokenized prompt, already on the card
+            return ids.to(self.device, torch.long)
         return torch.as_tensor(np.ascontiguousarray(ids), dtype=torch.long,
                                device=self.device)
 

@@ -49,7 +49,7 @@ from diffsensei_tpu_torch.train.optim import (
     make_lr_schedule, make_optimizer, partition_params, unet_trainable_mask)
 from diffsensei_tpu_torch.train.runner import RunConfig, run_training
 from diffsensei_tpu_torch.utils.load import apply_ported_weights
-from diffsensei_tpu_torch.utils.tokenizer import load_tokenizer
+from diffsensei_tpu_torch.utils.tokenizer import CLIPTokenizer
 
 
 def hash_tokenizer(vocab_size: int = 49408, length: int = 77) -> Callable[[str], np.ndarray]:
@@ -66,6 +66,13 @@ def hash_tokenizer(vocab_size: int = 49408, length: int = 77) -> Callable[[str],
         ids[len(words) + 1] = vocab_size - 1
         return ids
     return tok
+
+
+def load_tokenizer(path: Optional[str], vocab_size: int) -> Callable[[str], np.ndarray]:
+    """The CLIP tokenizer of a tokenizer directory (``vocab.json``,
+    ``merges.txt``), or the CRC-32 word hash without one (the JAX CLI's
+    ``_load_tokenizer``)."""
+    return CLIPTokenizer.from_pretrained(path) if path else hash_tokenizer(vocab_size)
 
 
 def build_models(model_cfg: Dict[str, Any], device="cuda", seed: int = 0) -> PipelineModules:

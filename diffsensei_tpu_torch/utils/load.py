@@ -22,9 +22,9 @@ checkpoint's ``decoder.*`` ...) is ignored and listed on stdout. Adapter
 (LoRA) weights a file lacks load as zeros, as the JAX trees lack them.
 
 Every tensor is cast to its module parameter's dtype and laid out with its
-strides (``channels_last`` where the builder set it) on the module's device
-before ``load_state_dict(..., assign=True)``; the modules end in ``eval()``
-with no gradients. Files: ``.safetensors`` through the reader below (no
+strides (``channels_last`` where ``PipelineModules.sdxl`` set it) on the
+module's device before ``load_state_dict(..., assign=True)``; the modules end
+in ``eval()`` with no gradients. Files: ``.safetensors`` through the reader below (no
 ``safetensors`` package), anything else through ``torch.load``.
 """
 
@@ -169,9 +169,9 @@ def take(module: nn.Module, sd: Mapping[str, torch.Tensor], component: str,
     ``optional``."""
     if rename is not None:
         sd = {rename(k): v for k, v in sd.items()}
-    names = module.state_dict().keys()
+    names, optional = module.state_dict().keys(), set(optional)
     _report_ignored(component, set(sd) - set(names))
-    missing = [n for n in names if n not in sd and n not in set(optional)]
+    missing = [n for n in names if n not in sd and n not in optional]
     if missing:
         more = f" ... (+{len(missing) - 6})" if len(missing) > 6 else ""
         raise KeyError(f"{component}: the checkpoint lacks {len(missing)} key(s) the module "
@@ -209,16 +209,15 @@ def unet_entries(unet: nn.Module, sd: Mapping[str, torch.Tensor]) -> Tuple[State
     dialog = [n for n in names if n == "dialog_bbox_embedding"]
     entries = take(unet, sd, "unet", optional=ip + dialog + _adapters(names), rename=_ip_name)
     seeded = 0
-    for n in ip:
-        if n.endswith("to_k_ip.weight") and n not in entries:
-            if n.replace("to_k_ip", "to_v_ip") in entries:
-                raise KeyError(f"unet: the checkpoint has {n.replace('to_k_ip', 'to_v_ip')} "
-                               f"but not {n}")
+    for k_ip in (n for n in ip if ".to_k_ip." in n):
+        v_ip = k_ip.replace(".to_k_ip.", ".to_v_ip.")
+        if (k_ip in entries) != (v_ip in entries):
+            raise KeyError(f"unet: the checkpoint has one of {k_ip} and {v_ip} only")
+        if k_ip not in entries:
             seeded += 1
-        if n not in entries:
-            base = n.replace(".processor.to_k_ip.", ".to_k.").replace(
-                ".processor.to_v_ip.", ".to_v.")
-            entries[n] = entries[base].clone()
+            for n, proj in ((k_ip, ".to_k."), (v_ip, ".to_v.")):
+                entries[n] = entries[n.replace(".processor.to_k_ip.", proj)
+                                     .replace(".processor.to_v_ip.", proj)].clone()
     entries.update(_zeros_for(unet, [n for n in dialog + _adapters(names) if n not in entries]))
     return entries, seeded
 
@@ -267,11 +266,6 @@ def llama_entries(llm: nn.Module, sd: Mapping[str, torch.Tensor]) -> StateDict:
     entries = take(llm, sd, "llm", optional=_adapters(names), rename=llama_name)
     entries.update(_zeros_for(llm, [n for n in _adapters(names) if n not in entries]))
     return entries
-
-
-def qwen_resampler_entries(resampler: nn.Module, sd: Mapping[str, torch.Tensor],
-                           component: str) -> StateDict:
-    return take(resampler, sd, component)
 
 
 def attn_processor_slots(cfg) -> List[Optional[str]]:
@@ -477,7 +471,7 @@ def agent_entries(agent, groups: Mapping[str, Mapping[str, torch.Tensor]]
         out["llm"] = llama_entries(agent.llm, groups["llm"])
     for name in ("input_resampler", "output_resampler"):
         if groups[name]:
-            out[name] = qwen_resampler_entries(getattr(agent, name), groups[name], name)
+            out[name] = take(getattr(agent, name), groups[name], name)
     return out
 
 

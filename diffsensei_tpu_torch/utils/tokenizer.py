@@ -28,7 +28,7 @@ import os
 import re
 import sys
 import unicodedata
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -211,29 +211,16 @@ class CLIPTokenizer:
         out[:len(body) + 2] = [self.bos_token_id, *body, self.eos_token_id]
         return out
 
-    def __call__(self, text: Union[str, Sequence[str]], padding=None,
-                 max_length: Optional[int] = None, truncation=None, return_tensors=None):
+    def __call__(self, text: str, padding=None, max_length: Optional[int] = None,
+                 truncation=None, return_tensors=None):
         """``tok(text)`` -> int32 ids ``[77]``; with HF's keywords
-        (``padding="max_length"``, ``truncation=True``, ``return_tensors``)
-        -> ``{"input_ids": [n_texts, max_length]}``, always padded and
-        truncated to ``max_length``."""
+        (``padding="max_length"``, ``truncation=True``,
+        ``return_tensors="np"``) -> ``{"input_ids": [1, max_length]}``."""
+        ids = self.ids(text, max_length)
         if padding is None and truncation is None and return_tensors is None:
-            if not isinstance(text, str):
-                raise TypeError("tok(text) takes one string; pass HF keywords for a batch")
-            return self.ids(text, max_length)
-        if padding not in (None, True, "max_length") or truncation not in (None, True):
-            raise ValueError("only padding='max_length' with truncation is supported")
-        if return_tensors not in (None, "np"):
-            raise ValueError(f"return_tensors={return_tensors!r}: only 'np' is supported")
-        texts = [text] if isinstance(text, str) else list(text)
-        return {"input_ids": np.stack([self.ids(t, max_length) for t in texts])}
-
-
-def load_tokenizer(path: Optional[str], vocab_size: int):
-    """The tokenizer of a CLIP tokenizer directory; without one, the CRC-32
-    word hash of ``train/cli.py::hash_tokenizer``."""
-    if path:
-        return CLIPTokenizer.from_pretrained(path)
-    from diffsensei_tpu_torch.train.cli import hash_tokenizer
-
-    return hash_tokenizer(vocab_size)
+            return ids
+        if padding not in (True, "max_length") or truncation is not True \
+                or return_tensors not in (None, "np"):
+            raise ValueError("only padding='max_length', truncation=True and "
+                             "return_tensors='np' are supported")
+        return {"input_ids": ids[None]}

@@ -435,7 +435,7 @@ def test_load_weights_any_reads_yaml_artifacts_and_exports(ref, artifact, tmp_pa
 
 
 # ---------------------------------------------------------------------------
-# fill_missing_params and the builders' init
+# fill_missing_params and the constructors' init
 # ---------------------------------------------------------------------------
 def test_fill_missing_params_zero_fills_what_jax_zero_fills(ref, tmp_path):
     """Load a UNet only, then fill: the same components zero-filled as the
@@ -526,6 +526,33 @@ def test_agent_weights_load_what_jax_loads(agent_pair, tmp_path, names):
         assert_equal(getattr(tagent, name), sd_want, name)
 
 
+@pytest.mark.parametrize("num_kv_heads", [4, 2])
+def test_hf_llama_state_dict_loads_to_hf_logits(num_kv_heads):
+    """A randomly initialised ``transformers.LlamaForCausalLM``'s state dict,
+    loaded by name (``llama_entries``), gives HF's logits (the JAX package's
+    ``tests/test_port_llama.py`` for the port)."""
+    from diffsensei_tpu_torch.core.config import LlamaConfig
+    from diffsensei_tpu_torch.models.mllm.llama import LlamaForCausalLM
+
+    transformers = pytest.importorskip("transformers")
+    torch.manual_seed(0)
+    hf = transformers.LlamaForCausalLM(transformers.LlamaConfig(
+        vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=num_kv_heads,
+        max_position_embeddings=128, rms_norm_eps=1e-5, rope_theta=10000.0,
+        attention_bias=False, tie_word_embeddings=False)).eval()
+    cfg = LlamaConfig(vocab_size=128, hidden_size=64, intermediate_size=128, num_layers=2,
+                      num_heads=4, num_kv_heads=num_kv_heads, max_position_embeddings=128)
+    with torch.device("meta"):
+        llm = LlamaForCausalLM(cfg, lora_rank=4)
+    tload.assign(llm, tload.llama_entries(llm, hf.state_dict()), "cpu", "llm")
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 128, (2, 12)))
+    with torch.no_grad():
+        want = hf(ids).logits
+        got, _, _ = llm(ids)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
 @pytest.mark.parametrize("bits", [8, 4])
 def test_host_quantization_is_the_bytes_of_quantize_agent(agent_pair, tmp_path, bits):
     """``--quantize-llm``'s load: an agent on the meta device, the
@@ -612,7 +639,7 @@ def test_train_cli_loads_weights_and_tokenizers_and_steps_as_jax(std, tmp_path, 
             if "loss" not in seen:
                 np_batch = {k: v.numpy() for k, v in batch.items()}
                 draws = _jax_draws(jm, np_batch, jax.random.key(1))
-                kw = {k: torch.from_numpy(v) for k, v in draws.items()}
+                kw = {k: torch.from_numpy(v.copy()) for k, v in draws.items()}
                 out = loss_fn(frozen, batch, **kw)
                 seen.update(batch=np_batch, loss=float(out[0].detach()))
                 return out

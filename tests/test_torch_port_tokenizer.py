@@ -120,18 +120,21 @@ def test_ids_equal_transformers_clip_tokenizer(vocab_dir):
         assert np.array_equal(tok(prompt), want[0]) and tok(prompt).dtype == np.int32
     # the long prompt was cut to 75 tokens, and the short ones were padded
     assert tok(PROMPTS[8])[-1] == tok.eos_token_id
-    assert tok(PROMPTS[5]).tolist() == [tok.bos_token_id, tok.eos_token_id] + [tok.pad_token_id] * 75
+    empty = [tok.bos_token_id, tok.eos_token_id] + [tok.pad_token_id] * 75
+    assert tok(PROMPTS[5]).tolist() == empty
 
 
-def test_both_call_styles_and_a_batch(vocab_dir):
+def test_both_call_styles(vocab_dir):
+    """``tok(text)`` (the datasets' call) and the HF-style call (the
+    pipeline's) give the same ids; other HF options are refused."""
     tok = CLIPTokenizer.from_pretrained(str(vocab_dir))
-    batch = tok(["a young girl", "two boys"], padding="max_length", max_length=77,
-                truncation=True, return_tensors="np")["input_ids"]
-    assert batch.shape == (2, 77)
-    assert np.array_equal(batch[0], tok("a young girl"))
-    assert np.array_equal(batch[1], tok("two boys"))
+    hf_style = tok("a young girl", padding="max_length", max_length=77, truncation=True,
+                   return_tensors="np")["input_ids"]
+    assert hf_style.shape == (1, 77) and np.array_equal(hf_style[0], tok("a young girl"))
     with pytest.raises(ValueError):
         tok("x", padding="longest", return_tensors="np")
+    with pytest.raises(ValueError):
+        tok("x", padding="max_length", truncation=True, return_tensors="pt")
 
 
 # ---------------------------------------------------------------------------
