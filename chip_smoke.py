@@ -42,7 +42,9 @@ Run from the root of the repository. Phases, one JSON line each:
    phases), loaded into ``PipelineModules.sdxl(init="none")`` through
    ``utils.load.load_weights_any`` (every parameter's dtype, device and
    strides R1's), R1's request from it bit-equal to R1's panel with R1's
-   launches, then the serve CLI once on the directory with ``--weights`` and
+   launches, the same request again from the built, the loaded and the
+   built stack (seconds and the allocator's new segments of each), then the
+   serve CLI once on the directory with ``--weights`` and
    a CLIP vocabulary the smoke writes (``--tokenizer``); serve_extras: R1's
    request on the same modules
    through six legs (DDIM 4 steps unconditioned, DPM-Solver++ 12, Euler 20
@@ -1164,46 +1166,50 @@ PROMPT_WORDS = ["two", "girls", "talk", "on", "a", "rainy", "street", "one", "ho
                 "umbrella", "speech", "bubble", "manga", "panel", "night", "city", "lights"]
 
 
-def write_clip_vocab(root) -> None:
-    """A CLIP tokenizer directory: the 256 byte symbols (ids 0-255), their
-    ``</w>`` forms (256-511), the prefix merges of ``PROMPT_WORDS`` (each word
-    merged left to right into one token), and ``<|startoftext|>`` /
-    ``<|endoftext|>`` at CLIP's 49406 / 49407."""
-    from diffsensei_tpu_torch.utils.tokenizer import bytes_to_unicode
-
-    root.mkdir(parents=True, exist_ok=True)
-    symbols = list(bytes_to_unicode().values())
-    vocab = symbols + [s + "</w>" for s in symbols]
+def prompt_merges(words=PROMPT_WORDS) -> list:
+    """BPE merges that join each of ``words`` left to right into one token."""
     merges = []
-    for word in PROMPT_WORDS:
+    for word in words:
         parts = list(word[:-1]) + [word[-1] + "</w>"]
         while len(parts) > 1:
             pair = (parts[0], parts[1])
             if pair not in merges:
                 merges.append(pair)
             parts = [parts[0] + parts[1]] + parts[2:]
+    return merges
+
+
+def write_clip_vocab(root, merges, pad_token="<|endoftext|>"):
+    """A CLIP tokenizer directory in the released layout: the 256 byte
+    symbols (ids 0-255), their ``</w>`` forms (256-511), the tokens of
+    ``merges`` in order, then ``<|startoftext|>`` and ``<|endoftext|>``;
+    ``special_tokens_map.json`` naming the pad token."""
+    from diffsensei_tpu_torch.utils.tokenizer import bytes_to_unicode
+
+    root = pathlib.Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    symbols = list(bytes_to_unicode().values())
+    vocab = symbols + [s + "</w>" for s in symbols]
     vocab += list(dict.fromkeys("".join(m) for m in merges if "".join(m) not in vocab))
-    ids = {t: i for i, t in enumerate(vocab)}
-    ids.update({"<|startoftext|>": 49406, "<|endoftext|>": 49407})
-    (root / "vocab.json").write_text(json.dumps(ids, ensure_ascii=False), encoding="utf-8")
+    vocab += ["<|startoftext|>", "<|endoftext|>"]
+    (root / "vocab.json").write_text(json.dumps({t: i for i, t in enumerate(vocab)},
+                                                ensure_ascii=False), encoding="utf-8")
     (root / "merges.txt").write_text("#version: 0.2\n" + "\n".join(" ".join(m) for m in merges)
                                      + "\n", encoding="utf-8")
-
-
-# the released artifact layout (``diffsensei_tpu/utils/load.py:60-75``): the
-# UNet and the Resampler as torch files, the rest as safetensors
-ARTIFACT = {"unet": "unet/pytorch_model.bin",
-            "resampler": "image_proj_model/pytorch_model.bin",
-            "vae": "vae/diffusion_pytorch_model.safetensors",
-            "text_encoder": "text_encoder/model.safetensors",
-            "text_encoder_2": "text_encoder_2/model.safetensors",
-            "image_encoder": "clip_image_encoder/model.safetensors",
-            "magi_encoder": "magi_image_encoder/model.safetensors"}
+    special = dict(bos_token="<|startoftext|>", eos_token="<|endoftext|>",
+                   unk_token="<|endoftext|>", pad_token=pad_token)
+    (root / "special_tokens_map.json").write_text(json.dumps(special))
+    return root
 
 
 def artifact_paths(root) -> dict:
-    """The component files of the artifact directory at ``root``."""
-    return {name: str(root / "image_generator" / rel) for name, rel in ARTIFACT.items()}
+    """The component files of the artifact directory at ``root``: the first
+    of each component's names in ``utils.load.ARTIFACT_FILES`` (the UNet and
+    the Resampler as torch files, the rest as safetensors)."""
+    from diffsensei_tpu_torch.utils.load import ARTIFACT_FILES
+
+    return {name: str(root / "image_generator" / files[0])
+            for name, files in ARTIFACT_FILES.items()}
 
 
 def serve_weights(device, mods, r1, root) -> dict:
@@ -1253,15 +1259,17 @@ def serve_weights(device, mods, r1, root) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     calls_before = gn_calls()
+    segments = torch.cuda.memory_stats()["segment.all.allocated"]
     t0 = time.perf_counter()
     img = server.generate(req)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     got = launch_counts()
+    segments = torch.cuda.memory_stats()["segment.all.allocated"] - segments
     check_gn_calls(gn_calls(calls_before), "serve_weights", GN_CALLS_R1)
     row = dict(write_s=write_s, load_s=load_s, disk_gb=disk / 1e9,
                load_peak_gib=load_peak, seconds=seconds,
-               bit_equal_to_r1=bool(np.array_equal(img, want)),
+               new_segments=segments, bit_equal_to_r1=bool(np.array_equal(img, want)),
                max_abs_diff_to_r1=float(np.abs(img - want).max()),
                params_checked=sum(1 for m in mods.networks().values() for _ in m.parameters()),
                layout_mismatches=mismatched[:8], on_meta=on_meta[:8],
@@ -1271,12 +1279,27 @@ def serve_weights(device, mods, r1, root) -> dict:
     want_counts = expect(flash_fwd=20 * 70, groupnorm=20 * 34 + 28, dual=20 * 70)
     if mismatched or on_meta or not row["bit_equal_to_r1"] or got != want_counts:
         raise AssertionError(f"the loaded stack differs from the in-memory one: {row}")
-    del server, loaded
+    # the same request again from the built stack, the loaded one, the built
+    # one: the loaded stack's time against the built one's in one phase, and
+    # the allocator's new segments (cudaMalloc) of each
+    built = DiffSenseiServer(DiffSenseiPipeline(mods))
+    for leg, srv in (("built", built), ("loaded", server), ("built", built)):
+        before, segments = launch_counts(), torch.cuda.memory_stats()["segment.all.allocated"]
+        t0 = time.perf_counter()
+        img = srv.generate(req)
+        torch.cuda.synchronize()
+        row = dict(leg=leg, seconds=time.perf_counter() - t0,
+                   new_segments=torch.cuda.memory_stats()["segment.all.allocated"] - segments,
+                   bit_equal_to_r1=bool(np.array_equal(img, want)), launches=since(before))
+        emit({"phase": "serve_weights_again", **row})
+        if not row["bit_equal_to_r1"] or row["launches"] != want_counts:
+            raise AssertionError(f"a repeated request differs from R1: {row}")
+    del server, built, loaded
     gc.collect()
     torch.cuda.empty_cache()
 
     # the serve CLI on the same directory, with tokenizer files
-    write_clip_vocab(root / "tokenizer")
+    write_clip_vocab(root / "tokenizer", prompt_merges())
     out = root / "cli_panel.png"
     torch.cuda.reset_peak_memory_stats()
     before = launch_counts()
@@ -1681,8 +1704,12 @@ def agent_weights(device, root, num_layers: int = 2, prompt_len: int = 24) -> di
     from diffsensei_tpu_torch.models.mllm.seed_x import ContinuousLVLM
     from diffsensei_tpu_torch.utils.load import agent_entries, load_torch_file, split_agent_ckpt
 
+    # what serve_agent left on the card that only a collection frees
+    held = torch.cuda.memory_allocated()
     gc.collect()
     torch.cuda.empty_cache()
+    emit({"phase": "agent_weights_collect", "allocated_before_gib": held / 2**30,
+          "allocated_after_gib": torch.cuda.memory_allocated() / 2**30})
     acfg = AgentConfig()
     acfg = dataclasses.replace(acfg, llm=dataclasses.replace(acfg.llm, num_layers=num_layers))
     agent = ContinuousLVLM.build(acfg, dtype=torch.bfloat16, device=device, seed=7)
@@ -1886,6 +1913,8 @@ def train(device, weights_root) -> dict:
             max_train_steps=TRAIN_STEPS, log_every=1, checkpoint_every=3))
 
         apply = snapshot_after_overlay(cli, snap, built)
+        emit({"phase": "train_start",
+              "memory_allocated_gib": torch.cuda.memory_allocated() / 2**30})
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = clock["last"] = time.perf_counter()

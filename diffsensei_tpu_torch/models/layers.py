@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from diffsensei_tpu_torch.ops.groupnorm import groupnorm_silu, groupnorm_silu_ref, kernel_takes
+from diffsensei_tpu_torch.ops.groupnorm import groupnorm_silu, groupnorm_silu_ref, kernel_plan
 
 
 def _cast(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
@@ -99,9 +99,10 @@ class FusedGroupNormSiLU(nn.Module):
     """GroupNorm + SiLU through kernel B3 (``ops/groupnorm.py``); the
     parameter names are ``nn.GroupNorm``'s. Kernel and twin read the scale
     and shift in fp32 whatever their dtype, so they need no cast. A CUDA
-    input the kernel does not take (``kernel_takes``: a dtype other than bf16
-    or fp32, a shape ``plan`` rejects) runs the twin, as the JAX entry
-    does; the choice is made before any launch."""
+    input the kernel has no plan for (``kernel_plan``: a dtype other than
+    bf16 or fp32, a shape ``plan`` rejects) runs the twin, as the JAX entry
+    does; the choice is made before any launch, and a malformed input (a
+    misaligned x) still raises."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
                  dtype=None, device=None):
@@ -113,10 +114,12 @@ class FusedGroupNormSiLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous()
-        if x.device.type == "cuda" and not kernel_takes(x, self.weight, self.bias,
-                                                         self.num_groups):
-            return groupnorm_silu_ref(x, self.weight, self.bias, self.num_groups, self.eps)
-        return groupnorm_silu(x, self.weight, self.bias, self.num_groups, self.eps)
+        checked = None
+        if x.device.type == "cuda":
+            checked = kernel_plan(x, self.weight, self.bias, self.num_groups)
+            if isinstance(checked, str):
+                return groupnorm_silu_ref(x, self.weight, self.bias, self.num_groups, self.eps)
+        return groupnorm_silu(x, self.weight, self.bias, self.num_groups, self.eps, checked)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,

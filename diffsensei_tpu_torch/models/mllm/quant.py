@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -55,18 +55,19 @@ def quantize_kernel_int4(w: np.ndarray,
     return pack_int4_host(q.reshape(in_f, padded)), scale
 
 
-def _merge(kernel, lora_a, lora_b, alpha: Optional[float]) -> np.ndarray:
-    """``kernel + (alpha / rank) * (a @ b)`` in fp32, cast back to kernel's dtype."""
+def _merge(kernel, lora_a, lora_b) -> np.ndarray:
+    """``kernel + (16 / rank) * (a @ b)`` in fp32 (16: the LLM's LoRA alpha),
+    cast back to kernel's dtype."""
     a = np.ascontiguousarray(lora_a, np.float32)
     b = np.ascontiguousarray(lora_b, np.float32)
-    scale = (16.0 if alpha is None else alpha) / a.shape[-1]
+    scale = 16.0 / a.shape[-1]
     kern = np.asarray(kernel)
     return (np.asarray(kern, np.float32) + scale * (a @ b)).astype(kern.dtype)
 
 
-def merge_llm_lora(params: Any, alpha: Optional[float] = None) -> Any:
+def merge_llm_lora(params: Any) -> Any:
     """Fold ``lora_a``/``lora_b`` into their nested ``base/kernel`` (JAX tree
-    layout); the adapters are dropped. ``alpha`` defaults to 16."""
+    layout); the adapters are dropped."""
     def walk(node):
         if not isinstance(node, dict):
             return node
@@ -76,7 +77,7 @@ def merge_llm_lora(params: Any, alpha: Optional[float] = None) -> Any:
                 and "kernel" in node["base"]):
             a, b = node.pop("lora_a"), node.pop("lora_b")
             base = dict(node["base"])
-            base["kernel"] = _merge(base["kernel"], a, b, alpha)
+            base["kernel"] = _merge(base["kernel"], a, b)
             node["base"] = base
         return {k: walk(v) for k, v in node.items()}
 
@@ -108,8 +109,8 @@ def quantize_llm_params(params: Any, bits: int = 8) -> Any:
     return walk(params)
 
 
-def quantize_llm_state(state: Mapping[str, torch.Tensor], bits: int = 8,
-                       alpha: Optional[float] = None) -> Dict[str, torch.Tensor]:
+def quantize_llm_state(state: Mapping[str, torch.Tensor],
+                       bits: int = 8) -> Dict[str, torch.Tensor]:
     """A float LLM's state dict (the port's names, adapters included, any
     device) -> the state dict of the quantized, LoRA-free LLM on the host:
     each projection's adapters merged in fp32 and rounded to its weight's
@@ -130,7 +131,7 @@ def quantize_llm_state(state: Mapping[str, torch.Tensor], bits: int = 8,
         adapter = owner.removesuffix(".base")
         if f"{adapter}.lora_A.weight" in state and owner != "lm_head":
             merged = _merge(kern, host(state[f"{adapter}.lora_A.weight"]).T,
-                            host(state[f"{adapter}.lora_B.weight"]).T, alpha)
+                            host(state[f"{adapter}.lora_B.weight"]).T)
             # round to the weight's dtype, as the JAX tree's astype does
             kern = torch.from_numpy(merged).to(value.dtype).float().numpy()
         for name, q in _quantize(kern, bits).items():
@@ -146,14 +147,14 @@ def _quantized_llm(config, bits: int, dtype):
 
 
 @torch.no_grad()
-def quantize_agent(agent, alpha: Optional[float] = None, bits: int = 8):
+def quantize_agent(agent, bits: int = 8):
     """``ContinuousLVLM`` -> the same agent with a quantized, LoRA-free LLM
     (``bits=8`` int8 per channel, ``bits=4`` group-wise int4), on the same
     device and in the same dtype. The resamplers are shared, not copied."""
     src = agent.llm
     if src.quantized:
         raise ValueError("the agent's LLM is already quantized")
-    state = quantize_llm_state(src.state_dict(), bits, alpha)
+    state = quantize_llm_state(src.state_dict(), bits)
     qllm = _quantized_llm(src.config, bits, src.dtype)
     qllm.to_empty(device=src.lm_head.weight.device).load_state_dict(state)
     qllm.eval().requires_grad_(False)
@@ -162,7 +163,7 @@ def quantize_agent(agent, alpha: Optional[float] = None, bits: int = 8):
 
 @torch.no_grad()
 def quantize_agent_on_host(agent, entries: Mapping[str, Mapping[str, torch.Tensor]],
-                           bits: int = 8, device="cuda", alpha: Optional[float] = None):
+                           bits: int = 8, device="cuda"):
     """The serve CLI's ``--quantize-llm`` load: ``agent`` built on the meta
     device and its checkpoint's state dicts (``utils.load.agent_entries``,
     host tensors) -> the agent with the quantized LLM and both resamplers on
@@ -175,8 +176,7 @@ def quantize_agent_on_host(agent, entries: Mapping[str, Mapping[str, torch.Tenso
         if name not in entries:
             raise ValueError(f"--quantize-llm: the agent checkpoint is missing the {name} group")
     llm = agent.llm
-    state = quantize_llm_state({k: v.to(llm.dtype) for k, v in entries["llm"].items()},
-                               bits, alpha)
+    state = quantize_llm_state({k: v.to(llm.dtype) for k, v in entries["llm"].items()}, bits)
     qllm = _quantized_llm(llm.config, bits, llm.dtype)
     assign(qllm, state, device, "llm")
     for name in ("input_resampler", "output_resampler"):

@@ -16,8 +16,10 @@ normalize; x is read twice). See the source for the design.
 
 ``groupnorm_silu`` runs the kernel for CUDA tensors and the plain twin
 ``groupnorm_silu_ref`` for CPU tensors; any other device, or a CUDA input the
-kernel does not take, raises. ``kernel_takes`` says which inputs those are,
-without raising: the model layer sends them to the twin. ``launches`` counts
+kernel does not take, raises. ``kernel_plan`` makes the wrapper's checks
+once: it gives the plan, or why the kernel has none for the inputs' dtypes or
+shape (the model layer then runs the twin), and raises for malformed
+inputs. ``launches`` counts
 wrapper calls that launched the kernel, ``calls`` the same by ``(shape, dtype
 name)``. When an input
 requires a gradient the call goes through ``GroupNormSiLUFn``, whose backward
@@ -132,23 +134,40 @@ def _plan(shape: Tuple[int, int, int, int], dtype: torch.dtype, num_groups: int,
     return f"groupnorm_silu: no kernel for {c} channels of {dtype} in {num_groups} groups"
 
 
-def kernel_takes(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                 num_groups: int) -> bool:
-    """Whether the CUDA kernel takes these inputs: every check of the
-    launching wrapper, made from dtypes, shapes and addresses alone, without
-    raising. ``FusedGroupNormSiLU`` sends the rest to the plain twin, as the
-    JAX entry does (``diffsensei_tpu/ops/groupnorm.py:120``). It reads no
-    device state but the card's SM count, so it answers for CPU tensors too
-    (as if they were on an H100)."""
-    if x.dim() != 4 or not x.is_contiguous() or x.dtype not in (torch.bfloat16, torch.float32):
-        return False
+def kernel_plan(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                num_groups: int) -> Plan | str:
+    """Every check the launching wrapper makes, once: the kernel's plan for
+    these inputs, or why it has none for their dtypes or shape (x, scale or
+    bias neither bf16 nor fp32, or a shape ``plan`` rejects). Those are the
+    inputs the JAX entry (``diffsensei_tpu/ops/groupnorm.py:120``) runs on
+    its plain path: ``FusedGroupNormSiLU`` sends them to the twin and the
+    wrapper raises the reason. Inputs no path takes as they are raise
+    ``ValueError`` here: x not a contiguous 4-d NHWC tensor, a scale or bias
+    not a contiguous [C] tensor on x's device, x not aligned to the plan's
+    vector width. It reads no device state but the card's SM count, so it
+    answers for CPU tensors too (as if they were on an H100)."""
+    if x.dim() != 4:
+        raise ValueError(f"groupnorm_silu: x must be a 4-d bfloat16 or float32 "
+                         f"NHWC tensor, got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("groupnorm_silu: x must be contiguous NHWC")
     c = x.shape[-1]
-    if any(t.device != x.device or tuple(t.shape) != (c,) or not t.is_contiguous()
-           or t.dtype not in (torch.bfloat16, torch.float32) for t in (scale, bias)):
-        return False
+    for name, t in (("scale", scale), ("bias", bias)):
+        if t.device != x.device or tuple(t.shape) != (c,) or not t.is_contiguous():
+            raise ValueError(f"groupnorm_silu: {name} must be a contiguous [{c}] "
+                             f"bfloat16 or float32 tensor on {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        return (f"groupnorm_silu: x must be a 4-d bfloat16 or float32 NHWC tensor, "
+                f"got {x.dtype} {tuple(x.shape)}")
+    for name, t in (("scale", scale), ("bias", bias)):
+        if t.dtype not in (torch.bfloat16, torch.float32):
+            return f"groupnorm_silu: {name} must be bfloat16 or float32, got {t.dtype}"
+    # a resident grid needs every block on the card at once: one an SM
     sms = _sms(x.device.index) if x.device.type == "cuda" else SMS
     p = _plan(tuple(x.shape), x.dtype, num_groups, sms)
-    return not isinstance(p, str) and x.data_ptr() % p.vec == 0
+    if not isinstance(p, str) and x.data_ptr() % p.vec:
+        raise ValueError(f"groupnorm_silu: x needs {p.vec}-byte alignment")
+    return p
 
 
 def groupnorm_silu_ref(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -202,26 +221,12 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _groupnorm_silu_cuda(x, scale, bias, num_groups, eps):
+def _groupnorm_silu_cuda(x, scale, bias, num_groups, eps, checked=None):
     global launches
-    if x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 4:
-        raise ValueError(f"groupnorm_silu: x must be a 4-d bfloat16 or float32 "
-                         f"NHWC tensor, got {x.dtype} {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("groupnorm_silu: x must be contiguous NHWC")
+    p = kernel_plan(x, scale, bias, num_groups) if checked is None else checked
+    if isinstance(p, str):
+        raise ValueError(p)
     b, h, w, c = x.shape
-    if c % num_groups or b * h * w == 0:
-        raise ValueError(f"groupnorm_silu: {c} channels, {num_groups} groups, "
-                         f"shape {tuple(x.shape)}")
-    for name, t in (("scale", scale), ("bias", bias)):
-        if (t.device != x.device or tuple(t.shape) != (c,) or not t.is_contiguous()
-                or t.dtype not in (torch.bfloat16, torch.float32)):
-            raise ValueError(f"groupnorm_silu: {name} must be a contiguous [{c}] "
-                             f"bfloat16 or float32 tensor on {x.device}")
-    # a resident grid needs every block on the card at once: one an SM
-    p = plan(tuple(x.shape), x.dtype, num_groups, _sms(x.device.index))
-    if x.data_ptr() % p.vec:
-        raise ValueError(f"groupnorm_silu: x needs {p.vec}-byte alignment")
     y = torch.empty_like(x)
     ws = torch.empty(p.workspace_floats, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
@@ -239,12 +244,12 @@ def _groupnorm_silu_cuda(x, scale, bias, num_groups, eps):
     return y
 
 
-def _forward(x, scale, bias, num_groups, eps):
+def _forward(x, scale, bias, num_groups, eps, checked):
     if x.device.type == "cpu":
         return groupnorm_silu_ref(x, scale, bias, num_groups, eps)
     if x.device.type != "cuda":
         raise ValueError(f"groupnorm_silu: no kernel for device {x.device}")
-    return _groupnorm_silu_cuda(x, scale, bias, num_groups, eps)
+    return _groupnorm_silu_cuda(x, scale, bias, num_groups, eps, checked)
 
 
 class GroupNormSiLUFn(torch.autograd.Function):
@@ -252,10 +257,10 @@ class GroupNormSiLUFn(torch.autograd.Function):
     ``groupnorm_silu_ref`` recomputed from the saved inputs."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, num_groups, eps):
+    def forward(ctx, x, scale, bias, num_groups, eps, checked):
         ctx.save_for_backward(x, scale, bias)
         ctx.num_groups, ctx.eps = num_groups, eps
-        return _forward(x, scale, bias, num_groups, eps)
+        return _forward(x, scale, bias, num_groups, eps, checked)
 
     @staticmethod
     def backward(ctx, g):
@@ -268,13 +273,15 @@ class GroupNormSiLUFn(torch.autograd.Function):
         out = [None] * 3
         for i, grad in zip(wanted, grads):
             out[i] = grad
-        return (*out, None, None)
+        return (*out, None, None, None)
 
 
 def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                   num_groups: int, eps: float = 1e-5) -> torch.Tensor:
+                   num_groups: int, eps: float = 1e-5,
+                   checked: Plan | None = None) -> torch.Tensor:
     """Fused GroupNorm + SiLU over NHWC ``x [B, H, W, C]``; differentiable in
-    all three tensors."""
+    all three tensors. ``checked``: a plan ``kernel_plan`` gave for these
+    inputs, so that a CUDA call does not check them again."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
-        return GroupNormSiLUFn.apply(x, scale, bias, num_groups, eps)
-    return _forward(x, scale, bias, num_groups, eps)
+        return GroupNormSiLUFn.apply(x, scale, bias, num_groups, eps, checked)
+    return _forward(x, scale, bias, num_groups, eps, checked)

@@ -88,7 +88,6 @@ GN_TWIN_CASES = [
     ("odd_bf16_channels", lambda: torch.zeros(1, 8, 8, 33, dtype=torch.bfloat16), None, None, 3),
     ("group_over_8kb", lambda: torch.zeros(1, 2, 2, 4160), None, None, 2),
     ("batch_over_65535", lambda: torch.zeros(65536, 1, 1, 32), None, None, 32),
-    ("misaligned_x", lambda: _misaligned((1, 4, 4, 64), torch.bfloat16), None, None, 32),
 ]
 
 
@@ -96,9 +95,10 @@ GN_TWIN_CASES = [
                          ids=[c[0] for c in GN_TWIN_CASES])
 def test_layer_routes_what_the_kernel_does_not_take_to_the_twin(
         monkeypatch, name, make_x, scale_dtype, bias_dtype, groups):
-    """``kernel_takes`` refuses each input ``plan`` or the dtype checks
-    reject, from dtypes, shapes and addresses alone, and ``FusedGroupNormSiLU``
-    then computes the twin's result (as the JAX entry runs its plain path)."""
+    """``kernel_plan`` gives a reason, not a plan, for each input ``plan`` or
+    the dtype checks reject, from dtypes and shapes alone, and
+    ``FusedGroupNormSiLU`` then computes the twin's result (as the JAX entry
+    runs its plain path)."""
     x = make_x()
     c = x.shape[-1]
     layer = layers.FusedGroupNormSiLU(groups, c)
@@ -109,11 +109,36 @@ def test_layer_routes_what_the_kernel_does_not_take_to_the_twin(
     layer.weight.data = layer.weight.data.to(scale_dtype or pdt)
     layer.bias.data = layer.bias.data.to(bias_dtype or pdt)
     x.copy_(torch.linspace(-1, 1, x.numel()).view(x.shape))   # in place: keeps the address
-    assert not tgn.kernel_takes(x, layer.weight, layer.bias, groups)
+    assert isinstance(tgn.kernel_plan(x, layer.weight, layer.bias, groups), str)
     with torch.no_grad():
         got = layer(x)
         want = tgn.groupnorm_silu_ref(x, layer.weight, layer.bias, groups, layer.eps)
     assert got.dtype == x.dtype and torch.equal(got, want)
+
+
+# (name, x, scale, bias, match): inputs no path takes as they are
+GN_FAULT_CASES = [
+    ("misaligned_x", lambda: _misaligned((1, 4, 4, 64), torch.bfloat16),
+     lambda: torch.ones(64), lambda: torch.zeros(64), "alignment"),
+    ("three_d_x", lambda: torch.zeros(8, 8, 64), lambda: torch.ones(64),
+     lambda: torch.zeros(64), "4-d"),
+    ("strided_x", lambda: torch.zeros(1, 8, 8, 64).transpose(1, 2),
+     lambda: torch.ones(64), lambda: torch.zeros(64), "contiguous"),
+    ("scale_of_65", lambda: torch.zeros(1, 8, 8, 64), lambda: torch.ones(65),
+     lambda: torch.zeros(64), "scale"),
+    ("bias_on_meta", lambda: torch.zeros(1, 8, 8, 64), lambda: torch.ones(64),
+     lambda: torch.zeros(64, device="meta"), "bias"),
+]
+
+
+@pytest.mark.parametrize("name,make_x,make_scale,make_bias,match", GN_FAULT_CASES,
+                         ids=[c[0] for c in GN_FAULT_CASES])
+def test_kernel_plan_raises_for_what_no_path_takes(name, make_x, make_scale, make_bias, match):
+    """Malformed inputs raise rather than run the twin: a misaligned x, an x
+    that is not contiguous 4-d NHWC, a scale or bias of another shape or
+    device. The layer asks ``kernel_plan`` on the card, so they raise there."""
+    with pytest.raises(ValueError, match=match):
+        tgn.kernel_plan(make_x(), make_scale(), make_bias(), 32)
 
 
 @pytest.mark.parametrize("shape,dtype_name", sorted({(c[0], c[1]) for c in chip_smoke.GN_CASES}),
@@ -124,7 +149,7 @@ def test_kernel_takes_every_path_shape(shape, dtype_name):
     dtype = getattr(torch, dtype_name)
     x = torch.empty(shape, dtype=dtype, device="meta")
     p = torch.empty(shape[-1], dtype=dtype, device="meta")
-    assert tgn.kernel_takes(x, p, p.float(), 32)
+    assert isinstance(tgn.kernel_plan(x, p, p.float(), 32), tgn.Plan)
 
 
 def test_plan_rejects_what_the_kernel_does_not_take():
@@ -161,7 +186,7 @@ def test_plan_fits_the_cards_sms():
 def _record_gn_calls(monkeypatch):
     seen = collections.Counter()
 
-    def record(x, scale, bias, num_groups, eps):
+    def record(x, scale, bias, num_groups, eps, checked=None):
         seen[(tuple(x.shape), str(x.dtype).removeprefix("torch."))] += 1
         return torch.empty_like(x)
     monkeypatch.setattr(layers, "groupnorm_silu", record)

@@ -387,6 +387,20 @@ def test_groupnorm_layer_runs_the_twin_for_what_the_kernel_does_not_take(cuda, s
 
 
 @pytest.mark.gpu
+def test_groupnorm_layer_raises_for_a_misaligned_input(cuda):
+    """A bf16 x the kernel has a plan for but that starts off its vector
+    width raises in ``FusedGroupNormSiLU`` instead of running the twin."""
+    from diffsensei_tpu_torch.models.layers import FusedGroupNormSiLU
+
+    layer = FusedGroupNormSiLU(32, 64, dtype=torch.bfloat16, device=cuda)
+    x = torch.zeros(8 * 8 * 64 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(1, 8, 8, 64)
+    before = tgn.launches
+    with torch.no_grad(), pytest.raises(ValueError, match="alignment"):
+        layer(x)
+    assert tgn.launches == before
+
+
+@pytest.mark.gpu
 def test_dispatcher_sends_long_bf16_attention_to_the_kernel(cuda):
     q = torch.randn(1, 2, 1024, 64, device=cuda).bfloat16()
     short = torch.randn(1, 2, 77, 64, device=cuda).bfloat16()

@@ -10,12 +10,12 @@ CLIP-L's pad token and with SDXL's second tokenizer's ``!``.
 """
 
 import collections
-import json
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from diffsensei_tpu_torch.utils.tokenizer import CLIPTokenizer, bytes_to_unicode
 
 torch.set_num_threads(1)
@@ -79,24 +79,9 @@ def _learn_merges(corpus: str, n: int):
 
 
 def write_clip_vocab(path, pad_token="<|endoftext|>", n_merges=300):
-    """A CLIP tokenizer directory in the released layout: byte symbols (ids
-    0-255), their ``</w>`` forms (256-511), the merges' tokens, then
-    ``<|startoftext|>`` and ``<|endoftext|>``; ``special_tokens_map.json``
-    naming the pad token."""
-    path.mkdir(parents=True, exist_ok=True)
-    symbols = list(bytes_to_unicode().values())
-    vocab = symbols + [s + "</w>" for s in symbols]
-    merges = _learn_merges(CORPUS, n_merges)
-    vocab += ["".join(m) for m in merges if "".join(m) not in vocab]
-    vocab += ["<|startoftext|>", "<|endoftext|>"]
-    (path / "vocab.json").write_text(json.dumps({t: i for i, t in enumerate(vocab)},
-                                                ensure_ascii=False), encoding="utf-8")
-    (path / "merges.txt").write_text("#version: 0.2\n" + "\n".join(" ".join(m) for m in merges)
-                                     + "\n", encoding="utf-8")
-    special = dict(bos_token="<|startoftext|>", eos_token="<|endoftext|>",
-                   unk_token="<|endoftext|>", pad_token=pad_token)
-    (path / "special_tokens_map.json").write_text(json.dumps(special))
-    return path
+    """``chip_smoke.write_clip_vocab`` with ``n_merges`` merges learned from
+    ``CORPUS``."""
+    return chip_smoke.write_clip_vocab(path, _learn_merges(CORPUS, n_merges), pad_token)
 
 
 @pytest.fixture(scope="module", params=["<|endoftext|>", "!"], ids=["clip_l_pad", "bang_pad"])
