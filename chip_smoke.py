@@ -53,7 +53,9 @@ Run from the root of the repository. Phases, one JSON line each:
    latent and image PSNR against R1's exact panel reported;
    deep_cache_exact: a full-width 1024² UNet forward with ``return_deep`` and
    one with its feature bit-equal (splits 2 and 1), and the interval-1 loop
-   bit-equal to the uncached loop over 2 steps;
+   bit-equal to the uncached loop over 2 steps; eval_pages: two frames of
+   ``MangaEvaluationDataset`` over synthetic MangaZero pages through the
+   server at their bucket, 4 Euler steps, exact launches;
 8. serve_agent: the same server with the SEED-X agent (int4 LLaMA-13B at
    full width, random weights) beside the SDXL stack on the one card: the
    1024² request again, its characters adapted by 500 greedy decode steps;
@@ -62,7 +64,9 @@ Run from the root of the repository. Phases, one JSON line each:
    the serve CLI's ``--quantize-llm --quantize-llm-bits 4`` path (built on
    the meta device, quantized on the host): bytes equal to
    ``quantize_agent`` of the agent in memory, 8 greedy ids equal, B6 15
-   launches a token, the load's device peak below the bf16 LLM's bytes.
+   launches a token, the load's device peak below the bf16 LLM's bytes;
+   eval_mllm_item: one ``MangaEvalMLLMDataset`` item's prompt ids with the
+   agent's token spec.
 9. profile_decode: ``torch.profiler`` over 16 of the agent's decode steps:
    device time and kernels a token, the device's busy share, the top kernels;
 10. flash_attention_bwd (run after phase 5): B2 (dQ) and B4 (dK/dV) against
@@ -80,7 +84,13 @@ Run from the root of the repository. Phases, one JSON line each:
    train_lora: 3 more stage-2 steps with UNet LoRA (rank 64) set in memory:
    only the adapters, the IP projections and the Resampler move, every base
    UNet weight stays bit-equal, and the merged rank-0 UNet agrees with the
-   adapter UNet;
+   adapter UNet; train_remat: T1 built once by the CLI with
+   ``model.remat_policy: attn`` and one CLI step, then from the same state
+   and batch one step under each remat policy (None, dots, attn, dots_attn,
+   dots_deepest): exact launches (B1 70 under attn and dots_attn, 140
+   otherwise), peaks, seconds, trainables bit-equal to the None step's;
+   train_proj: 2 stage-2 steps with the linear ``ImageProjDummyModel``
+   (``ip_adapter_plus=False``) on train_remat's modules;
 13. dual_cross_attention (after phase 5): B5 against its plain twin at the
    UNet's cross-attention shapes, with times beside the twin and two
    ``F.scaled_dot_product_attention`` calls, each row's bound and occupancy;
@@ -92,12 +102,14 @@ Run from the root of the repository. Phases, one JSON line each:
    ``configs/train/mllm.yaml`` at full SDXL and SEED-X width and depth (the
    13B LLaMA in bf16 with fp32 LoRA, embeddings, norms and resamplers), one
    line a step, checkpoints, the trainables moved and the frozen weights
-   bit-equal (checksums kept on the host); profile_train_mllm over one step.
+   bit-equal (checksums kept on the host), then 2 more steps with the
+   LLaMA's remat policy ``attn``; profile_train_mllm over one step of each.
 
 The kernels' launch counts are set to 0 before each served or trained path
 and checked after it (every kernel, every path), and B3's calls by shape
 with them (every shape a GN_CASES row; R1, R1 from files, R4 and T1
-exactly). Then the kernels line, the card's ``nvidia-smi`` line and, last,
+exactly). Every phase line carries ``at_s``, the seconds since the start. Then the
+kernels line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. Needs one CUDA device; imports nothing of JAX.
 """
@@ -130,7 +142,14 @@ def bound(nbytes: float, ops: float) -> dict:
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
+STARTED = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``at_s``), so that phases can be timed from the log."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -1556,6 +1575,60 @@ def deep_cache_exact(device, mods, r1_req) -> None:
         raise AssertionError(f"the interval-1 loop differs from the uncached loop: {loop}")
 
 
+EVAL_FRAMES, EVAL_STEPS = 2, 4
+
+
+def eval_pages(device, mods) -> dict:
+    """``MangaEvaluationDataset`` over the pages ``write_mangazero`` writes
+    (1024x1024 frames, four characters and two dialog boxes each): two
+    frames through ``DiffSenseiServer.generate`` at their bucket with their
+    characters' page crops, boxes and dialogs, 4 Euler steps, CFG 7.5, the
+    captions hashed to ids (``train.cli.hash_tokenizer``: no tokenizer files).
+    Checks: a panel of the bucket's shape, finite, in [0, 1]; exact launches
+    (a UNet forward B1 70, B3 34, B5 70; the decode B3 28)."""
+    import random
+    import torch
+    from diffsensei_tpu_torch.data.eval_dataset import MangaEvaluationDataset
+    from diffsensei_tpu_torch.pipelines.pipeline import DiffSenseiPipeline
+    from diffsensei_tpu_torch.serve.api import DiffSenseiServer, GenerationRequest
+    from diffsensei_tpu_torch.train.cli import hash_tokenizer
+
+    server = DiffSenseiServer(DiffSenseiPipeline(mods))
+    tok = hash_tokenizer(mods.text_encoder.config.vocab_size)
+    manga = mods.manga
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        write_mangazero(tmp, pages=EVAL_FRAMES)
+        dataset = MangaEvaluationDataset(str(tmp / "annotations.json"), str(tmp),
+                                         max_num_ips=manga.max_num_ips,
+                                         max_num_dialogs=manga.max_num_dialogs,
+                                         rng=random.Random(0))
+        items = [dataset[idx] for idx in range(EVAL_FRAMES)]
+    reset_counts()
+    for idx, item in enumerate(items):
+        ids, neg = tok(item["caption"])[None], tok("")[None]
+        req = GenerationRequest(
+            height=item["height"], width=item["width"], num_inference_steps=EVAL_STEPS,
+            guidance_scale=7.5, seed=idx, character_images=item["ip_images"],
+            ip_bbox=item["ip_bbox"], dialog_bbox=item["dialog_bbox"],
+            prompt_ids=dict(ids=ids, neg_ids=neg, ids_2=ids, neg_ids_2=neg))
+        before = launch_counts()
+        t0 = time.perf_counter()
+        img = server.generate(req)
+        torch.cuda.synchronize()
+        row = dict(frame=idx, height=req.height, width=req.width,
+                   characters=len(item["ip_images"]), dialogs=len(item["dialog_bbox"]),
+                   seconds=time.perf_counter() - t0, **panel_row(img, req.height, req.width),
+                   launches=since(before))
+        emit({"phase": "eval_pages", **row})
+        want = expect(flash_fwd=EVAL_STEPS * 70, groupnorm=EVAL_STEPS * 34 + 28,
+                      dual=EVAL_STEPS * 70)
+        if (req.height, req.width) != (1024, 1024) or row["characters"] < 1 \
+                or row["launches"] != want:
+            raise AssertionError(f"eval frame {row} (launches expected {want})")
+    return launch_counts()
+
+
 def serve_agent(device, mods, ids, max_new_tokens: int = 500) -> dict:
     """R1 with the SEED-X agent attached: ``ContinuousLVLM`` at ``AgentConfig()``
     width, int4, random weights from seed 0, beside ``mods`` on the card. One
@@ -1661,8 +1734,33 @@ def serve_agent(device, mods, ids, max_new_tokens: int = 500) -> dict:
     if img.shape != (1, 1024, 1024, 3) or not row["finite"] or row["min"] < 0.0 \
             or row["max"] > 1.0:
         raise AssertionError(f"bad panel: {row}")
+    eval_mllm_item(spec, encode, mods.manga)
     profile_decode(device, agent.llm)
     return launches
+
+
+def eval_mllm_item(spec, encode, manga) -> None:
+    """One ``MangaEvalMLLMDataset`` item over a ``write_mangazero`` page with
+    the agent's token spec: its prompt ids are the serving prompt of its
+    caption, with one comparison slot per image token."""
+    import random
+    from diffsensei_tpu_torch.data.eval_dataset import MangaEvalMLLMDataset
+    from diffsensei_tpu_torch.data.mllm_dataset import build_inference_prompt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        write_mangazero(tmp, pages=1)
+        item = MangaEvalMLLMDataset(str(tmp / "annotations.json"), str(tmp), mllm_spec=spec,
+                                    max_num_ips=manga.max_num_ips, rng=random.Random(0))[0]
+    want = build_inference_prompt(encode(item["caption"]), spec, encode("\n"))
+    row = dict(prompt_tokens=int(item["input_ids"].shape[1]),
+               cmp_slots=int(item["ids_cmp_mask"].sum()), characters=len(item["ip_images"]),
+               height=item["height"], width=item["width"])
+    emit({"phase": "eval_mllm_item", **row})
+    if not (np.array_equal(item["input_ids"], want["input_ids"])
+            and np.array_equal(item["ids_cmp_mask"], want["ids_cmp_mask"])
+            and row["cmp_slots"] == spec.num_img_tokens and row["characters"] >= 1):
+        raise AssertionError(f"eval MLLM item: {row}")
 
 
 def peft_llama_names(sd) -> dict:
@@ -2037,6 +2135,212 @@ def train_bf16(device, weights_root) -> dict:
     return totals
 
 
+REMAT_POLICIES = (None, "dots", "attn", "dots_attn", "dots_deepest")
+# B1 a T1 step under each policy: attn and dots_attn keep the forward's (o,
+# lse) and drop its 70 replays; B2 70, B4 70, B3 88 (resnets: full recompute)
+# and B5 140 (not named, as in JAX: replayed) under all five
+REMAT_B1 = {None: 140, "dots": 140, "attn": 70, "dots_attn": 70, "dots_deepest": 140}
+
+
+def remat_launches(policy) -> dict:
+    return expect(flash_fwd=REMAT_B1[policy], flash_dq=70, flash_dkv=70, groupnorm=88, dual=140)
+
+
+def host_copy(params) -> dict:
+    return {k: p.detach().to("cpu", copy=True) for k, p in params.items()}
+
+
+def largest_difference(got: dict, want: dict) -> float:
+    """The largest absolute difference between two host copies of the
+    trainables (0.0 where bit-equal)."""
+    import torch
+
+    return max((0.0 if torch.equal(got[k], w) else float((got[k].float() - w.float()).abs().max()))
+               for k, w in want.items())
+
+
+def train_remat(device, weights_root, tmp) -> tuple:
+    """T1 under each named remat policy. The train CLI reads
+    ``configs/train/condition.yaml`` as ``train`` writes it, with
+    ``model.remat_policy: attn``, builds T1's stack from serve_weights' files
+    and takes one step (launches checked); the state before that step, its
+    first batch and its generator's seed are kept. From that state, on that
+    batch and with those draws, one step under each of None, dots, attn,
+    dots_attn and dots_deepest (``UNetMangaModel.enable_remat``): the
+    launches exactly ``remat_launches``, the step's seconds, the allocated
+    memory at its start, its peak before the optimizer (the forward and
+    backward, where the policies differ) and over the step (the first step's
+    AdamW moments come last), and the trainables after the step bit-equal
+    to the None step's (the CLI's attn step's too). Returns the launch
+    totals and what train_proj reuses (modules, frozen stack, stream, the
+    trainables put back to their state before the first step)."""
+    import torch
+    from diffsensei_tpu_torch.train import cli
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = {}
+    build_models, run_training = cli.build_models, cli.run_training
+
+    def capture_models(*args, **kwargs):
+        t1["mods"] = build_models(*args, **kwargs)
+        return t1["mods"]
+
+    def capture_run(step_fn, state, batches_from, run_cfg, **kwargs):
+        t1.update(step_fn=step_fn, state=state, frozen=kwargs["frozen"],
+                  batches_from=batches_from, seed=run_cfg.seed, initial=state.state_dict())
+        return run_training(step_fn, state, batches_from, run_cfg, **kwargs)
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        t1["cli"] = dict(loss=float(metrics["loss"]), launches=launch_counts(),
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         params=host_copy(t1["state"].params))
+
+    write_mangazero(tmp)
+    config = condition_config(tmp, weights_root, model=dict(remat_policy="attn"), trainer=dict(
+        max_train_steps=1, log_every=1, checkpoint_every=1000))
+    cli.build_models, cli.run_training = capture_models, capture_run
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        cli.main(["--config", str(config)], on_step=on_step)
+    finally:
+        cli.build_models, cli.run_training = build_models, run_training
+    totals = launch_counts()
+    stream = iter(t1["batches_from"](0))
+    batch = next(stream)                   # the CLI step's batch
+    stream.close()
+
+    state, unet, rows = t1["state"], t1["mods"].unet, []
+    for policy in REMAT_POLICIES:
+        state.load_state_dict(t1["initial"])
+        unet.enable_remat(policy)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        reset_counts()
+        generator = torch.Generator(device=device).manual_seed(t1["seed"])
+        t0 = time.perf_counter()
+        # the step's own three calls (train/diffusion.py::_make_step), with
+        # the peak read before the optimizer allocates its moments
+        loss, _ = t1["step_fn"].loss_fn(t1["frozen"], batch, generator)
+        loss.backward()
+        torch.cuda.synchronize()
+        peak_fwd_bwd = torch.cuda.max_memory_allocated()
+        state.apply_gradients()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        totals = {k: totals[k] + launches[k] for k in KERNELS}
+        after = host_copy(state.params)
+        if policy is None:
+            ref = after
+        row = dict(policy=policy, loss=float(loss), step_s=seconds,
+                   memory_allocated_start_gib=start / 2**30,
+                   peak_forward_backward_gib=peak_fwd_bwd / 2**30,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   max_abs_diff_to_none=largest_difference(after, ref), launches=launches)
+        rows.append(row)
+        emit({"phase": "train_remat", **row})
+    cli_row = dict(loss=t1["cli"]["loss"], peak_gib=t1["cli"]["peak_gib"],
+                   launches=t1["cli"]["launches"],
+                   max_abs_diff_to_none=largest_difference(t1.pop("cli")["params"], ref))
+    emit({"phase": "train_remat_cli", "policy": "attn", **cli_row})
+    del ref, after
+    unet.enable_remat(None)
+    state.load_state_dict(t1["initial"])   # T1's trainables, no optimizer moments
+    if cli_row["launches"] != remat_launches("attn"):
+        raise AssertionError(f"the CLI's attn step launched {cli_row['launches']}")
+    for row in rows:
+        if row["launches"] != remat_launches(row["policy"]):
+            raise AssertionError(f"policy {row['policy']}: launches {row['launches']} != "
+                                 f"{remat_launches(row['policy'])}")
+        if not np.isfinite(row["loss"]):
+            raise AssertionError(f"policy {row['policy']}: a bad loss {row['loss']}")
+    differ = [r["policy"] for r in rows if r["max_abs_diff_to_none"] != 0.0]
+    if differ or cli_row["max_abs_diff_to_none"] != 0.0:
+        raise AssertionError(f"trainables differ from the None step's: policies {differ}, "
+                             f"the CLI's attn step by {cli_row['max_abs_diff_to_none']}")
+    return totals, t1
+
+
+PROJ_STEPS = 2
+
+
+def train_proj(device, t1) -> dict:
+    """Stage 2 with the linear IP projection: ``make_stage2_step`` with
+    ``Stage2Config(ip_adapter_plus=False)`` (a library call; the CLI, as the
+    JAX one, never sets it) on train_remat's modules, its UNet trainables
+    and the stream's first two batches, with an ``ImageProjDummyModel`` at
+    full width (CLIP-H 1280 and Magi 768 CLS -> 16 tokens of 2048 a
+    character, 16 dummy tokens; bf16, fp32 trainables) in place of the
+    Resampler (whose trainables stay resident, without moments). 2 steps at
+    a constant 1e-4. Checks: finite losses, every
+    projection weight moved, the frozen UNet weights bit-equal (checksums),
+    T1's launches on each step."""
+    import torch
+    from diffsensei_tpu_torch.models.projection import ImageProjDummyModel
+    from diffsensei_tpu_torch.models.schedulers import DDPMSchedule
+    from diffsensei_tpu_torch.train import optim
+    from diffsensei_tpu_torch.train.diffusion import Stage2Config, TrainState, make_stage2_step
+    from diffsensei_tpu_torch.utils.init import init_flax_like_
+
+    mods, manga = t1["mods"], t1["mods"].manga
+    unet = mods.unet
+    proj = ImageProjDummyModel(mods.image_encoder.config.hidden_size,
+                               mods.magi_encoder.config.hidden_size,
+                               unet.config.cross_attention_dim, manga.num_vision_tokens,
+                               manga.num_dummy_tokens, dtype=unet.dtype, device=device)
+    init_flax_like_(proj, torch.Generator(device=device).manual_seed(7))
+    trainable, _ = optim.partition_params(proj, {k: True for k, _ in proj.named_parameters()})
+    params = {k: p for k, p in t1["state"].params.items() if k.startswith("unet.")}
+    params.update({f"proj.{k}": p for k, p in trainable.items()})
+    state = TrainState(params, optim.make_optimizer(params.values(), 1e-4, weight_decay=1e-2,
+                                                    max_grad_norm=1.0))
+    step_fn = make_stage2_step(unet, proj, DDPMSchedule(), Stage2Config(
+        manga=manga, ip_contrastive="fast", ip_adapter_plus=False))
+    named = dict(unet.named_parameters())
+    frozen_before = {k: v for k, v in checksums(unet).items() if not named[k].requires_grad}
+    proj_before = host_copy({k: p for k, p in params.items() if k.startswith("proj.")})
+    generator = torch.Generator(device=device).manual_seed(t1["seed"])
+    stream, rows = iter(t1["batches_from"](0)), []
+    reset_counts()
+    for step in range(1, PROJ_STEPS + 1):
+        batch = next(stream)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        metrics = step_fn(state, t1["frozen"], batch, generator)
+        torch.cuda.synchronize()
+        rows.append(dict(step=step, **{k: float(v) for k, v in metrics.items()},
+                         step_s=time.perf_counter() - t0,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         launches=since(before)))
+        emit({"phase": "train_proj", **rows[-1]})
+    stream.close()
+    totals = launch_counts()
+    proj_after = host_copy({k: p for k, p in params.items() if k.startswith("proj.")})
+    moved = [not torch.equal(proj_after[k], v) for k, v in proj_before.items()]
+    frozen_after = checksums(unet)
+    frozen_moved = [k for k, v in frozen_before.items() if frozen_after[k] != v]
+    summary = dict(steps=len(rows), proj_params=sum(v.numel() for v in proj_before.values()),
+                   moved_proj=f"{sum(moved)}/{len(moved)}",
+                   moved_frozen_unet=f"{len(frozen_moved)}/{len(frozen_before)}",
+                   launches=totals)
+    emit({"phase": "train_proj_summary", **summary})
+    if not all(np.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"a bad loss: {rows}")
+    if not all(moved) or frozen_moved:
+        raise AssertionError(f"the projection did not move or frozen weights did: {summary}")
+    if any(r["launches"] != remat_launches(None) for r in rows):
+        raise AssertionError(f"launch counts per step {[r['launches'] for r in rows]} != "
+                             f"{remat_launches(None)}")
+    return totals
+
+
 LORA_STEPS, LORA_RANK = 3, 64
 
 
@@ -2345,18 +2649,24 @@ def checksums(module, dtype_free: bool = False) -> dict:
 
 
 MLLM_STEPS, MLLM_PROFILED_STEP = 4, 3
+MLLM_ATTN_STEPS = 2      # then under model.agent.remat_policy: attn
 
 
 def train_mllm(device) -> dict:
     """Stage 3 through the port's CLI (``train.cli.main``) on
     ``configs/train/mllm.yaml`` at full SDXL and SEED-X width and depth, with
     four changes: ``init: random``, no ``weights:`` group, the synthetic data
-    paths (and the log directory beside them), ``max_train_steps: 4,
-    log_every: 1, checkpoint_every: 2``. Each step's losses, seconds, peak
-    memory and kernel launches; step ``MLLM_PROFILED_STEP + 1`` under
-    ``torch.profiler``. Checks: finite losses, checkpoints at steps 2 and 4,
-    every trainable group moved, the frozen LLaMA base, UNet and Resampler
-    bit-equal (checksums), the same launch counts on every step."""
+    paths (and the log directory beside them), ``max_train_steps: 6,
+    log_every: 1, checkpoint_every: 2``. After step 4 the LLaMA's remat
+    policy becomes ``attn`` (``enable_remat("attn")``, what
+    ``model.agent.remat_policy: attn`` sets at the build), so steps 5 and 6
+    keep each layer's attention product on the stack already built. Each
+    step's losses, seconds, peak memory and kernel launches; steps
+    ``MLLM_PROFILED_STEP + 1`` and 6 under ``torch.profiler``. Checks: finite
+    losses, checkpoints at steps 2, 4 and 6, every trainable group moved, the
+    frozen LLaMA base, UNet and Resampler bit-equal (checksums), the same
+    launch counts on every step (the LLaMA's 400-token attention is plain
+    math under both policies)."""
     import pathlib
     import tempfile
     import torch
@@ -2389,22 +2699,28 @@ def train_mllm(device) -> dict:
         built["agent"] = agent
         return agent
 
-    rows, prof = [], profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    clock = {}
+    last = MLLM_STEPS + MLLM_ATTN_STEPS
+    profiled = {MLLM_PROFILED_STEP + 1: profile(activities=[ProfilerActivity.CPU,
+                                                            ProfilerActivity.CUDA]),
+                last: profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])}
+    rows, clock = [], {}
 
     def on_step(step, metrics):
         torch.cuda.synchronize()
         now, launches = time.perf_counter(), since(clock["counts"])
-        if step == MLLM_PROFILED_STEP + 1:
-            prof.stop()
-            clock["profiled_s"] = now - clock["profile_start"]
-        rows.append(dict(step=step, **{k: float(v) for k, v in metrics.items()},
+        if step in profiled:
+            profiled[step].stop()
+            clock[step] = now - clock["profile_start"]
+        rows.append(dict(step=step, remat_policy=built["agent"].llm.remat_policy,
+                         **{k: float(v) for k, v in metrics.items()},
                          host_s=now - clock["last"],
                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                          launches=launches))
         torch.cuda.reset_peak_memory_stats()
-        if step == MLLM_PROFILED_STEP:
-            prof.start()
+        if step == MLLM_STEPS:
+            built["agent"].llm.enable_remat("attn")
+        if step + 1 in profiled:
+            profiled[step + 1].start()
             clock["profile_start"] = time.perf_counter()
         clock.update(last=time.perf_counter(), counts=launch_counts())
 
@@ -2415,7 +2731,7 @@ def train_mllm(device) -> dict:
         cfg.pop("weights")
         cfg["model"]["init"] = "random"
         cfg["train_data"].update(ann_path=str(tmp / "annotations.json"), image_root=str(tmp))
-        cfg["trainer"].update(max_train_steps=MLLM_STEPS, log_every=1, checkpoint_every=2,
+        cfg["trainer"].update(max_train_steps=last, log_every=1, checkpoint_every=2,
                               log_dir=str(tmp / "logs"))
         (tmp / "config.yaml").write_text(yaml.safe_dump(cfg))
 
@@ -2473,17 +2789,20 @@ def train_mllm(device) -> dict:
     # + 20 in the VAE encoder; the LLaMA's 400-token attention is plain math
     want = expect(flash_fwd=140, flash_dq=69, flash_dkv=69, groupnorm=82, dual=140)
     losses = ("loss", "loss_diffusion", "loss_lm", "loss_rec")
-    if len(rows) != MLLM_STEPS or not all(np.isfinite(r[k]) for r in rows for k in losses):
+    if len(rows) != last or not all(np.isfinite(r[k]) for r in rows for k in losses):
         raise AssertionError(f"a bad loss: {rows}")
-    if sorted(ckpts) != ["step-2", "step-4"]:
-        raise AssertionError(f"checkpoints {sorted(ckpts)} != step-2, step-4")
+    if [r["remat_policy"] for r in rows] != [None] * MLLM_STEPS + ["attn"] * MLLM_ATTN_STEPS:
+        raise AssertionError(f"remat policies by step {[r['remat_policy'] for r in rows]}")
+    if sorted(ckpts) != ["step-2", "step-4", "step-6"]:
+        raise AssertionError(f"checkpoints {sorted(ckpts)} != step-2, step-4, step-6")
     groups = ("lora", "embed_tokens", "lm_head", "norm", "input_resampler", "output_resampler")
     frozen = ("frozen_llm", "frozen_unet", "frozen_resampler")
     if not (all(all(moved[g]) for g in groups) and not any(any(moved[g]) for g in frozen)):
         raise AssertionError(f"trainables did not move or frozen weights did: {summary}")
     if any(r["launches"] != want for r in rows):
         raise AssertionError(f"launch counts per step {[r['launches'] for r in rows]} != {want}")
-    profile_train(prof, clock["profiled_s"], MLLM_PROFILED_STEP + 1, "profile_train_mllm")
+    for step, prof in profiled.items():
+        profile_train(prof, clock[step], step, "profile_train_mllm")
     return totals
 
 
@@ -2586,12 +2905,20 @@ def main() -> int:
         paths["serve_weights"] = serve_weights(device, mods, r1, weights_root)
         paths["serve_extras"] = serve_extras(device, mods, r1)
         deep_cache_exact(device, mods, r1[0])
+        paths["eval_pages"] = eval_pages(device, mods)
         paths["serve_agent"] = serve_agent(device, mods, ids)
         paths["agent_weights"] = agent_weights(device, weights_root)
         del mods
         torch.cuda.empty_cache()
         paths["train"] = train(device, weights_root)
         paths["train_bf16"] = train_bf16(device, weights_root)
+        remat_root = pathlib.Path(tempfile.mkdtemp(prefix="diffsensei_remat_"))
+        try:
+            paths["train_remat"], t1 = train_remat(device, weights_root, remat_root)
+            paths["train_proj"] = train_proj(device, t1)
+            del t1
+        finally:
+            shutil.rmtree(remat_root, ignore_errors=True)
     finally:
         shutil.rmtree(weights_root, ignore_errors=True)
     paths["train_lora"] = train_lora(device)

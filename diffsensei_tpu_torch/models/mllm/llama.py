@@ -16,7 +16,9 @@ one), which keeps one buffer per layer for the whole request.
 
 Training (stage 3): ``cross_entropy_lm_loss`` is the shifted LM loss;
 ``remat`` recomputes each layer in the backward (``torch.utils.checkpoint``,
-the JAX ``nn.remat`` with policy None); and fp32 trainables (the adapters,
+the JAX ``nn.remat``), in full or, with ``remat_policy = "attn"``, keeping
+the attention outputs the JAX policy names (``models/remat.py``); and fp32
+trainables (the adapters,
 the embeddings, ``lm_head``, the norms) may sit in a bf16 model, because the
 dense layers cast their weights to the activations' dtype at use and the
 forward computes in ``compute_dtype`` when it is set. As in the JAX package,
@@ -34,6 +36,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from diffsensei_tpu_torch.core.config import LlamaConfig
+from diffsensei_tpu_torch.models import remat
 from diffsensei_tpu_torch.models.layers import Linear
 from diffsensei_tpu_torch.ops import int4_matmul as i4
 from diffsensei_tpu_torch.ops.attention import multi_head_attention
@@ -277,6 +280,7 @@ class LlamaForCausalLM(nn.Module):
             self.lm_head = Linear(config.hidden_size, config.vocab_size, bias=False, **kw)
         self.compute_dtype: Optional[torch.dtype] = None
         self.remat = False
+        self.remat_policy: Optional[str] = None
         self._rope = {}
 
     @property
@@ -284,9 +288,18 @@ class LlamaForCausalLM(nn.Module):
         """The compute dtype: ``compute_dtype`` when set, else the build's."""
         return self.compute_dtype or self._dtype
 
+    def enable_remat(self, policy: Optional[str] = None) -> None:
+        """Recompute each layer in the backward: in full (None), or keeping
+        its attention outputs (``"attn"``, the JAX
+        ``save_only_these_names("attn_out", "attn_lse")``). Any other name
+        raises ``ValueError``."""
+        self.remat_policy = remat.check_policy(policy, allowed=("attn",))
+        self.remat = True
+
     def _layer(self, layer: nn.Module, *args):
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(layer, *args, use_reentrant=False)
+            return checkpoint(layer, *args, use_reentrant=False,
+                              context_fn=remat.context_fn(self.remat_policy))
         return layer(*args)
 
     def rotary(self, device) -> Tuple[torch.Tensor, torch.Tensor]:

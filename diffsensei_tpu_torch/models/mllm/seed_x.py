@@ -68,7 +68,8 @@ class ContinuousLVLM:
     @classmethod
     def build(cls, config: AgentConfig, dtype: torch.dtype = torch.float32,
               lora_rank: Optional[int] = None, quantized=False, device="cuda",
-              seed: int = 0, remat: bool = False, init: str = "random") -> "ContinuousLVLM":
+              seed: int = 0, remat: bool = False, remat_policy: Optional[str] = None,
+              init: str = "random") -> "ContinuousLVLM":
         """Random flax-like weights drawn on ``device`` from ``seed``, every
         parameter frozen; ``init="none"`` leaves the modules on the meta
         device for a checkpoint loader (``utils.load.load_agent_weights``,
@@ -77,7 +78,8 @@ class ContinuousLVLM:
         ``quantized`` ("int8"/True or "int4") builds the weight-only quantized
         serving LLM without LoRA; real weights come through
         ``quant.quantize_agent``. For training, build in the base's dtype
-        (bf16 on the card) with ``remat`` for per-layer recompute; then
+        (bf16 on the card) with ``remat`` for per-layer recompute (under
+        ``remat_policy``: None or ``"attn"``, ignored without ``remat``); then
         ``train.mllm_step.agent_trainables`` makes the trainables fp32 and
         trainable beside the frozen base."""
         from diffsensei_tpu_torch.utils.init import init_flax_like_
@@ -99,7 +101,8 @@ class ContinuousLVLM:
             if gen is not None:
                 init_flax_like_(mod.to_empty(device=device), gen)
             mod.eval().requires_grad_(False)
-        agent.llm.remat = remat
+        if remat:
+            agent.llm.enable_remat(remat_policy)
         return agent
 
     def networks(self):

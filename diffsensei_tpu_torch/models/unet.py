@@ -16,9 +16,11 @@ cross-attention layer with IP context computes its two attentions in one
 launch of kernel B5 (``ops/dual_cross_attention.py``); elsewhere (the CPU,
 fp32, no IP context) it makes the two dispatcher calls of the JAX layer.
 
-Training: ``enable_remat`` checkpoints each ``ResnetBlock2D`` and each
-transformer stack (``torch.utils.checkpoint``, full recompute, the JAX
-``remat_blocks`` with policy None), and ``compute_dtype`` lets fp32 trainable
+Training: ``enable_remat`` checkpoints each ``ResnetBlock2D`` (full
+recompute) and each transformer stack (``torch.utils.checkpoint``) under one
+of the JAX ``remat_blocks`` policies: None (full recompute), ``dots``,
+``attn``, ``dots_attn`` or ``dots_deepest`` (``models/remat.py``); and
+``compute_dtype`` lets fp32 trainable
 parameters sit in a bf16 UNet: every layer casts its parameters to the
 activations' dtype at use. ``config.lora_rank > 0`` puts adapters on
 ``to_q``, ``to_k``, ``to_v`` and ``to_out.0`` of both attentions
@@ -36,9 +38,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from diffsensei_tpu_torch.core.config import UNetConfig
+from diffsensei_tpu_torch.models import remat
 from diffsensei_tpu_torch.models.layers import (
     Conv2d, Downsample2D, GEGLUFeedForward, GroupNorm, LayerNorm, ResnetBlock2D,
     TimestepEmbedding, Upsample2D, linear, timestep_embedding)
@@ -251,6 +254,7 @@ class UNetMangaModel(nn.Module):
         self.conv_out = Conv2d(chans[0], cfg.out_channels, 3, padding=1, **kw)
         self.compute_dtype: Optional[torch.dtype] = None
         self.remat = False
+        self.remat_policy: Optional[str] = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -259,18 +263,17 @@ class UNetMangaModel(nn.Module):
 
     def enable_remat(self, policy: Optional[str] = None) -> None:
         """Recompute each resnet block and transformer stack in the backward
-        instead of keeping their activations (the JAX ``remat_blocks`` with
-        the default policy, full recompute). The JAX package's named policies
-        (``dots``, ``attn``, ``dots_attn``, ``dots_deepest``) save chosen
-        intermediates; they are not ported yet."""
-        if policy is not None:
-            raise NotImplementedError(f"remat policy {policy!r} is not ported yet "
-                                      "(only full recompute, policy None)")
+        instead of keeping their activations (the JAX ``remat_blocks``). The
+        resnets are recomputed in full; the transformer stacks keep what
+        ``policy`` names (``models/remat.py``: None, ``dots``, ``attn``,
+        ``dots_attn``, ``dots_deepest``). An unknown name raises
+        ``ValueError``."""
+        self.remat_policy = remat.check_policy(policy)
         self.remat = True
 
-    def _block(self, block: nn.Module, *args):
+    def _block(self, block: nn.Module, *args, context=noop_context_fn):
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(block, *args, use_reentrant=False)
+            return checkpoint(block, *args, use_reentrant=False, context_fn=context)
         return block(*args)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
@@ -312,13 +315,15 @@ class UNetMangaModel(nn.Module):
         ctx_text = encoder_hidden_states.to(dt)
         ctx_ip = None if ip_hidden_states is None else ip_hidden_states.to(dt)
 
+        n = len(cfg.block_out_channels)
+
         def attend(attn, x, level):
             bias = None
             if ip_attn_bias is not None and ctx_ip is not None:
                 bias = ip_attn_bias.get(level)
-            return self._block(attn, x, ctx_text, ctx_ip, bias, ip_scale)
+            context = remat.context_fn(self.remat_policy, deepest=level == n - 1)
+            return self._block(attn, x, ctx_text, ctx_ip, bias, ip_scale, context=context)
 
-        n = len(cfg.block_out_channels)
         use_cache = deep_feature is not None
         if (use_cache or return_deep) and not 1 <= cache_split < n:
             raise ValueError(f"cache_split must be in [1, {n - 1}], got {cache_split}")

@@ -1,14 +1,22 @@
 """Attention dispatcher (port of ``diffsensei_tpu/ops/attention.py``).
 
 Long spatial self-attention goes to the flash kernel B1, with B2 and B4 as
-its backward (``FlashAttentionFn``); everything else
-(77 text tokens, 80 IP tokens, 257 image patches, perceiver latents) is the
-plain einsum-softmax-einsum that XLA ran on the TPU. The rule depends on the
-inputs' device, shape and dtype only.
+its backward (the op ``diffsensei::flash_fwd`` where a gradient is needed);
+everything else (77 text tokens, 80 IP tokens, 257 image patches, perceiver
+latents) is the plain einsum-softmax-einsum that XLA ran on the TPU. The rule
+depends on the inputs' device, shape and dtype only.
+
+The plain path's output product is tagged ``attn_out``, as the JAX
+dispatcher tags it with ``checkpoint_name`` (``attention.py:79-84``): a
+selective checkpoint's policy sees ops, not tensors, so ``checkpoint_name``
+here sets a thread-local name that the policy reads while the ops inside
+dispatch (``models/remat.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -19,15 +27,36 @@ from diffsensei_tpu_torch.ops.flash_attention import (
 # Below this key length a blocked kernel has nothing to block.
 FLASH_MIN_KV = 1024
 
+_names = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Name the ops dispatched inside the block (the counterpart of JAX's
+    ``checkpoint_name`` for a dispatch-mode remat policy)."""
+    outer = getattr(_names, "name", None)
+    _names.name = name
+    try:
+        yield
+    finally:
+        _names.name = outer
+
+
+def current_name() -> Optional[str]:
+    """The innermost ``checkpoint_name`` around the op now dispatching."""
+    return getattr(_names, "name", None)
+
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: Optional[torch.Tensor] = None, causal: bool = False,
                   sm_scale: Optional[float] = None) -> torch.Tensor:
     """Unblocked attention over ``[B, H, S, D]``: fp32 scores and softmax, the
-    probabilities cast to v's dtype for the second product."""
+    probabilities cast to v's dtype for the second product, whose output is
+    named ``attn_out``."""
     s = attention_scores(q, k, bias, causal, sm_scale)
     p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.matmul(p, v)
+    with checkpoint_name("attn_out"):
+        return torch.matmul(p, v)
 
 
 def uses_flash(q: torch.Tensor, k: torch.Tensor) -> bool:

@@ -6,10 +6,15 @@ Port of the Pallas TPU forward ``_fwd_kernel`` / ``_fwd_kernel_bias``
 and backward ``_dq_kernel`` / ``_dkv_kernel`` and their ``_bias`` variants
 (``:196,252,258,322``, called from ``_backward:328``). The forward returns
 ``(o, lse)``: the attention output in q's dtype and the fp32 row log-sum-exp
-``[B, H, Sq]``. When an input requires a gradient it runs through
-``FlashAttentionFn``, which saves ``(q, k, v, bias, o, lse)`` as the JAX
-``_attach_fwd`` does and whose backward recomputes the probabilities from the
-lse; the bias gets no gradient.
+``[B, H, Sq]``. When an input requires a gradient it runs through the
+dispatcher op ``diffsensei::flash_fwd`` (the JAX split at
+``flash_attention.py:480-518``: the forward kernel's pair, then an autograd
+rule), which saves ``(q, k, v, bias, o, lse)`` as the JAX ``_attach_fwd``
+does and whose backward recomputes the probabilities from the lse; the bias
+gets no gradient. A selective checkpoint (the remat policies of
+``models/unet.py`` and ``models/mllm/llama.py``) can keep the op's outputs,
+as the JAX ``attn_out`` / ``attn_lse`` tags let ``save_only_these_names``
+keep them; it cannot see inside a ``torch.autograd.Function``.
 
 On the card the UNet's spatial self-attention (S = 1024..4096, head_dim 64)
 is bound by tensor-core operations and, at head_dim 64, by the exponentials;
@@ -387,26 +392,49 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-class FlashAttentionFn(torch.autograd.Function):
-    """``(o, lse)`` with B1 as the forward and B2 + B4 as the backward (the
-    plain twins on the CPU). The residuals are ``(q, k, v, bias, o, lse)``, as
-    the JAX ``_attach_fwd`` keeps them; lse takes no gradient, nor does the
-    bias."""
+@torch.library.custom_op("diffsensei::flash_fwd", mutates_args=(), device_types="cpu")
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: Optional[torch.Tensor],
+              causal: bool, sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1's forward as a dispatcher op, ``(o, lse)``, for the calls that need
+    a gradient: a selective checkpoint sees dispatcher ops only, so it can
+    keep these outputs (the JAX ``attn_out`` / ``attn_lse`` tags) instead of
+    replaying the kernel. The CPU implementation is the plain twin, its o
+    copied into the heads-merged layout the kernel writes; the CUDA one is
+    the kernel (``_flash_cuda``)."""
+    o, lse = flash_attention_ref(q, k, v, bias, causal, sm_scale)
+    return _heads_merged_like(q).copy_(o), lse
 
-    @staticmethod
-    def forward(ctx, q, k, v, bias, causal, sm_scale):
-        o, lse = _forward(q, k, v, bias, causal, sm_scale)
-        ctx.save_for_backward(q, k, v, bias, o, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
-        ctx.mark_non_differentiable(lse)
-        return o, lse
 
-    @staticmethod
-    def backward(ctx, do, _dlse):
-        q, k, v, bias, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, bias, o, lse, do,
-                                         causal=ctx.causal, sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None, None
+@flash_fwd.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, bias, causal, sm_scale):
+    return _flash_cuda(q, k, v, bias, causal, sm_scale)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, bias, causal, sm_scale):
+    b, h, sq, _ = q.shape
+    return _heads_merged_like(q), q.new_empty((b, h, sq), dtype=torch.float32)
+
+
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, bias, causal, sm_scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, bias, o, lse)
+    ctx.causal, ctx.sm_scale = causal, sm_scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_fwd_backward(ctx, do, _dlse):
+    """B2 then B4 (the plain twins on the CPU) from the residuals ``(q, k,
+    v, bias, o, lse)``, as the JAX ``_attach_bwd``; lse takes no gradient,
+    nor does the bias."""
+    q, k, v, bias, o, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, bias, o, lse, do,
+                                     causal=ctx.causal, sm_scale=ctx.sm_scale)
+    return dq, dk, dv, None, None, None
+
+
+flash_fwd.register_autograd(_flash_fwd_backward, setup_context=_flash_fwd_setup)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -414,7 +442,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: Optional[float] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention over ``[B, H, S, D]``; returns ``(o, lse)``, differentiable
-    in q, k and v through ``FlashAttentionFn``.
+    in q, k and v through the op ``diffsensei::flash_fwd``. A call that needs
+    no gradient (serving) launches B1 directly: the op's Python dispatch
+    would add host time to each of R1's 1400 calls.
 
     ``bias`` may be ``[B|1, H|1, Sq, Sk]``; broadcast dims are read through a
     zero stride, never expanded. On CUDA the kernels take bfloat16 q/k/v with
@@ -422,5 +452,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttentionFn.apply(q, k, v, bias, causal, sm_scale)
+        return flash_fwd(q, k, v, bias, causal, float(sm_scale))
     return _forward(q, k, v, bias, causal, sm_scale)

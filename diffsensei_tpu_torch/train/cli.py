@@ -17,10 +17,12 @@ before the adapters' init), ``train_data.tokenizer_path`` /
 ``tokenizer_2_path`` (CLIP tokenizer directories; CRC-32 word hashing
 without them), ``unet_trained_parameters`` ``full``, ``new``, ``ip`` and
 ``lora`` (UNet adapters of ``model.lora_rank``), per-block remat
-(``model.remat``) and per-layer LLaMA remat (``model.agent.remat``),
-gradient accumulation, checkpoints and resume. Refused with an error rather
-than ignored: a named remat policy and ``trainer.parallel: fsdp`` (multi-GPU
-layouts).
+(``model.remat``) under ``model.remat_policy`` (``dots``, ``attn``,
+``dots_attn``, ``dots_deepest``; an unknown name raises), per-layer LLaMA
+remat (``model.agent.remat``) under ``model.agent.remat_policy`` (``attn``),
+a policy without its ``remat`` ignored as in the JAX CLI, gradient
+accumulation, checkpoints and resume. Refused with an error rather than
+ignored: ``trainer.parallel: fsdp`` (multi-GPU layouts).
 """
 
 from __future__ import annotations
@@ -117,12 +119,9 @@ def build_agent(model_cfg: Dict[str, Any], modules: PipelineModules, device="cud
     """The SEED-X agent of ``model.agent`` beside ``modules``, in the UNet's
     dtype, random flax-like weights from ``seed``: the JAX CLI's small agent
     for the ``tiny`` preset (its resamplers sized to the stack's IP tokens),
-    ``AgentConfig()`` for ``sdxl``; ``lora_rank`` and ``remat`` from
-    ``model.agent``."""
+    ``AgentConfig()`` for ``sdxl``; ``lora_rank``, ``remat`` and
+    ``remat_policy`` (None or ``attn``) from ``model.agent``."""
     agent_cfg = dict(model_cfg.get("agent", {}) or {})
-    if agent_cfg.get("remat_policy") is not None:
-        raise NotImplementedError("model.agent.remat_policy is not ported yet "
-                                  "(only full recompute)")
     if model_cfg.get("preset", "tiny") == "tiny":
         llm, iv = LlamaConfig.tiny(), modules.manga.num_ip_tokens
         cross = modules.unet.config.cross_attention_dim
@@ -139,7 +138,8 @@ def build_agent(model_cfg: Dict[str, Any], modules: PipelineModules, device="cud
     return ContinuousLVLM.build(acfg, dtype=modules.unet.dtype,
                                 lora_rank=int(agent_cfg.get("lora_rank", acfg.lora.rank)),
                                 device=device, seed=seed + 3,
-                                remat=bool(agent_cfg.get("remat", True)))
+                                remat=bool(agent_cfg.get("remat", True)),
+                                remat_policy=agent_cfg.get("remat_policy"))
 
 
 def mllm_token_spec(agent: ContinuousLVLM, train_data: Dict[str, Any]) -> MLLMTokenSpec:

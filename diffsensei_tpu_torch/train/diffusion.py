@@ -4,7 +4,8 @@
 * stage 1: the SDXL epsilon-MSE fine-tune on manga panels
   (``scripts/train/train_t2i.py:258-303`` in the reference);
 * stage 2: adds the IP machinery: frozen CLIP-H and Magi character encoders,
-  the trainable Resampler, the source mean, the optional contrastive loss, and
+  the trainable Resampler (or, with ``ip_adapter_plus=False``, the linear
+  ``ImageProjDummyModel``), the source mean, the optional contrastive loss, and
   the manga UNet with the masked-IP biases and the dialog embedding
   (``scripts/train/train.py:336-426``).
 
@@ -83,9 +84,9 @@ class Stage2Config:
     manga: MangaConfig
     ip_contrastive: Optional[str] = None        # None | "fast" | "slow"
     ip_contrastive_weight: float = 0.1
-    # True: the Perceiver Resampler over patch features (released DiffSensei).
-    # False (the linear ImageProjDummyModel over pooled features) is not
-    # ported yet.
+    # True: the Perceiver Resampler over patch features (released DiffSensei);
+    # False: the linear ImageProjDummyModel over the pooled CLIP-H CLS
+    # (models/projection.py; the reference's train.py:357-360)
     ip_adapter_plus: bool = True
 
 
@@ -179,10 +180,11 @@ def make_stage2_step(unet: nn.Module, resampler: nn.Module, schedule: DDPMSchedu
     [B, I, S, 224, 224, 3]; ip_exists [B, I, S]; ip_bbox [B, I, 4];
     dialog_bbox [B, Dlg, 4]; original_size / crop_coords_top_left /
     target_size [B, 2]; optionally sample_mask [B].
+
+    ``resampler`` is the Perceiver ``Resampler`` (``cfg.ip_adapter_plus``,
+    over the CLIP-H patch features) or an ``ImageProjDummyModel`` (over the
+    pooled CLIP-H CLS); both also take the Magi CLS.
     """
-    if not cfg.ip_adapter_plus:
-        raise NotImplementedError("ip_adapter_plus: false (models/projection.py) is not "
-                                  "ported yet")
     if cfg.ip_contrastive not in (None, "fast", "slow"):
         raise ValueError(f"ip_contrastive must be null, fast or slow, got {cfg.ip_contrastive!r}")
     manga = cfg.manga
@@ -200,16 +202,20 @@ def make_stage2_step(unet: nn.Module, resampler: nn.Module, schedule: DDPMSchedu
                 (b * i * s,) + tuple(batch["ip_pixel_values"].shape[3:]))
             magi_crops = batch["magi_pixel_values"].reshape(
                 (b * i * s,) + tuple(batch["magi_pixel_values"].shape[3:]))
-            clip_h, _ = frozen.image_encoder(crops)
+            clip_h, clip_cls = frozen.image_encoder(crops)
             _, magi_cls = frozen.magi_encoder(magi_crops)
             ctx, pooled = _encode_text(frozen, batch["text_input_ids"],
                                        batch["text_input_ids_2"])
         # regroup [B, I, S, ...] -> sources-major [B*S, I, ...] (train.py:362)
         magi_cls = magi_cls.reshape(b, i, s, -1).transpose(1, 2).reshape(b * s, i, -1)
-        p, d_clip = clip_h.shape[-2:]
-        clip_h = clip_h.reshape(b, i, s, p, d_clip).transpose(1, 2).reshape(
-            b * s, i, p, d_clip)
-        image_embeds = resampler(clip_h, magi_cls)
+        if cfg.ip_adapter_plus:
+            p, d_clip = clip_h.shape[-2:]
+            clip_h = clip_h.reshape(b, i, s, p, d_clip).transpose(1, 2).reshape(
+                b * s, i, p, d_clip)
+            image_embeds = resampler(clip_h, magi_cls)
+        else:
+            clip_cls = clip_cls.reshape(b, i, s, -1).transpose(1, 2).reshape(b * s, i, -1)
+            image_embeds = resampler(clip_cls, magi_cls)
 
         # contrastive loss on the character blocks (train.py:372-377)
         if cfg.ip_contrastive is None:

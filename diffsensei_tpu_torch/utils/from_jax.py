@@ -134,6 +134,21 @@ def resampler(params: Dict, depth: int) -> StateDict:
     return sd
 
 
+def image_proj(params: Dict) -> StateDict:
+    """``ImageProjModel`` / ``ImageProjDummyModel`` tree -> the reference
+    names (``proj``, ``norm``, and where present ``proj_magi`` and
+    ``dummy_tokens``)."""
+    p = params["params"]
+    sd: StateDict = {}
+    _lin(sd, "proj", p["proj"])
+    _norm(sd, "norm", p["norm"])
+    if "proj_magi" in p:
+        _lin(sd, "proj_magi", p["proj_magi"])
+    if "dummy_tokens" in p:
+        sd["dummy_tokens"] = _a(p["dummy_tokens"])
+    return sd
+
+
 # ---------------------------------------------------------------------------
 # UNet and VAE (diffusers names)
 # ---------------------------------------------------------------------------

@@ -12,7 +12,10 @@ The rules here are the JAX porters' where names or contents differ:
   them gets copies of its blocks' ``to_k``/``to_v`` (the reference's init),
   and a missing ``dialog_bbox_embedding`` is zeros;
 * the Resampler's ``latents`` / ``dummy_tokens`` take the module's shape, and
-  ``module.`` prefixes are stripped;
+  ``module.`` prefixes are stripped; the same holds where ``modules.resampler``
+  is a linear projection (``models/projection.py``), whose reference names
+  are the JAX ``port_image_proj``'s: ``proj.*``, ``norm.*`` and, for
+  ``ImageProjDummyModel``, ``proj_magi.*`` and ``dummy_tokens``;
 * HF and peft LLaMA names map onto the port's (``layers.{i}.attn.q_proj.base``
   ...); the Qwen resamplers' fixed ``pos_embed`` is recomputed, not loaded.
 
@@ -241,6 +244,9 @@ def unet_overlay_entries(unet: nn.Module, sd: Mapping[str, torch.Tensor]) -> Sta
 
 
 def resampler_entries(resampler: nn.Module, sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """The entries of a ``Resampler`` or of an ``ImageProj{,Dummy}Model``
+    (``proj``, ``norm``, ``proj_magi``, ``dummy_tokens``) by their reference
+    names, ``module.`` prefixes stripped."""
     return take(resampler, strip_module_prefix(sd), "resampler")
 
 

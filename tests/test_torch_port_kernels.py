@@ -198,6 +198,63 @@ def test_flash_autograd_uses_the_backward_kernels(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,h,sq,sk,causal,with_bias", [
+    (2, 10, 1024, 1024, False, False), (1, 4, 1100, 1300, False, True),
+    (1, 4, 1100, 1100, True, False)])
+def test_flash_op_is_the_kernel_on_card(cuda, b, h, sq, sk, causal, with_bias):
+    """``diffsensei::flash_fwd`` on CUDA is B1: its ``(o, lse)`` bit-equal to
+    a direct ``_flash_cuda`` call, o laid out heads-merged as the fake
+    declares, one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((b, h, s, 64), generator=g, device=cuda).bfloat16().requires_grad_()
+               for s in (sq, sk, sk))
+    bias = None
+    if with_bias:
+        bias = torch.where(torch.rand((b, 1, sq, sk), generator=g, device=cuda) > 0.3,
+                           0.0, -10000.0)
+    before = tfa.launches
+    o, lse = tfa.flash_fwd(q, k, v, bias, causal, 0.125)
+    ro, rlse = tfa._flash_cuda(q.detach(), k.detach(), v.detach(), bias, causal, 0.125)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 2
+    assert torch.equal(o, ro) and torch.equal(lse, rlse)
+    assert o.stride() == tfa._heads_merged_like(q).stride() == ro.stride()
+    assert lse.is_contiguous() and o.requires_grad and not lse.requires_grad
+
+
+# B1 launches of one forward and backward of the cut-down UNet under each
+# remat policy: 3 self-attentions at level 1's 1024 tokens, replayed unless
+# the policy keeps the op's (o, lse)
+REMAT_B1 = {None: 6, "dots": 6, "attn": 3, "dots_attn": 3, "dots_deepest": 6}
+
+
+@pytest.mark.gpu
+def test_remat_policies_keep_b1_on_card(cuda):
+    """One backward of the cut-down UNet per policy: B1 launches by
+    ``REMAT_B1``; B2 and B4 3, B3 44 (11 resnets, replayed) and B5 14 (7
+    cross-attentions, replayed: not named) under all; every gradient
+    bit-equal to full recompute's (a parameter that takes no gradient on this
+    path takes none under any policy)."""
+    unet = _cut_down_unet(cuda).requires_grad_(True)
+    args, kw = _unet_call_inputs(cuda, unet.config)
+    counts = lambda: (tfa.launches, tfa.bwd_dq_launches, tfa.bwd_dkv_launches,
+                      tgn.launches, tdca.launches)
+    grads = {}
+    for policy, b1 in REMAT_B1.items():
+        unet.enable_remat(policy)
+        unet.zero_grad(set_to_none=True)
+        before = counts()
+        unet(*args, **kw).float().square().mean().backward()
+        torch.cuda.synchronize()
+        assert [a - z for a, z in zip(counts(), before)] == [b1, 3, 3, 44, 14], policy
+        grads[policy] = {n: p.grad for n, p in unet.named_parameters() if p.grad is not None}
+    for policy in REMAT_B1:
+        assert grads[policy].keys() == grads[None].keys()
+        for name, g in grads[policy].items():
+            assert torch.equal(g, grads[None][name]), (policy, name)
+
+
+@pytest.mark.gpu
 def test_groupnorm_autograd_on_card(cuda):
     g = torch.Generator(device=cuda).manual_seed(3)
     x = (torch.randn((1, 32, 32, 320), generator=g, device=cuda)).bfloat16().requires_grad_()

@@ -375,6 +375,30 @@ def test_ip_adapter_rejects_mismatched_indices(ref, tmp_path):
         jax_apply(ref, {"ip_adapter": path})
 
 
+def test_image_proj_loads_what_jax_port_image_proj_reads(tmp_path):
+    """An ``ImageProjDummyModel`` checkpoint under the reference names
+    (``module.`` prefixed, ``dummy_tokens`` ``[1, N, C]``) loads into the
+    port's module as the JAX ``port_image_proj`` reads it."""
+    from diffsensei_tpu.models.projection import ImageProjDummyModel as JProj
+    from diffsensei_tpu.utils.port_torch import port_image_proj
+    from diffsensei_tpu_torch.models.projection import ImageProjDummyModel as TProj
+    from tests.torch_port_util import random_tree
+
+    jproj = JProj(cross_attention_dim=16, num_tokens=4, num_dummy_tokens=3)
+    tree = random_tree(jproj, jnp.zeros((1, 2, 24)), jnp.zeros((1, 2, 12)), seed=12)
+    sd = from_jax.to_tensors(from_jax.image_proj(tree))
+    sd["dummy_tokens"] = sd["dummy_tokens"][None]
+    torch.save({f"module.{k}": v for k, v in sd.items()}, tmp_path / "proj.bin")
+    mods = PipelineModules.tiny(device="cpu")
+    mods.resampler = TProj(24, 12, cross_attention_dim=16, num_tokens=4, num_dummy_tokens=3)
+    tload.apply_ported_weights(mods, {"image_proj": os.fspath(tmp_path / "proj.bin")})
+    want = from_jax.image_proj(port_image_proj({k: v.numpy() for k, v in sd.items()}))
+    got = mods.resampler.state_dict()
+    assert sorted(got) == sorted(want)
+    for name, value in want.items():
+        np.testing.assert_array_equal(got[name].numpy(), value.reshape(got[name].shape), name)
+
+
 def test_processor_slots_are_the_jax_ones(ref):
     from diffsensei_tpu.utils.port_torch import attn_processor_slots
 

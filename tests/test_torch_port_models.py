@@ -19,6 +19,8 @@ from diffsensei_tpu.core.config import (
     ResamplerConfig, TextEncoderConfig, UNetConfig, VAEConfig, VisionEncoderConfig)
 from diffsensei_tpu.models import layers as jlayers
 from diffsensei_tpu.models import schedulers as jsched
+from diffsensei_tpu.models.projection import (
+    ImageProjDummyModel as JImageProjDummyModel, ImageProjModel as JImageProjModel)
 from diffsensei_tpu.models.resampler import Resampler as JResampler
 from diffsensei_tpu.models.text_encoder import CLIPTextEncoder as JText
 from diffsensei_tpu.models.unet import UNetMangaModel as JUNet, attention_levels
@@ -29,6 +31,8 @@ from diffsensei_tpu.utils import port_torch
 
 from diffsensei_tpu_torch.models import layers as tlayers
 from diffsensei_tpu_torch.models import schedulers as tsched
+from diffsensei_tpu_torch.models.projection import (
+    ImageProjDummyModel as TImageProjDummyModel, ImageProjModel as TImageProjModel)
 from diffsensei_tpu_torch.models.resampler import Resampler as TResampler
 from diffsensei_tpu_torch.models.text_encoder import CLIPTextEncoder as TText
 from diffsensei_tpu_torch.models.unet import UNetMangaModel as TUNet
@@ -227,6 +231,34 @@ def test_resampler_matches_jax():
     tm = _load(TResampler(cfg), from_jax.resampler(params, cfg.depth))
     with torch.no_grad():
         got = tm(_t(clip), _t(magi))
+    _close(got, _apply(jm, params, jnp.asarray(clip), jnp.asarray(magi)))
+
+
+def test_image_proj_model_matches_jax():
+    emb = np.random.default_rng(8).normal(size=(3, 24)).astype(np.float32)
+    jm = JImageProjModel(cross_attention_dim=16, num_tokens=4)
+    params = _random_tree(jm, jnp.asarray(emb), seed=8)
+    tm = _load(TImageProjModel(24, cross_attention_dim=16, num_tokens=4),
+               from_jax.image_proj(params))
+    with torch.no_grad():
+        got = tm(_t(emb))
+    assert got.shape == (3, 4, 16)
+    _close(got, _apply(jm, params, jnp.asarray(emb)))
+
+
+def test_image_proj_dummy_model_matches_jax():
+    """Each branch through the one LayerNorm before the sum, dummy tokens
+    first."""
+    rng = np.random.default_rng(9)
+    clip = rng.normal(size=(2, 3, 24)).astype(np.float32)
+    magi = (3.0 + rng.normal(size=(2, 3, 12))).astype(np.float32)
+    jm = JImageProjDummyModel(cross_attention_dim=16, num_tokens=4, num_dummy_tokens=3)
+    params = _random_tree(jm, jnp.asarray(clip), jnp.asarray(magi), seed=9)
+    tm = _load(TImageProjDummyModel(24, 12, cross_attention_dim=16, num_tokens=4,
+                                    num_dummy_tokens=3), from_jax.image_proj(params))
+    with torch.no_grad():
+        got = tm(_t(clip), _t(magi))
+    assert got.shape == (2, 3 + 3 * 4, 16)
     _close(got, _apply(jm, params, jnp.asarray(clip), jnp.asarray(magi)))
 
 

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from diffsensei_tpu.data import bucket_dataset as jbd
+from diffsensei_tpu.models.projection import ImageProjDummyModel as JImageProjDummyModel
 from diffsensei_tpu.models.schedulers import DDPMSchedule as JDDPM
 from diffsensei_tpu.ops import flash_attention as jfa
 from diffsensei_tpu.ops.groupnorm import groupnorm_silu_ref as j_groupnorm_silu_ref
@@ -31,6 +32,7 @@ from diffsensei_tpu.train import diffusion as jdiff, losses as jlosses, optim as
 
 from diffsensei_tpu_torch.data import bucket_dataset as tbd
 from diffsensei_tpu_torch.data.loader import PrefetchLoader
+from diffsensei_tpu_torch.models.projection import ImageProjDummyModel as TImageProjDummyModel
 from diffsensei_tpu_torch.models.schedulers import DDPMSchedule
 from diffsensei_tpu_torch.models.vae import sample_latent
 from diffsensei_tpu_torch.ops import flash_attention as tfa, groupnorm as tgn
@@ -39,7 +41,7 @@ from diffsensei_tpu_torch.train.checkpoint import CheckpointManager, export_weig
 from diffsensei_tpu_torch.train.runner import RunConfig, run_training
 from diffsensei_tpu_torch.utils import from_jax
 
-from tests.torch_port_util import mangazero_pages, port_names, tiny_pipelines
+from tests.torch_port_util import mangazero_pages, port_names, random_tree, tiny_pipelines
 
 torch.set_num_threads(1)
 
@@ -334,20 +336,43 @@ def _port_trainables(unet, resampler, mode):
     return unet, resampler, params
 
 
-def _jax_by_port_name(jm, tree):
-    """A JAX ``{"unet": ..., "resampler": ...}`` tree as ``{port name: array}``."""
+def _jax_by_port_name(jm, tree, resampler_names):
+    """A JAX ``{"unet": ..., "resampler": ...}`` tree as ``{port name: array}``
+    (``resampler_names``: ``from_jax``'s converter of the resampler tree)."""
     out = {f"unet.{k}": v for k, v in from_jax.sdxl_unet(tree["unet"], jm.unet.config).items()}
     if "resampler" in tree:
         out.update({f"resampler.{k}": v for k, v in
-                    from_jax.resampler(tree["resampler"], jm.resampler.config.depth).items()})
+                    resampler_names(tree["resampler"]).items()})
     return out
 
 
-def _check_step(jm, tm, stage, mode, contrastive=None):
+def _linear_projections(jm, tm):
+    """(JAX ``ImageProjDummyModel``, its random weights, the port's with the
+    same weights) at the tiny stack's widths."""
+    manga = tm.manga
+    kw = dict(cross_attention_dim=tm.unet.config.cross_attention_dim,
+              num_tokens=manga.num_vision_tokens, num_dummy_tokens=manga.num_dummy_tokens)
+    clip_dim = tm.image_encoder.config.hidden_size
+    magi_dim = tm.magi_encoder.config.hidden_size
+    jproj = JImageProjDummyModel(**kw)
+    params = random_tree(jproj, jnp.zeros((1, manga.max_num_ips, clip_dim)),
+                         jnp.zeros((1, manga.max_num_ips, magi_dim)), seed=6)
+    tproj = TImageProjDummyModel(clip_dim, magi_dim, **kw)
+    tproj.load_state_dict(from_jax.to_tensors(from_jax.image_proj(params)))
+    return jproj, params, tproj
+
+
+def _check_step(jm, tm, stage, mode, contrastive=None, ip_adapter_plus=True):
     """One JAX step and one port step on the same weights, batch and draws:
     loss, every trainable's gradient, the parameters after one AdamW update;
-    the frozen parameters of the port bit-equal."""
+    the frozen parameters of the port bit-equal. ``ip_adapter_plus=False``
+    trains an ``ImageProjDummyModel`` in place of the Resampler."""
     manga = tm.manga
+    if ip_adapter_plus:
+        jres, jres_params, tres = jm.resampler, jm.resampler_params, tm.resampler
+        res_names = lambda tree: from_jax.resampler(tree, jm.resampler.config.depth)
+    else:
+        (jres, jres_params, tres), res_names = _linear_projections(jm, tm), from_jax.image_proj
     batch = _stage2_batch(manga)
     if stage == 1:
         batch = {k: batch[k] for k in STAGE1_KEYS}
@@ -362,10 +387,10 @@ def _check_step(jm, tm, stage, mode, contrastive=None):
         jparams, mask = jm.unet_params, mask["unet"]
         jstep = jdiff.make_stage1_step(jm.unet, JDDPM())
     else:
-        jparams["resampler"] = jm.resampler_params
-        mask["resampler"] = jax.tree.map(lambda _: True, jm.resampler_params)
-        jstep = jdiff.make_stage2_step(jm.unet, jm.resampler, JDDPM(), jdiff.Stage2Config(
-            manga=manga, ip_contrastive=contrastive))
+        jparams["resampler"] = jres_params
+        mask["resampler"] = jax.tree.map(lambda _: True, jres_params)
+        jstep = jdiff.make_stage2_step(jm.unet, jres, JDDPM(), jdiff.Stage2Config(
+            manga=manga, ip_contrastive=contrastive, ip_adapter_plus=ip_adapter_plus))
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     (jloss, _), jgrads = jax.jit(jax.value_and_grad(
         lambda p: jstep.loss_fn(p, jfrozen, jbatch, rng), has_aux=True))(jparams)
@@ -376,19 +401,19 @@ def _check_step(jm, tm, stage, mode, contrastive=None):
         jgrads, jnew = {"unet": jgrads}, {"unet": jnew}
 
     # port
-    unet, resampler, params = _port_trainables(tm.unet, None if stage == 1 else tm.resampler,
-                                               mode)
+    unet, resampler, params = _port_trainables(tm.unet, None if stage == 1 else tres, mode)
     frozen_before = {k: p.detach().clone() for k, p in unet.named_parameters()
                      if not p.requires_grad}
     if stage == 1:
         tstep = tdiff.make_stage1_step(unet, DDPMSchedule())
     else:
         tstep = tdiff.make_stage2_step(unet, resampler, DDPMSchedule(), tdiff.Stage2Config(
-            manga=manga, ip_contrastive=contrastive))
+            manga=manga, ip_contrastive=contrastive, ip_adapter_plus=ip_adapter_plus))
     loss, _ = tstep.loss_fn(tfrozen, {k: T(v) for k, v in batch.items()}, **draws)
     loss.backward()
     _close(loss, jloss, 5e-4, "loss")
-    want_grads, want_new = _jax_by_port_name(jm, jgrads), _jax_by_port_name(jm, jnew)
+    want_grads = _jax_by_port_name(jm, jgrads, res_names)
+    want_new = _jax_by_port_name(jm, jnew, res_names)
     for name, p in params.items():     # no gradient: unused here (stage 1's IP weights)
         grad = p.grad if p.grad is not None else torch.zeros_like(p)
         _close(grad, want_grads[name], 5e-4, f"grad {name}")
@@ -406,6 +431,17 @@ def test_stage2_step_matches_jax(stacks):
     params = _check_step(*stacks, stage=2, mode="new", contrastive="fast")
     assert any(k.startswith("resampler.") for k in params)
     assert any("dialog" in k for k in params) and any("_ip" in k for k in params)
+
+
+def test_stage2_step_with_the_linear_projection_matches_jax(stacks):
+    """``ip_adapter_plus=False``: the pooled CLIP-H CLS and the Magi CLS,
+    regrouped sources-major, through ``ImageProjDummyModel``."""
+    params = _check_step(*stacks, stage=2, mode="new", contrastive="fast",
+                         ip_adapter_plus=False)
+    assert {k for k in params if k.startswith("resampler.")} == {
+        f"resampler.{n}" for n in ("proj.weight", "proj.bias", "proj_magi.weight",
+                                   "proj_magi.bias", "norm.weight", "norm.bias",
+                                   "dummy_tokens")}
 
 
 def test_stage1_step_matches_jax(stacks):
@@ -636,10 +672,7 @@ def test_cli_trains_stage1(tmp_path):
 
 
 @pytest.mark.parametrize("edit", [
-    ("remat: true", "remat: true\n  remat_policy: dots_attn"),
-    ("remat: true", "remat: true\n  remat_policy: dots_deepest"),
     ("trainer:\n", "trainer:\n  parallel: fsdp\n"),
-    ("remat: true", "remat: true\n  remat_policy: dots"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, edit):
     cfg = _write_run(tmp_path)
@@ -648,6 +681,40 @@ def test_cli_refuses_what_is_not_ported(tmp_path, edit):
     with open(cfg, "w") as f:
         f.write(text.replace(*edit, 1))
     with pytest.raises(NotImplementedError):
+        cli.main(["--config", cfg, "--device", "cpu"])
+
+
+def _with_policy(cfg, policy):
+    with open(cfg) as f:
+        text = f.read()
+    with open(cfg, "w") as f:
+        f.write(text.replace("remat: true", f"remat: true\n  remat_policy: {policy}", 1))
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def full_remat_step(tmp_path_factory):
+    """One CLI step under full recompute (policy None)."""
+    tmp = tmp_path_factory.mktemp("full_remat")
+    return cli.main(["--config", _write_run(tmp, max_train_steps=1), "--device", "cpu",
+                     "--log_dir", os.fspath(tmp / "logs")])
+
+
+@pytest.mark.parametrize("policy", ["dots_attn", "dots_deepest", "dots", "attn"])
+def test_cli_trains_under_each_remat_policy(tmp_path, full_remat_step, policy):
+    """``model.remat_policy`` changes what the backward keeps, not a value:
+    one CLI step's trainables equal full recompute's bit for bit."""
+    cfg = _with_policy(_write_run(tmp_path, max_train_steps=1), policy)
+    state = cli.main(["--config", cfg, "--device", "cpu", "--log_dir",
+                      os.fspath(tmp_path / "logs")])
+    assert state.step == full_remat_step.step == 1
+    for name, p in full_remat_step.params.items():
+        assert torch.equal(state.params[name], p), name
+
+
+def test_cli_refuses_an_unknown_remat_policy(tmp_path):
+    cfg = _with_policy(_write_run(tmp_path), "dots_everything")
+    with pytest.raises(ValueError, match="unknown remat policy"):
         cli.main(["--config", cfg, "--device", "cpu"])
 
 
