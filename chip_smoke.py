@@ -102,8 +102,30 @@ Run from the root of the repository. Phases, one JSON line each:
    ``configs/train/mllm.yaml`` at full SDXL and SEED-X width and depth (the
    13B LLaMA in bf16 with fp32 LoRA, embeddings, norms and resamplers), one
    line a step, checkpoints, the trainables moved and the frozen weights
-   bit-equal (checksums kept on the host), then 2 more steps with the
-   LLaMA's remat policy ``attn``; profile_train_mllm over one step of each.
+   bit-equal (checksums kept on the host), then ``MLLM_ATTN_STEPS`` more
+   (none since the data-axis phases came) with the LLaMA's remat policy
+   ``attn``; profile_train_mllm over the fourth and the last step;
+16. ring_attention (after phase 13): the ring's schedule in one process
+   (``ops.ring_attention.ring_schedule``: n ranks' chunks on B1 and their
+   log-sum-exp merges) at 2048²'s level-1 shape (2, 10, 16384, 64) for 2, 4
+   and 8 ranks and at (2, 10, 4096, 64) for 4, against one B1 call over the
+   whole sequence (B1's limits), n² launches, with times beside that call,
+   SDPA and the bound;
+17. serve_cp (after agent_weights): a NCCL world of one in this process;
+   a 2048² panel with ``snap_to_buckets=False``, 4 Euler steps, CFG, R1's
+   characters and dialog box, through ``DiffSenseiPipeline(...,
+   PipelineConfig(context_parallel=True), mesh=make_mesh())`` (its 10
+   level-1 self-attentions a forward through the ring) and without the
+   mesh: exact launches, the panels bit-equal; serve_cp_cli: the serve
+   CLI with ``--context-parallel`` under ``torch.distributed.run`` on
+   serve_weights' directory (its bucket snap keeps the ring out of reach);
+18. train_dp (after train_proj): T1's config through the train CLI under
+   ``torch.distributed.run`` (one NCCL rank; this script's ``train-rank``
+   mode wraps ``train.cli.main`` to record each step), 2 steps with
+   ``trainer.parallel: dp`` (losses bit-equal to T1's) and 2 with ``fsdp``
+   (within 1e-3) at once, then the FSDP checkpoint resumed for a third;
+   train_dp2: two ranks sharing the card over gloo, ``dp``, a bucket batch
+   of 2, 2 steps: trainables and losses bit-equal on both ranks.
 
 The kernels' launch counts are set to 0 before each served or trained path
 and checked after it (every kernel, every path), and B3's calls by shape
@@ -112,6 +134,8 @@ exactly). Every phase line carries ``at_s``, the seconds since the start. Then t
 kernels line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. Needs one CUDA device; imports nothing of JAX.
+``python3 chip_smoke.py train-rank OUT ARGS...`` is the rank of a train CLI
+run that train_dp and train_dp2 start under ``torch.distributed.run``.
 """
 
 from __future__ import annotations
@@ -1914,6 +1938,9 @@ def write_mangazero(root, pages: int = 8, seed: int = 8) -> None:
 
 
 TRAIN_STEPS, PROFILED_STEP = 6, 5
+# per step of T1 (stage 2 at 1024², batch 1 a rank, remat on)
+T1_STEP = dict(flash_fwd=140, flash_dq=70, flash_dkv=70, groupnorm=88, dual=140)
+T1_LOSSES: list = []          # T1's losses by step, from the train phase
 
 
 def condition_config(tmp, weights_root, model=None, trainer=None, **groups) -> pathlib.Path:
@@ -2032,6 +2059,7 @@ def train(device, weights_root) -> dict:
     for row, rec in zip(rows, logged):
         row.update(step_s=rec["time/step_s"], data_s=rec["time/data_s"])
         emit({"phase": "train", **row})
+    T1_LOSSES[:] = [r["loss"] for r in rows]
     mods = built.pop("mods")
     moved = moved_and_frozen(snap, mods)
     del snap, mods
@@ -2045,7 +2073,7 @@ def train(device, weights_root) -> dict:
     emit({"phase": "train_summary", **summary})
     # per step, remat on: B1 70 forward + 70 replayed, B2 and B4 70 each; B3 34 in
     # the UNet forward + 34 replayed + 20 in the VAE encoder; B5 70 + 70 replayed
-    want = expect(flash_fwd=140, flash_dq=70, flash_dkv=70, groupnorm=88, dual=140)
+    want = expect(**T1_STEP)
     if len(rows) != TRAIN_STEPS or not all(np.isfinite(r["loss"]) for r in rows):
         raise AssertionError(f"a bad loss: {rows}")
     if checkpoints != ["step-3", "step-6"]:
@@ -2649,21 +2677,24 @@ def checksums(module, dtype_free: bool = False) -> dict:
 
 
 MLLM_STEPS, MLLM_PROFILED_STEP = 4, 3
-MLLM_ATTN_STEPS = 2      # then under model.agent.remat_policy: attn
+# then under model.agent.remat_policy: attn; 0 since the data-axis phases
+# came (the smoke's time limit), the policy held by tests/test_torch_port_remat.py
+MLLM_ATTN_STEPS = 0
 
 
 def train_mllm(device) -> dict:
     """Stage 3 through the port's CLI (``train.cli.main``) on
     ``configs/train/mllm.yaml`` at full SDXL and SEED-X width and depth, with
     four changes: ``init: random``, no ``weights:`` group, the synthetic data
-    paths (and the log directory beside them), ``max_train_steps: 6,
-    log_every: 1, checkpoint_every: 2``. After step 4 the LLaMA's remat
-    policy becomes ``attn`` (``enable_remat("attn")``, what
-    ``model.agent.remat_policy: attn`` sets at the build), so steps 5 and 6
-    keep each layer's attention product on the stack already built. Each
-    step's losses, seconds, peak memory and kernel launches; steps
-    ``MLLM_PROFILED_STEP + 1`` and 6 under ``torch.profiler``. Checks: finite
-    losses, checkpoints at steps 2, 4 and 6, every trainable group moved, the
+    paths (and the log directory beside them), ``max_train_steps: MLLM_STEPS
+    + MLLM_ATTN_STEPS, log_every: 1, checkpoint_every: 2``. After step 4 the
+    LLaMA's remat policy becomes ``attn`` (``enable_remat("attn")``, what
+    ``model.agent.remat_policy: attn`` sets at the build), so the
+    ``MLLM_ATTN_STEPS`` steps after it keep each layer's attention product
+    on the stack already built. Each step's losses, seconds, peak memory and
+    kernel launches; steps ``MLLM_PROFILED_STEP + 1`` and the last under
+    ``torch.profiler``. Checks: finite losses, checkpoints every 2 steps and
+    at the last, every trainable group moved, the
     frozen LLaMA base, UNet and Resampler bit-equal (checksums), the same
     launch counts on every step (the LLaMA's 400-token attention is plain
     math under both policies)."""
@@ -2793,8 +2824,9 @@ def train_mllm(device) -> dict:
         raise AssertionError(f"a bad loss: {rows}")
     if [r["remat_policy"] for r in rows] != [None] * MLLM_STEPS + ["attn"] * MLLM_ATTN_STEPS:
         raise AssertionError(f"remat policies by step {[r['remat_policy'] for r in rows]}")
-    if sorted(ckpts) != ["step-2", "step-4", "step-6"]:
-        raise AssertionError(f"checkpoints {sorted(ckpts)} != step-2, step-4, step-6")
+    want_ckpts = sorted({f"step-{k}" for k in range(2, last + 1, 2)} | {f"step-{last}"})
+    if sorted(ckpts) != want_ckpts:
+        raise AssertionError(f"checkpoints {sorted(ckpts)} != {want_ckpts}")
     groups = ("lora", "embed_tokens", "lm_head", "norm", "input_resampler", "output_resampler")
     frozen = ("frozen_llm", "frozen_unet", "frozen_resampler")
     if not (all(all(moved[g]) for g in groups) and not any(any(moved[g]) for g in frozen)):
@@ -2847,6 +2879,361 @@ def profile_decode(device, llm, prompt_len: int = 83, steps: int = 16) -> None:
                        per_token=e.count / steps) for e in top]})
 
 
+
+# ---------------------------------------------------------------------------
+# the data axis: the ring, context-parallel serving, DP and FSDP training
+# ---------------------------------------------------------------------------
+RING_CASES = [  # (B, H, S, D, ranks): 2048² level 1 with CFG at 2, 4 and 8 ranks; 1024² at 4
+    (2, 10, 16384, 64, 2), (2, 10, 16384, 64, 4), (2, 10, 16384, 64, 8), (2, 10, 4096, 64, 4)]
+
+
+def check_ring(device) -> list:
+    """The ring's schedule in one process (``ops.ring_attention.ring_schedule``:
+    n ranks' chunks on B1 through ``chunk_attention``, merged by
+    ``merge_partials`` in the ring's order) against one B1 call over the
+    whole sequence: o and lse within B1's limits (``flash_agrees``), n²
+    launches. Times of the schedule, of the one B1 call and of
+    ``F.scaled_dot_product_attention``; the bound counts q, k, v read once,
+    o and lse written once, and 2 products a (query, key) pair."""
+    import torch
+    import torch.nn.functional as F
+    from diffsensei_tpu_torch.ops import flash_attention as fa, ring_attention as ra
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    rows = []
+    for b, h, s, d, n in RING_CASES:
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=device).bfloat16()
+                   for _ in range(3))
+        whole_o, whole_lse = fa.flash_attention(q, k, v)
+        before = fa.launches
+        o, lse = ra.ring_schedule(q, k, v, n, return_lse=True)
+        torch.cuda.synchronize()
+        launches = fa.launches - before
+        row = dict(shape=[b, h, s, d], ranks=n, launches=launches,
+                   **flash_readings(o, lse, whole_o.float(), whole_lse),
+                   ms=cuda_ms(lambda: ra.ring_schedule(q, k, v, n), reps=5, warmup=1),
+                   b1_ms=cuda_ms(lambda: fa.flash_attention(q, k, v), reps=5, warmup=1),
+                   sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                                   reps=5, warmup=1),
+                   **bound(2 * b * h * d * 4 * s + 4 * b * h * s, 4 * b * h * s * s * d))
+        row["vs_b1"] = row["ms"] / row["b1_ms"]
+        rows.append(row)
+        emit({"phase": "ring_attention", **row})
+        if launches != n * n or not flash_agrees(row):
+            raise AssertionError(f"the ring's schedule disagrees with B1: {row}")
+        del q, k, v, whole_o, whole_lse, o, lse
+    torch.cuda.empty_cache()
+    return rows
+
+
+CP_SIDE, CP_STEPS = 2048, 4
+
+
+def serve_cp(device, mods, ids, weights_root) -> dict:
+    """Context-parallel serving in a NCCL world of one in this process:
+    ``DiffSenseiPipeline(mods, PipelineConfig(context_parallel=True),
+    mesh=make_mesh())`` at 2048² with ``snap_to_buckets=False``, 4 Euler
+    steps, CFG, R1's two characters and dialog box. Its level-1
+    self-attention has 16384 tokens, so the ring takes 10 of the UNet's 70
+    B1 calls a forward (one chunk: B1 over the whole sequence). Checks: B1
+    4 x 70, B5 4 x 70 and B3 4 x 34 plus 28 for each of the decode's 16
+    tiles, exactly; the panel bit-equal to the same request without the
+    mesh. Then the serve CLI with ``--context-parallel`` under
+    ``torch.distributed.run`` (one rank) on serve_weights' artifact
+    directory: it snaps 2048² to 1024², so the ring is wired there but not
+    reached."""
+    import torch
+    from PIL import Image
+    from diffsensei_tpu_torch.core.config import PipelineConfig
+    from diffsensei_tpu_torch.models.vae import tile_plan
+    from diffsensei_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from diffsensei_tpu_torch.pipelines.pipeline import DiffSenseiPipeline
+    from diffsensei_tpu_torch.serve.api import DiffSenseiServer
+
+    env = init_distributed(device)
+    mesh = make_mesh(device=device)
+    rng = np.random.default_rng(3)
+    chars = [Image.fromarray((rng.random((300, 200, 3)) * 255).astype(np.uint8))
+             for _ in range(2)]
+    base = DiffSenseiPipeline(mods)
+    cp = DiffSenseiPipeline(mods, PipelineConfig(context_parallel=True), mesh=mesh)
+    server = DiffSenseiServer(base)
+    lat_side = CP_SIDE // base.latent_scale
+    call = dict(height=CP_SIDE, width=CP_SIDE, num_inference_steps=CP_STEPS,
+                guidance_scale=7.5, snap_to_buckets=False, prompt_ids=ids(),
+                ip_pixel_values=server._preprocess_characters(chars),
+                ip_bbox=[[0.05, 0.1, 0.5, 0.95], [0.5, 0.2, 0.95, 0.9]],
+                dialog_bbox=[[0.1, 0.02, 0.6, 0.2]],
+                latents=server.initial_latents(7, (1, lat_side, lat_side, 4)))
+    tiles = len(tile_plan(lat_side, lat_side))
+    want = expect(flash_fwd=CP_STEPS * 70, dual=CP_STEPS * 70,
+                  groupnorm=CP_STEPS * 34 + 28 * tiles)
+    rows, panels = {}, {}
+    reset_counts()
+    for leg, pipe in (("replicated", base), ("context_parallel", cp)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        img = pipe(**call).cpu().numpy()
+        torch.cuda.synchronize()
+        rows[leg] = dict(seconds=time.perf_counter() - t0, launches=since(before),
+                         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         **panel_row(img, CP_SIDE, CP_SIDE))
+        panels[leg] = img
+        counts = launch_counts() if leg == "context_parallel" else None
+    row = dict(side=CP_SIDE, steps=CP_STEPS, ranks=env.world, backend=env.backend,
+               ring_calls_a_forward=10, decode_tiles=tiles, **rows["context_parallel"],
+               replicated_seconds=rows["replicated"]["seconds"],
+               replicated_launches=rows["replicated"]["launches"],
+               bit_equal_to_replicated=bool(np.array_equal(panels["context_parallel"],
+                                                            panels["replicated"])),
+               max_abs_diff=float(np.abs(panels["context_parallel"]
+                                         - panels["replicated"]).max()))
+    emit({"phase": "serve_cp", **row})
+    if (row["launches"] != want or row["replicated_launches"] != want
+            or not row["bit_equal_to_replicated"]):
+        raise AssertionError(f"context-parallel serving differs: {row}, want {want}")
+    del panels, img
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out = weights_root / "cp_panel.png"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         "-m", "diffsensei_tpu_torch.serve.cli", "--preset", "sdxl", "--weights",
+         str(weights_root), "--tokenizer", str(weights_root / "tokenizer"),
+         "--context-parallel", "--prompt", "two girls talk on a rainy street",
+         "--height", str(CP_SIDE), "--width", str(CP_SIDE), "--steps", str(CP_STEPS),
+         "--out", str(out)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        log = proc.communicate(timeout=600)[0]
+    finally:
+        stop(proc)
+    panel = np.asarray(Image.open(out)) if out.exists() else None
+    cli_row = dict(seconds=time.perf_counter() - t0, rc=proc.returncode,
+                   shape=None if panel is None else list(panel.shape),
+                   note="the server snaps 2048x2048 to its 1024x1024 bucket: the ring is "
+                        "wired through the CLI but not taken (min_seq 16384 > 4096 tokens)",
+                   log_tail=log[-600:])
+    emit({"phase": "serve_cp_cli", **cli_row})
+    if proc.returncode != 0 or cli_row["shape"] != [1024, 1024, 3]:
+        raise AssertionError(f"the serve CLI under --context-parallel failed: {cli_row}")
+    return counts
+
+
+def bits_digest(tensors) -> list:
+    """Two int64 sums (of the int16 words of every tensor's bits, and of
+    their squares): equal digests for bit-equal tensors."""
+    import torch
+    from diffsensei_tpu_torch.parallel.train import local_part
+
+    s1 = s2 = 0
+    with torch.no_grad():
+        for t in tensors:
+            words = local_part(t.detach()).contiguous().view(-1).view(torch.int16).int()
+            s1 += int(words.sum(dtype=torch.int64))
+            s2 += int((words * words).sum(dtype=torch.int64))
+    return [s1, s2]
+
+
+def train_rank(argv) -> int:
+    """One rank of a train CLI run under ``torch.distributed.run`` (the
+    ``train-rank OUT CLI-ARGS...`` mode of this script): ``train.cli.main``
+    with an ``on_step`` that records each step's loss, host seconds, peak
+    memory, kernel launches and a digest of the trainables' bits, and after
+    the run a digest of the frozen UNet weights; written as JSON to
+    ``OUT.rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    from diffsensei_tpu_torch.train import cli
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, args = argv[0], argv[1:]
+    held, rows = {}, []
+    build_models, run_training = cli.build_models, cli.run_training
+
+    def capture_models(*a, **kw):
+        held["mods"] = build_models(*a, **kw)
+        return held["mods"]
+
+    def capture_run(step_fn, state, batches_from, run_cfg, **kw):
+        held["state"] = state
+        return run_training(step_fn, state, batches_from, run_cfg, **kw)
+
+    clock = {}
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rows.append(dict(step=step, **{k: float(v) for k, v in metrics.items()},
+                         host_s=now - clock["last"], launches=since(clock["counts"]),
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         trainables=bits_digest(held["state"].params.values())))
+        torch.cuda.reset_peak_memory_stats()
+        clock.update(last=time.perf_counter(), counts=launch_counts())
+
+    cli.build_models, cli.run_training = capture_models, capture_run
+    reset_counts()
+    t0 = clock["last"] = time.perf_counter()
+    clock["counts"] = launch_counts()
+    cli.main(args, on_step=on_step)
+    unet = held["mods"].unet
+    frozen = bits_digest(p for p in unet.parameters() if not p.requires_grad)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    pathlib.Path(f"{out}.rank{rank}.json").write_text(json.dumps(dict(
+        rank=rank, world=world, backend=dist.get_backend(), seconds=time.perf_counter() - t0,
+        steps=rows, frozen_unet=frozen)))
+    dist.destroy_process_group()
+    return 0
+
+
+def stop(proc) -> None:
+    """End a launcher and, through its SIGTERM handler, the ranks it started."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+
+
+def torchrun_train(out, nproc: int, config, *extra, timeout: float = 900):
+    """Start the train CLI on ``config`` under ``torch.distributed.run`` with
+    ``nproc`` ranks on this card, each through ``train_rank``; returns a
+    function that waits for it and gives every rank's record."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         str(nproc), str(pathlib.Path(__file__).resolve()), "train-rank", str(out),
+         "--config", str(config), *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def records() -> list:
+        try:
+            log = proc.communicate(timeout=timeout)[0]
+        finally:
+            stop(proc)
+        if proc.returncode != 0:
+            raise AssertionError(f"torchrun of the train CLI failed ({proc.returncode}):\n"
+                                 f"{log[-3000:]}")
+        recs = [json.loads(pathlib.Path(f"{out}.rank{r}.json").read_text())
+                for r in range(nproc)]
+        for rec in recs:
+            rec["wall_s"] = time.perf_counter() - t0
+        return recs
+    records.stop = lambda: stop(proc)
+    return records
+
+
+def path_counts(records) -> dict:
+    """A path's launches over every rank and step of its records."""
+    return {k: sum(r["launches"][k] for rec in records for r in rec["steps"]) for k in KERNELS}
+
+
+def train_dp(device, weights_root) -> dict:
+    """T1's config through the train CLI under ``torch.distributed.run``, one
+    NCCL rank: 2 steps with ``trainer.parallel: dp`` (DDP) and, at the same
+    time in another process, 2 with ``fsdp`` (FSDP2, every parameter of 64
+    Ki elements or more a shard of the world of one; each run's peak is its
+    own process's), then the FSDP run's checkpoint resumed for a third.
+    Checks: T1's launches every step; the DP losses bit-equal to T1's first
+    two, the FSDP ones within 1e-3 relative of them; the checkpoints of both
+    layouts under the same names and shapes; the resumed step finite."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        records, rows, running = {}, {}, {}
+        for mode in ("dp", "fsdp"):
+            (tmp / mode).mkdir()
+            write_mangazero(tmp / mode)
+            config = condition_config(tmp / mode, weights_root, trainer=dict(
+                parallel=mode, max_train_steps=2, log_every=1, checkpoint_every=2))
+            running[mode] = torchrun_train(tmp / mode / "out", 1, config)
+        try:
+            for mode in ("dp", "fsdp"):
+                records[mode] = running[mode]()
+        finally:
+            for wait in running.values():
+                wait.stop()
+        for mode in ("dp", "fsdp"):
+            (rec,) = records[mode]
+            steps = rec["steps"]
+            rows[mode] = dict(
+                backend=rec["backend"], world=rec["world"], wall_s=rec["wall_s"],
+                losses=[r["loss"] for r in steps], t1_losses=T1_LOSSES[:2],
+                rel_diff_to_t1=[abs(r["loss"] - w) / abs(w) for r, w in zip(steps, T1_LOSSES)],
+                step_host_s=[r["host_s"] for r in steps],
+                peak_gib=[r["peak_gib"] for r in steps], launches=[r["launches"] for r in steps])
+            emit({"phase": "train_dp", "parallel": mode, **rows[mode]})
+        resumed = torchrun_train(tmp / "fsdp" / "resumed", 1, tmp / "fsdp" / "config.yaml",
+                                 "--resume", "--max_train_steps", "3")()
+        ckpt = {mode: torch.load(tmp / mode / "logs" / "step-2" / "ckpt.pt", mmap=True,
+                                 map_location="cpu", weights_only=False)["state"]
+                for mode in ("dp", "fsdp")}
+        same_layout = (
+            {k: tuple(v.shape) for k, v in ckpt["dp"]["params"].items()}
+            == {k: tuple(v.shape) for k, v in ckpt["fsdp"]["params"].items()}
+            and ckpt["dp"]["optimizer"]["adamw"]["state"].keys()
+            == ckpt["fsdp"]["optimizer"]["adamw"]["state"].keys())
+        del ckpt
+    (res,) = resumed
+    row = dict(parallel="fsdp", resumed_from=2, steps=[r["step"] for r in res["steps"]],
+               losses=[r["loss"] for r in res["steps"]], t1_loss_3=T1_LOSSES[2],
+               peak_gib=[r["peak_gib"] for r in res["steps"]],
+               launches=[r["launches"] for r in res["steps"]],
+               checkpoint_layouts_equal=same_layout, wall_s=res["wall_s"])
+    emit({"phase": "train_dp_resume", **row})
+    want = expect(**T1_STEP)
+    dp, fsdp = rows["dp"], rows["fsdp"]
+    if dp["losses"] != T1_LOSSES[:2] or max(fsdp["rel_diff_to_t1"]) > 1e-3:
+        raise AssertionError(f"DP or FSDP steps differ from T1's: {dp}, {fsdp}")
+    if any(c != want for r in (dp, fsdp, row) for c in r["launches"]):
+        raise AssertionError(f"launches a step differ from T1's {want}: {rows}, {row}")
+    if row["steps"] != [3] or not all(np.isfinite(row["losses"])) or not same_layout:
+        raise AssertionError(f"the FSDP resume or the checkpoint layout is wrong: {row}")
+    return path_counts(records["dp"] + records["fsdp"] + resumed)
+
+
+def train_dp2(device, weights_root) -> dict:
+    """Two ranks on the one card (gloo: NCCL refuses two ranks on one card)
+    with ``trainer.parallel: dp``, a bucket batch of 2 (T1's per-rank batch
+    of 1 at the 1024² bucket, one row a rank), 2 steps. Checks: T1's launches every step on each rank, finite losses, the
+    trainables' bits equal on both ranks after each step, the frozen UNet
+    weights equal. Its seconds a step are a gloo all-reduce through the
+    host, not an NCCL number."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        write_mangazero(tmp)
+        cfg = condition_config(tmp, weights_root, trainer=dict(
+            parallel="dp", max_train_steps=2, log_every=1, checkpoint_every=2))
+        records = torchrun_train(tmp / "out", 2, cfg)()
+    want = expect(**T1_STEP)
+    row = dict(backend=records[0]["backend"], world=records[0]["world"],
+               wall_s=records[0]["wall_s"],
+               losses=[r["loss"] for r in records[0]["steps"]],
+               panels=[r["panels"] for r in records[0]["steps"]],
+               step_host_s={rec["rank"]: [r["host_s"] for r in rec["steps"]] for rec in records},
+               peak_gib={rec["rank"]: [r["peak_gib"] for r in rec["steps"]] for rec in records},
+               trainables_equal=[a["trainables"] == b["trainables"] for a, b in
+                                 zip(records[0]["steps"], records[1]["steps"])],
+               losses_equal=[a["loss"] == b["loss"] for a, b in
+                             zip(records[0]["steps"], records[1]["steps"])],
+               frozen_equal=records[0]["frozen_unet"] == records[1]["frozen_unet"],
+               launches={rec["rank"]: [r["launches"] for r in rec["steps"]] for rec in records},
+               note="seconds a step over gloo: the gradients all-reduced through the host")
+    emit({"phase": "train_dp2", **row})
+    if (row["backend"] != "gloo" or row["world"] != 2 or len(row["losses"]) != 2
+            or not all(np.isfinite(row["losses"])) or not all(row["trainables_equal"])
+            or not all(row["losses_equal"]) or not row["frozen_equal"]
+            or any(c != want for rec in records for c in (r["launches"] for r in rec["steps"]))):
+        raise AssertionError(f"two ranks on one card disagree: {row}")
+    return path_counts(records)
+
+
 def main() -> int:
     import torch
 
@@ -2893,6 +3280,7 @@ def main() -> int:
     int4 = check_int4(device)
     flash_dq, flash_dkv = check_flash_bwd(device)
     dual = check_dual(device)
+    ring = check_ring(device)
     check_reference(device)
     check_llama_reference(device)
     check_reference_train(device)
@@ -2908,6 +3296,7 @@ def main() -> int:
         paths["eval_pages"] = eval_pages(device, mods)
         paths["serve_agent"] = serve_agent(device, mods, ids)
         paths["agent_weights"] = agent_weights(device, weights_root)
+        paths["serve_cp"] = serve_cp(device, mods, ids, weights_root)
         del mods
         torch.cuda.empty_cache()
         paths["train"] = train(device, weights_root)
@@ -2919,6 +3308,10 @@ def main() -> int:
             del t1
         finally:
             shutil.rmtree(remat_root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["train_dp"] = train_dp(device, weights_root)
+        paths["train_dp2"] = train_dp2(device, weights_root)
     finally:
         shutil.rmtree(weights_root, ignore_errors=True)
     paths["train_lora"] = train_lora(device)
@@ -2934,7 +3327,9 @@ def main() -> int:
         dict(name="flash_attention_fwd", route="cuda",
              source="diffsensei_tpu_torch/csrc/flash_attention.cu",
              replaces="diffsensei_tpu/ops/flash_attention.py:59",
-             **on_paths("flash_fwd"), **flash),
+             **on_paths("flash_fwd"), **flash,
+             ring_schedule=[{k: r[k] for k in ("shape", "ranks", "launches", "ms", "b1_ms",
+                                               "bound_ms")} for r in ring]),
         dict(name="groupnorm_silu", route="cuda",
              source="diffsensei_tpu_torch/csrc/groupnorm_silu.cu",
              replaces="diffsensei_tpu/ops/groupnorm.py:44",
@@ -2968,4 +3363,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["train-rank"]:
+        sys.exit(train_rank(sys.argv[2:]))
     sys.exit(main())

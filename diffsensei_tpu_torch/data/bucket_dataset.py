@@ -10,13 +10,17 @@ are NHWC numpy. Augmentation draws come from a per-sample
 ``Random(epoch seed, bucket, index)``, so the stream is the JAX package's,
 byte for byte, for any worker count.
 
+Data parallelism: a bucket's batch is the per-rank size times
+``data_parallel``, and every rank walks the same epoch plan and takes rows
+``[host_id::num_hosts]`` of each global batch (the sampler sharding
+Accelerate does for the reference). ``load_context_image`` adds a random
+other frame of the page as a context image, blacked out with
+``c_drop_rate`` (the reference's ``dataset_size_bucket.py:264-272``).
+
 Annotation schema (MangaZero): a JSON list of pages, each
 ``{"image_path": str, "frames": [{"bbox": [x1,y1,x2,y2], "caption": str,
 "characters": [{"id": int, "bbox": [...], "type": 0|1}],
 "dialogs": [{"bbox": [...]}]}]}``.
-
-Left for later slices: the context image (``load_context_image``, no stage-2
-caller) and the per-host row split of multi-GPU runs.
 """
 
 from __future__ import annotations
@@ -39,15 +43,18 @@ from diffsensei_tpu_torch.data import geometry, processors
 class BucketDatasetConfig:
     t_drop_rate: float = 0.05        # caption CFG dropout
     i_drop_rate: float = 0.05        # per-character dropout
+    c_drop_rate: float = 0.05        # context-image dropout
     max_num_ips: int = 4
     max_num_ip_sources: int = 1
     max_num_dialogs: int = 8
     mask_dialog: bool = False
+    load_context_image: bool = False
     ip_self_condition_rate: float = 0.5
     ip_flip_rate: float = 0.5
     min_ip_height: int = 5
     min_ip_width: int = 5
-    batch_size: int = 8              # base size; each size class scales it by 1/4
+    batch_size: int = 8              # per-rank base size; each size class scales it by 1/4
+    data_parallel: int = 1           # ranks on the data axis; global batch = per-rank x this
 
 
 class MangaTrainSizeBucketDataset:
@@ -186,6 +193,21 @@ class MangaTrainSizeBucketDataset:
         clip_imgs, magi_imgs, ip_exists = self._load_ip_images(
             ann, char_ids, page_bbox, page_image, rng)
 
+        # context image: a random other frame of the page, CLIP-preprocessed,
+        # black with c_drop_rate or where the page has one frame
+        context = None
+        if cfg.load_context_image:
+            frames = ann["frames"]
+            if len(frames) > 1 and rng.random() >= cfg.c_drop_rate:
+                others = frames[: entry["frame_idx"]] + frames[entry["frame_idx"] + 1:]
+                context_img = page_image.crop(tuple(rng.choice(others)["bbox"]))
+                drop_context = 0.0
+            else:
+                context_img = Image.new("RGB", (224, 224), (0, 0, 0))
+                drop_context = 1.0
+            context = (processors.clip_preprocess(context_img),
+                       np.asarray(drop_context, np.float32))
+
         dialogs = frame_info.get("dialogs", [])
         dialog_bbox = []
         for idx in rng.sample(range(len(dialogs)), len(dialogs)):
@@ -196,7 +218,7 @@ class MangaTrainSizeBucketDataset:
         while len(dialog_bbox) < cfg.max_num_dialogs:
             dialog_bbox.append([0.0, 0.0, 0.0, 0.0])
 
-        return {
+        sample = {
             "pixel_values": processors.panel_transform(panel).astype(np.float32),
             "text_input_ids": ids_1,
             "text_input_ids_2": ids_2,
@@ -209,24 +231,36 @@ class MangaTrainSizeBucketDataset:
             "crop_coords_top_left": np.asarray(crop_tl, np.float32),
             "target_size": np.asarray([bh, bw], np.float32),
         }
+        if context is not None:
+            sample["context_pixel_values"], sample["drop_context"] = context
+        return sample
 
     # -- batching (reference BucketBatchSampler :488-544) ----------------------
     def bucket_batch_size(self, bucket_key) -> int:
-        """The base batch size over 4^size_index, at least 1 (reference :503)."""
+        """The per-rank base size over 4^size_index, at least 1 (reference
+        :503), times ``data_parallel``, so that every batch splits evenly."""
         idx = self.bucket_size_index[bucket_key]
-        return max(1, round(self.cfg.batch_size / (2 ** (idx * 2))))
+        return max(1, round(self.cfg.batch_size / (2 ** (idx * 2)))) * self.cfg.data_parallel
 
     def num_batches(self) -> int:
         """Batches in one epoch (the same for every seed)."""
         return sum(-(-len(v) // self.bucket_batch_size(k)) for k, v in self.buckets.items())
 
     def batches(self, shuffle: bool = True, seed: Optional[int] = None,
-                num_workers: int = 0, skip: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+                num_workers: int = 0, skip: int = 0, host_id: int = 0,
+                num_hosts: int = 1) -> Iterator[Dict[str, np.ndarray]]:
         """One epoch of fixed-shape numpy batches with ``sample_mask``, from
         its ``skip``-th batch on (the skipped ones are not built: a resumed
         run takes up the stream where it stopped). ``num_workers > 0`` builds
         each batch's samples on a thread pool (PIL decode and resize release
-        the GIL); the stream does not depend on it."""
+        the GIL); the stream does not depend on it. Rank ``host_id`` of
+        ``num_hosts`` gets rows ``[host_id::num_hosts]`` of every batch; every
+        bucket's batch size must divide by ``num_hosts``."""
+        if num_hosts > 1 and any(self.bucket_batch_size(k) % num_hosts
+                                 for k in self.bucket_keys):
+            raise ValueError(
+                f"bucket batch sizes must be divisible by num_hosts={num_hosts} (got "
+                f"{[self.bucket_batch_size(k) for k in self.bucket_keys]})")
         rng = random.Random(seed)
         seed_base = seed if seed is not None else rng.randrange(2 ** 31)
 
@@ -254,10 +288,11 @@ class MangaTrainSizeBucketDataset:
                 mask[: len(idxs)] = 1.0
                 # partial batches repeat samples, masked out of the loss
                 padded = idxs + [idxs[i % len(idxs)] for i in range(bs - len(idxs))]
+                local = padded[host_id::num_hosts]
                 build = lambda i: self.get_sample(key, i, sample_rng(key, i))
-                samples = list(pool.map(build, padded)) if pool else [build(i) for i in padded]
+                samples = list(pool.map(build, local)) if pool else [build(i) for i in local]
                 batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
-                batch["sample_mask"] = mask
+                batch["sample_mask"] = mask[host_id::num_hosts]
                 yield batch
         finally:
             if pool is not None:

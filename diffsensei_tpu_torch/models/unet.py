@@ -29,7 +29,10 @@ activations' dtype at use. ``config.lora_rank > 0`` puts adapters on
 Serving: ``quantized=True`` builds the weight-only int8 layout of
 ``models/quant_unet.py`` (every transformer matmul an ``Int8Linear``), and
 ``forward``'s ``return_deep`` / ``deep_feature`` / ``cache_split`` are the
-JAX package's DeepCache. Context parallelism waits for a later slice.
+JAX package's DeepCache. ``set_context_parallel(group, min_seq)`` sends
+every spatial self-attention of at least ``min_seq`` tokens through the ring
+of ``ops/ring_attention.py`` over ``group``, the JAX ``cp_mesh`` /
+``cp_min_seq`` (the rest of the UNet stays replicated on every rank).
 """
 
 from __future__ import annotations
@@ -63,11 +66,15 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 class SelfAttention(nn.Module):
     """Spatial self-attention (``attn1``). ``kw``: ``lora_rank``,
-    ``quantized``, ``dtype``, ``device`` of the projections."""
+    ``quantized``, ``dtype``, ``device`` of the projections. With
+    ``cp_group`` set, a sequence of at least ``cp_min_seq`` tokens runs as
+    ring attention over that process group."""
 
     def __init__(self, dim: int, heads: int, **kw):
         super().__init__()
         self.heads = heads
+        self.cp_group = None
+        self.cp_min_seq = 16384
         self.to_q = projection(dim, dim, bias=False, **kw)
         self.to_k = projection(dim, dim, bias=False, **kw)
         self.to_v = projection(dim, dim, bias=False, **kw)
@@ -77,7 +84,8 @@ class SelfAttention(nn.Module):
         q = _split_heads(self.to_q(x), self.heads)
         k = _split_heads(self.to_k(x), self.heads)
         v = _split_heads(self.to_v(x), self.heads)
-        return self.to_out[0](_merge_heads(multi_head_attention(q, k, v)))
+        cp = self.cp_group if x.shape[1] >= self.cp_min_seq else None
+        return self.to_out[0](_merge_heads(multi_head_attention(q, k, v, cp_group=cp)))
 
 
 class MangaCrossAttention(nn.Module):
@@ -255,6 +263,8 @@ class UNetMangaModel(nn.Module):
         self.compute_dtype: Optional[torch.dtype] = None
         self.remat = False
         self.remat_policy: Optional[str] = None
+        self.cp_group = None
+        self.cp_min_seq = 16384
 
     @property
     def dtype(self) -> torch.dtype:
@@ -270,6 +280,14 @@ class UNetMangaModel(nn.Module):
         ``ValueError``."""
         self.remat_policy = remat.check_policy(policy)
         self.remat = True
+
+    def set_context_parallel(self, group, min_seq: int = 16384) -> None:
+        """Run every spatial self-attention of at least ``min_seq`` tokens as
+        ring attention over the process group ``group`` (None: off)."""
+        self.cp_group, self.cp_min_seq = group, min_seq
+        for mod in self.modules():
+            if isinstance(mod, SelfAttention):
+                mod.cp_group, mod.cp_min_seq = group, min_seq
 
     def _block(self, block: nn.Module, *args, context=noop_context_fn):
         if self.remat and torch.is_grad_enabled():

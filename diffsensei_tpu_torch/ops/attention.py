@@ -6,6 +6,11 @@ everything else (77 text tokens, 80 IP tokens, 257 image patches, perceiver
 latents) is the plain einsum-softmax-einsum that XLA ran on the TPU. The rule
 depends on the inputs' device, shape and dtype only.
 
+``cp_group`` opts plain self-attention (no bias, not causal, as many queries
+as keys, a sequence the group's size divides) into the ring of
+``ops/ring_attention.py``, the sequence sharded over the group's ranks, as
+the JAX dispatcher takes ``cp_mesh`` (``attention.py:67-72``).
+
 The plain path's output product is tagged ``attn_out``, as the JAX
 dispatcher tags it with ``checkpoint_name`` (``attention.py:79-84``): a
 selective checkpoint's policy sees ops, not tensors, so ``checkpoint_name``
@@ -20,9 +25,11 @@ import threading
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from diffsensei_tpu_torch.ops.flash_attention import (
     HEAD_DIMS, attention_scores, flash_attention)
+from diffsensei_tpu_torch.ops.ring_attention import ring_attention_sharded
 
 # Below this key length a blocked kernel has nothing to block.
 FLASH_MIN_KV = 1024
@@ -67,9 +74,14 @@ def uses_flash(q: torch.Tensor, k: torch.Tensor) -> bool:
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bias: Optional[torch.Tensor] = None, causal: bool = False,
-                         sm_scale: Optional[float] = None) -> torch.Tensor:
+                         sm_scale: Optional[float] = None, cp_group=None) -> torch.Tensor:
     """Attention over ``[batch, heads, seq, head_dim]``; picks the path by
-    shape. Both paths are differentiable in q, k and v."""
+    shape. The flash and plain paths are differentiable in q, k and v; the
+    ring (``cp_group``, a process group) is forward only."""
+    kv_len = k.shape[2]
+    if (cp_group is not None and bias is None and not causal and q.shape[2] == kv_len
+            and kv_len % dist.get_world_size(cp_group) == 0):
+        return ring_attention_sharded(q, k, v, cp_group, sm_scale)
     if uses_flash(q, k):
         return flash_attention(q, k, v, None if bias is None else bias.float(),
                                causal=causal, sm_scale=sm_scale)[0]

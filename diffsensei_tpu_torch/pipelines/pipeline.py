@@ -14,6 +14,15 @@ The decode goes through ``tiled_decode`` (tile 96, overlap 24) whenever a
 latent side exceeds 128, as the JAX ``_decode_any`` does: every 1024-class
 bucket but 1024x1024 is decoded in tiles.
 
+Over a device mesh (``DiffSenseiPipeline(mesh=...)``, the JAX pipeline's
+``mesh``) the pipeline serves in one of two modes. Batched: each rank of the
+data axis runs the UNet on its contiguous block of the CFG batch and the
+noise predictions are all-gathered before the CFG combine and the sampler
+step, which stay replicated, as the decode does. Context-parallel
+(``PipelineConfig.context_parallel``): the spatial self-attentions of at
+least ``context_parallel_min_seq`` tokens run as ring attention over the
+data axis, everything else replicated. Each rank then holds the whole panel.
+
 Left for later slices: CUDA graphs.
 """
 
@@ -24,6 +33,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from diffsensei_tpu_torch.core.buckets import snap_to_bucket
 from diffsensei_tpu_torch.core.config import (
@@ -38,6 +48,7 @@ from diffsensei_tpu_torch.models.unet import (
 from diffsensei_tpu_torch.models.vae import AutoencoderKL, tiled_decode
 from diffsensei_tpu_torch.models.vision_encoder import VisionTransformer
 from diffsensei_tpu_torch.ops.masked_ip import build_ip_attention_bias
+from diffsensei_tpu_torch.parallel.mesh import data_group, shard_batch
 from diffsensei_tpu_torch.utils.init import init_flax_like_
 
 
@@ -177,18 +188,37 @@ def _denoise(unet: UNetMangaModel, sampler: SamplerState, latents: torch.Tensor,
              ctx, pooled, time_ids, ip_tokens, ip_biases, dialog_bbox,
              guidance_scale: float, ip_scale: float,
              callback: Optional[Callable[[int, torch.Tensor], None]] = None,
-             cache_interval: Optional[int] = None, cache_split: int = 2
-             ) -> torch.Tensor:
+             cache_interval: Optional[int] = None, cache_split: int = 2,
+             group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """The CFG sampler loop; conditioning arrives doubled ``[uncond; cond]``
     on dim 0. DPM-Solver++ carries the previous step's x0 (zeros at step 0).
+    With ``group`` each of its ranks runs the UNet on its contiguous block of
+    the CFG rows and the predictions are all-gathered (the deep feature of
+    DeepCache stays with its rows).
 
     ``cache_interval=N`` is DeepCache: the UNet's deep subtree (levels >=
     ``cache_split`` and the mid block) runs on every N-th step, and the
     steps between reuse its feature (the JAX ``lax.cond(i % N == 0, full,
     cached)`` as a host ``if``). N = 1 is exact; N > 1 approximates."""
     def unet_eps(lat_in, t, **kw):
-        return unet(lat_in, t, ctx, pooled, time_ids, ip_hidden_states=ip_tokens,
-                    ip_attn_bias=ip_biases, ip_scale=ip_scale, dialog_bbox=dialog_bbox, **kw)
+        rows = dict(lat_in=lat_in, t=t, ctx=ctx, pooled=pooled, time_ids=time_ids,
+                    dialog_bbox=dialog_bbox)
+        rows.update({} if ip_tokens is None else dict(ip_tokens=ip_tokens))
+        rows.update({f"bias{lv}": b for lv, b in (ip_biases or {}).items()})
+        if group is not None:
+            rows = shard_batch(rows, dist.get_rank(group), dist.get_world_size(group))
+        out = unet(rows["lat_in"], rows["t"], rows["ctx"], rows["pooled"], rows["time_ids"],
+                   ip_hidden_states=rows.get("ip_tokens"),
+                   ip_attn_bias=None if ip_biases is None else
+                   {lv: rows[f"bias{lv}"] for lv in ip_biases},
+                   ip_scale=ip_scale, dialog_bbox=rows["dialog_bbox"], **kw)
+        if group is None:
+            return out
+        eps, deep = out if kw.get("return_deep") else (out, None)
+        parts = [torch.empty_like(eps) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, eps.contiguous(), group=group)
+        eps = torch.cat(parts, dim=0)
+        return (eps, deep) if kw.get("return_deep") else eps
 
     deep = None       # step 0 is a full step, so nothing reads a cache before one exists
     prev_x0 = torch.zeros_like(latents) if sampler.is_multistep else None
@@ -225,9 +255,15 @@ def _decode(vae: AutoencoderKL, latents: torch.Tensor, scaling_factor: float) ->
 class DiffSenseiPipeline:
     """End-to-end manga panel generation (the wo-MLLM path)."""
 
-    def __init__(self, modules: PipelineModules, config: PipelineConfig = PipelineConfig()):
+    def __init__(self, modules: PipelineModules, config: PipelineConfig = PipelineConfig(),
+                 mesh=None):
+        """``mesh``: a ``(data, model)`` device mesh (``parallel.mesh.make_mesh``)
+        for the batched or, with ``config.context_parallel``, the
+        context-parallel mode; each needs every rank to make the same call."""
         self.m = modules
         self.config = config
+        self.mesh = mesh
+        self.group = None if mesh is None else data_group(mesh)
         self.vae_scaling = modules.vae.config.scaling_factor
         self.latent_scale = modules.vae.config.downscale_factor
 
@@ -450,11 +486,22 @@ class DiffSenseiPipeline:
         sampler = make_sampler(cfg.scheduler, steps).to(dev)
         latents = latents.to(dev, torch.float32) * sampler.init_noise_sigma
 
-        latents = _denoise(
-            m.unet, sampler, latents, ctx.repeat_interleave(num_samples, dim=0),
-            pooled.repeat_interleave(num_samples, dim=0), time_ids, ip_tokens,
-            ip_biases, dialog_arr, gscale, ipscale, callback, deep_cache_interval,
-            deep_cache_split)
+        # batched over the data axis where the CFG rows split evenly over it
+        batch_group = None
+        if self.group is not None and not cfg.context_parallel \
+                and (2 * num_samples) % dist.get_world_size(self.group) == 0:
+            batch_group = self.group
+        cp_before = (m.unet.cp_group, m.unet.cp_min_seq)
+        if self.group is not None and cfg.context_parallel:
+            m.unet.set_context_parallel(self.group, cfg.context_parallel_min_seq)
+        try:
+            latents = _denoise(
+                m.unet, sampler, latents, ctx.repeat_interleave(num_samples, dim=0),
+                pooled.repeat_interleave(num_samples, dim=0), time_ids, ip_tokens,
+                ip_biases, dialog_arr, gscale, ipscale, callback, deep_cache_interval,
+                deep_cache_split, batch_group)
+        finally:
+            m.unet.set_context_parallel(*cp_before)
         if return_latents:
             return latents
         return _decode(m.vae, latents, self.vae_scaling)

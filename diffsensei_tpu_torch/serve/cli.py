@@ -18,8 +18,21 @@ them prompts become ids by the train CLI's CRC-32 word hashing.
 ``--agent-weights`` loads the SEED-X agent; with ``--quantize-llm`` its
 checkpoint is quantized on the host (``--quantize-llm-bits`` 8 or 4) and only
 the quantized LLM and the resamplers reach the card. ``--mllm-tokenizer``
-(ROADMAP A5: it needs sentencepiece) and ``--context-parallel`` (A11) raise
-``NotImplementedError``.
+(ROADMAP A5: it needs sentencepiece) raises ``NotImplementedError``.
+
+``--context-parallel`` runs the UNet's long self-attentions as ring attention
+over every rank of the process group, under a launcher,
+
+  python -m torch.distributed.run --standalone --nproc_per_node 4 \
+      -m diffsensei_tpu_torch.serve.cli --preset sdxl --context-parallel ...
+
+or alone as a world of one; each rank takes the card ``cuda:$LOCAL_RANK``,
+and rank 0 alone writes the images. The ring takes self-attentions of at
+least ``PipelineConfig.context_parallel_min_seq`` (16384) tokens, which only
+a 2048²-class panel has; the server snaps a request to its bucket (2048²
+becomes 1024²), so through this CLI the ring is wired but not reached, as in
+the JAX CLI. ``DiffSenseiPipeline(..., mesh=...)`` called with
+``snap_to_buckets=False`` reaches it.
 """
 
 from __future__ import annotations
@@ -30,7 +43,7 @@ import os
 from typing import List, Sequence
 
 # flag -> the ROADMAP item (queue A) that ports what it needs
-NOT_PORTED = {"mllm_tokenizer": "A5", "context_parallel": "A11"}
+NOT_PORTED = {"mllm_tokenizer": "A5"}
 
 
 def parse_bbox(values: Sequence[str]) -> List[List[float]]:
@@ -64,7 +77,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="quantize the agent's LLM on the host (weight-only)")
     parser.add_argument("--quantize-llm-bits", type=int, default=8, choices=[4, 8],
                         help="8: per-channel int8; 4: group-wise int4")
-    parser.add_argument("--context-parallel", action="store_true", help="not ported yet")
+    parser.add_argument("--context-parallel", action="store_true",
+                        help="shard big (>=16k-token) spatial self-attention over every rank "
+                             "of the process group via ring attention (run under "
+                             "torch.distributed.run, or alone as one rank); the server snaps "
+                             "2048^2 to 1024^2, so through this CLI the ring is not reached")
     parser.add_argument("--quantize-unet", action="store_true",
                         help="serve the UNet's transformer matmuls as weight-only int8")
     parser.add_argument("--prompt", default="")
@@ -118,7 +135,8 @@ def load_agent(args, modules, device):
 
 
 def main(argv=None) -> List[str]:
-    """Generate the request of ``argv``; returns the paths written."""
+    """Generate the request of ``argv``; returns the paths written (none on
+    a rank other than 0)."""
     args = build_parser().parse_args(argv)
     for name, item in NOT_PORTED.items():
         if getattr(args, name) not in (None, False):
@@ -136,7 +154,15 @@ def main(argv=None) -> List[str]:
     from diffsensei_tpu_torch.utils.load import load_weights_any
     from diffsensei_tpu_torch.utils.tokenizer import CLIPTokenizer
 
-    device = torch.device(args.device)
+    mesh, writer = None, True
+    if args.context_parallel:
+        from diffsensei_tpu_torch.parallel.mesh import init_distributed, make_mesh
+        env = init_distributed(args.device)
+        device, writer = env.device, env.is_writer
+        mesh = make_mesh(device=device)
+        print(f"# context parallelism over {env.world} rank(s)")
+    else:
+        device = torch.device(args.device)
     if args.preset == "sdxl":
         # the loaders write every component they find; the rest is zeros
         modules = PipelineModules.sdxl(device=device, init="none")
@@ -155,12 +181,12 @@ def main(argv=None) -> List[str]:
         modules.tokenizer = CLIPTokenizer.from_pretrained(args.tokenizer)
         modules.tokenizer_2 = CLIPTokenizer.from_pretrained(args.tokenizer_2 or args.tokenizer)
     agent = load_agent(args, modules, device) if args.agent_weights else None
-    pcfg = PipelineConfig()
+    pcfg = PipelineConfig(context_parallel=args.context_parallel)
     if args.scheduler:
         pcfg = dataclasses.replace(pcfg, scheduler=args.scheduler)
     # without --mllm-tokenizer there is no token spec: the server leaves the agent
     # idle, as the JAX CLI's does
-    server = DiffSenseiServer(DiffSenseiPipeline(modules, pcfg), agent=agent)
+    server = DiffSenseiServer(DiffSenseiPipeline(modules, pcfg, mesh=mesh), agent=agent)
 
     if args.warmup:
         sizes = [tuple(int(v) for v in hw.split("x")) for hw in args.warmup.split(",")]
@@ -189,7 +215,7 @@ def main(argv=None) -> List[str]:
     images = server.generate_pil(req)
     base, ext = os.path.splitext(args.out)
     paths = []
-    for i, img in enumerate(images):
+    for i, img in enumerate(images if writer else []):
         path = args.out if len(images) == 1 else f"{base}_{i}{ext}"
         img.save(path)
         print(f"saved {path} ({img.size[0]}x{img.size[1]})")

@@ -5,7 +5,9 @@ Like the JAX package, and unlike the reference (which saves weights only),
 a checkpoint holds the trainables, the optimizer state, the step and the
 generator state, so a resumed run continues the uninterrupted one. Layout and
 rotation are the reference's: ``<root>/step-<N>/``, oldest removed first
-beyond ``checkpoints_total_limit``. Files are ``torch.save`` pickles.
+beyond ``checkpoints_total_limit``. Files are ``torch.save`` pickles of whole
+tensors under the single-process names, whatever the run's sharding; under
+data parallelism rank 0 alone writes them (``train/runner.py``).
 """
 
 from __future__ import annotations
@@ -78,9 +80,15 @@ class CheckpointManager:
         return payload["state"], payload["generator"], step
 
 
-def export_weights(path: str, params: Dict[str, torch.Tensor]) -> None:
-    """Serving artifact: parameters only (no optimizer state)."""
-    torch.save({k: v.detach().cpu() for k, v in params.items()}, os.path.abspath(path))
+def export_weights(path: str, params: Dict[str, torch.Tensor], writer: bool = True) -> None:
+    """Serving artifact: parameters only (no optimizer state), whole under
+    their single-process names. Sharded parameters are gathered first, a
+    collective every rank must call; only the ``writer`` (rank 0) writes."""
+    from diffsensei_tpu_torch.parallel.train import full_state
+
+    weights = {k: full_state(v.detach()).cpu() for k, v in params.items()}
+    if writer:
+        torch.save(weights, os.path.abspath(path))
 
 
 def load_weights(path: str) -> Dict[str, torch.Tensor]:

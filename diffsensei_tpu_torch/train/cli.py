@@ -21,8 +21,18 @@ without them), ``unet_trained_parameters`` ``full``, ``new``, ``ip`` and
 ``dots_attn``, ``dots_deepest``; an unknown name raises), per-layer LLaMA
 remat (``model.agent.remat``) under ``model.agent.remat_policy`` (``attn``),
 a policy without its ``remat`` ignored as in the JAX CLI, gradient
-accumulation, checkpoints and resume. Refused with an error rather than
-ignored: ``trainer.parallel: fsdp`` (multi-GPU layouts).
+accumulation, checkpoints and resume.
+
+Multi-GPU: one process a rank under ``python -m torch.distributed.run
+--nproc_per_node N -m diffsensei_tpu_torch.train.cli --config ...`` (alone, a
+world of one rank), each on the card ``cuda:$LOCAL_RANK``. A bucket's batch
+is the per-rank size times the world and each rank loads its rows
+(``data_parallel``, ``host_id``, ``num_hosts`` of the bucket dataset).
+``trainer.parallel: dp`` (the default) puts the trainables in DDP;
+``fsdp`` shards them, their optimizer state and the frozen stack with FSDP2
+(``trainer.fsdp_min_size``; stages 1 and 2: stage 3's sharding goes with
+the model axis, ROADMAP A13); another value raises ``ValueError``. Rank 0
+alone writes ``metrics.jsonl`` and the checkpoints, whose tensors are whole.
 """
 
 from __future__ import annotations
@@ -43,6 +53,8 @@ from diffsensei_tpu_torch.data.mllm_dataset import MangaTrainMLLMDataset, MLLMTo
 from diffsensei_tpu_torch.models.lora import ensure_lora_init
 from diffsensei_tpu_torch.models.mllm.seed_x import ContinuousLVLM
 from diffsensei_tpu_torch.models.schedulers import DDPMSchedule
+from diffsensei_tpu_torch.parallel.mesh import FSDP_MIN_SIZE, MODEL_AXIS_ITEM, init_distributed
+from diffsensei_tpu_torch.parallel.train import PARALLEL_MODES, fsdp_train, wrap_ddp
 from diffsensei_tpu_torch.pipelines.pipeline import PipelineModules
 from diffsensei_tpu_torch.train.diffusion import (
     FrozenDiffusionStack, Stage2Config, TrainState, make_stage1_step, make_stage2_step)
@@ -173,16 +185,23 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> Tr
     if stage not in ("t2i", "condition", "mllm"):
         raise ValueError(f"unknown stage {stage}")
     trainer = dict(cfg.get("trainer", {}))
-    if trainer.get("parallel", "dp") != "dp":
-        raise NotImplementedError(f"trainer.parallel: {trainer['parallel']} waits for the "
-                                  "multi-GPU slice")
+    parallel = trainer.get("parallel", "dp")
+    if parallel not in PARALLEL_MODES:
+        raise ValueError(f"unknown trainer.parallel: {parallel!r} (expected 'dp' or 'fsdp')")
+    if parallel == "fsdp" and stage == "mllm":
+        raise NotImplementedError("trainer.parallel: fsdp for stage mllm is not ported yet "
+                                  f"(ROADMAP {MODEL_AXIS_ITEM})")
     if args.max_train_steps is not None:
         trainer["max_train_steps"] = args.max_train_steps
     if args.log_dir is not None:
         trainer["log_dir"] = args.log_dir
     if args.resume:
         trainer["resume"] = True
-    device = torch.device(args.device)
+    env = init_distributed(args.device)
+    device = env.device
+    if parallel == "fsdp" and env.backend != "nccl" and device.type == "cuda":
+        raise ValueError("trainer.parallel: fsdp needs NCCL (one card a rank): gloo does not "
+                         "all-gather or reduce-scatter CUDA tensors")
     seed = int(trainer.get("seed", 0))
     max_steps = int(trainer.get("max_train_steps", 1000))
 
@@ -201,6 +220,7 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> Tr
     # data ------------------------------------------------------------------
     td = dict(cfg.get("train_data", {}))
     ds_cfg = BucketDatasetConfig(
+        data_parallel=env.world, c_drop_rate=td.get("c_drop_rate", 0.05),
         t_drop_rate=td.get("t_drop_rate", 0.05), i_drop_rate=td.get("i_drop_rate", 0.05),
         max_num_ips=manga.max_num_ips, max_num_ip_sources=td.get("max_num_ip_sources", 1),
         max_num_dialogs=manga.max_num_dialogs, mask_dialog=td.get("mask_dialog", False),
@@ -226,7 +246,8 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> Tr
         first, skip = divmod(step, dataset.num_batches())
         return PrefetchLoader(
             lambda e: dataset.batches(shuffle=True, seed=seed + e, num_workers=num_workers,
-                                      skip=skip if e == first else 0),
+                                      skip=skip if e == first else 0, host_id=env.rank,
+                                      num_hosts=env.world),
             device=device, first_epoch=first)
 
     # frozen stack, trainables, step -----------------------------------------
@@ -240,16 +261,18 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> Tr
         # resamplers trained
         step_fn = make_stage3_step(modules.unet, modules.resampler, agent, schedule,
                                    Stage3Config(manga=manga, mllm_loss_weight=float(
-                                       mcfg.get("mllm_loss_weight", 1.0))))
+                                       mcfg.get("mllm_loss_weight", 1.0))), env.group)
         params = agent_trainables(agent)
+        trained = {"llm": agent.llm, "input_resampler": agent.input_resampler,
+                   "output_resampler": agent.output_resampler}
     else:
         if stage == "t2i":
-            step_fn = make_stage1_step(modules.unet, schedule)
+            step_fn = make_stage1_step(modules.unet, schedule, env.group)
             mode = mcfg.get("unet_trained_parameters", "full")
         else:
             step_fn = make_stage2_step(modules.unet, modules.resampler, schedule, Stage2Config(
                 manga=manga, ip_contrastive=mcfg.get("ip_contrastive_loss"),
-                ip_contrastive_weight=mcfg.get("ip_contrastive_loss_weight", 0.1)))
+                ip_contrastive_weight=mcfg.get("ip_contrastive_loss_weight", 0.1)), env.group)
             mode = mcfg.get("unet_trained_parameters", "new")
         trainable, _ = partition_params(modules.unet, unet_trainable_mask(modules.unet, mode),
                                         param_dtype)
@@ -259,6 +282,16 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> Tr
             trainable, _ = partition_params(res, {k: True for k, _ in res.named_parameters()},
                                             param_dtype)
             params.update({f"resampler.{k}": p for k, p in trainable.items()})
+        trained = {"unet": modules.unet}
+        if stage == "condition":
+            trained["resampler"] = modules.resampler
+
+    # the parallel layout (the JAX CLI's trainer.parallel) ---------------------
+    if parallel == "dp":
+        wrap_ddp(step_fn, trained, env)
+    else:
+        params = fsdp_train(step_fn, trained, frozen, params, env,
+                            int(trainer.get("fsdp_min_size", FSDP_MIN_SIZE)))
 
     opt_cfg = dict(cfg.get("optimizer", {}))
     lr_cfg = dict(cfg.get("lr_scheduler", {}))
@@ -283,7 +316,7 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> Tr
         seed=seed, resume=bool(trainer.get("resume", False)),
         memory_log_every=int(trainer.get("memory_log_every", 500)))
     return run_training(step_fn, state, batches_from, run_cfg, frozen=frozen, device=device,
-                        on_step=on_step)
+                        on_step=on_step, env=env)
 
 
 if __name__ == "__main__":

@@ -17,6 +17,16 @@ the backward and one optimizer call, and updates ``state`` in place (the JAX
 step returns a new state). ``loss_fn`` draws the latent-sample noise, the
 diffusion noise and the timesteps from ``generator`` in that order, or takes
 them as tensors (the tests feed it the JAX draws).
+
+Data parallelism (``group``, the ranks' process group): a rank's batch holds
+rows ``[rank::world]`` of the global batch. Every draw is made for the global
+batch and the rank takes its rows (given draws are the global ones too), the
+diffusion loss is scaled by ``parallel.train.rank_weight`` and the contrastive
+loss sees the global batch (``parallel.train.gather_rows``), so that the
+averaged gradient is the single-process step's on the global batch; the
+step's metrics are the ranks' means. Under DDP or FSDP the CLI runs the
+forward through the wrapper (``step.forward``) and averages the gradients of
+the parameters FSDP keeps whole (``step.sync_grads``).
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from diffsensei_tpu_torch.core.config import MangaConfig
@@ -32,6 +43,9 @@ from diffsensei_tpu_torch.models.schedulers import DDPMSchedule
 from diffsensei_tpu_torch.models.unet import attention_levels, level_spatial_shape
 from diffsensei_tpu_torch.models.vae import sample_latent
 from diffsensei_tpu_torch.ops.masked_ip import build_ip_attention_bias
+from diffsensei_tpu_torch.parallel.mesh import host_rows
+from diffsensei_tpu_torch.parallel.train import (
+    full_state, gather_rows, is_sharded, local_like, rank_weight, reduce_metrics)
 from diffsensei_tpu_torch.train import losses
 from diffsensei_tpu_torch.train.optim import Optimizer
 
@@ -54,15 +68,20 @@ class TrainState:
         self.step += 1
 
     def state_dict(self) -> Dict:
-        return {"params": {k: p.detach().cpu() for k, p in self.params.items()},
-                "optimizer": self.optimizer.state_dict(), "step": self.step}
+        """Whole tensors under their single-process names (sharded ones
+        gathered: every rank must call it)."""
+        return {"params": {k: full_state(p.detach()) if is_sharded(p) else p.detach().cpu()
+                           for k, p in self.params.items()},
+                "optimizer": full_state(self.optimizer.state_dict()), "step": self.step}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
+        """Load ``state_dict``'s whole tensors, each put back into its
+        parameter's sharding."""
         if state["params"].keys() != self.params.keys():
             raise ValueError("checkpoint holds other trainable parameters than this run")
         for name, p in self.params.items():
-            p.copy_(state["params"][name])
+            p.copy_(local_like(state["params"][name], p))
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
 
@@ -96,25 +115,36 @@ def _encode_text(frozen: FrozenDiffusionStack, ids, ids_2):
     return torch.cat([h1, h2], dim=-1), pooled
 
 
+def _world(group: Optional[dist.ProcessGroup]) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _own_rows(x: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """This rank's rows of a global-batch draw."""
+    return x if group is None else host_rows(x, dist.get_rank(group), _world(group))
+
+
 def _draw(shape, like: torch.Tensor, generator: Optional[torch.Generator],
-          given: Optional[torch.Tensor]) -> torch.Tensor:
-    if given is not None:
-        return given.to(like.device, like.dtype)
-    return torch.randn(shape, generator=generator, device=like.device, dtype=like.dtype)
+          given: Optional[torch.Tensor], group=None) -> torch.Tensor:
+    if given is None:
+        given = torch.randn((shape[0] * _world(group),) + tuple(shape[1:]),
+                            generator=generator, device=like.device, dtype=like.dtype)
+    return _own_rows(given, group).to(like.device, like.dtype)
 
 
-def _encode_latents(frozen, pixel_values, generator, latent_noise):
+def _encode_latents(frozen, pixel_values, generator, latent_noise, group=None):
     mean, logvar = frozen.vae.encode(pixel_values)
-    eps = _draw(mean.shape, mean, generator, latent_noise)
+    eps = _draw(mean.shape, mean, generator, latent_noise, group)
     return sample_latent(mean, logvar, eps, frozen.vae_scaling)
 
 
-def _noise_and_t(schedule: DDPMSchedule, latents, generator, noise, timesteps):
-    noise = _draw(latents.shape, latents, generator, noise)
+def _noise_and_t(schedule: DDPMSchedule, latents, generator, noise, timesteps, group=None):
+    noise = _draw(latents.shape, latents, generator, noise, group)
     if timesteps is None:
-        timesteps = torch.randint(0, schedule.num_train_timesteps, (latents.shape[0],),
+        timesteps = torch.randint(0, schedule.num_train_timesteps,
+                                  (latents.shape[0] * _world(group),),
                                   generator=generator, device=latents.device)
-    timesteps = timesteps.to(latents.device)
+    timesteps = _own_rows(timesteps, group).to(latents.device)
     return noise, timesteps, schedule.add_noise(latents, noise, timesteps)
 
 
@@ -123,7 +153,15 @@ def _panel_count(batch: Batch) -> torch.Tensor:
     mask = batch.get("sample_mask")
     if mask is not None:
         return mask.sum()
-    return torch.tensor(float(batch["pixel_values"].shape[0]))
+    return torch.tensor(float(batch["pixel_values"].shape[0]),
+                        device=batch["pixel_values"].device)
+
+
+def _diffusion_loss(pred, noise, batch: Batch, group) -> torch.Tensor:
+    """The masked epsilon MSE of the rank's rows, under ``group`` scaled to
+    its share of the global masked mean."""
+    loss = losses.diffusion_loss(pred, noise, batch.get("sample_mask"))
+    return loss if group is None else loss * rank_weight(_panel_count(batch), group)
 
 
 def _time_ids(batch: Batch) -> torch.Tensor:
@@ -132,47 +170,54 @@ def _time_ids(batch: Batch) -> torch.Tensor:
                       batch["target_size"]], dim=-1).float()
 
 
-def _make_step(loss_fn: Callable) -> Callable:
+def _make_step(loss_fn: Callable, group: Optional[dist.ProcessGroup] = None) -> Callable:
     def step(state: TrainState, frozen: FrozenDiffusionStack, batch: Batch,
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        loss, metrics = loss_fn(frozen, batch, generator)
+        loss, metrics = step.forward(frozen, batch, generator)
         loss.backward()
+        if step.sync_grads is not None:
+            step.sync_grads()
         state.apply_gradients()
-        return {**{k: v.detach() for k, v in metrics.items()}, "loss": loss.detach(),
-                "panels": _panel_count(batch)}
+        return reduce_metrics({**{k: v.detach() for k, v in metrics.items()},
+                               "loss": loss.detach(), "panels": _panel_count(batch)}, group)
 
     step.loss_fn = loss_fn   # exposed for equivalence tests and diagnostics
+    step.forward = loss_fn   # DDP's wrapper under trainer.parallel: dp
+    step.sync_grads = None   # the gradient average of FSDP's whole parameters
     return step
 
 
 # ---------------------------------------------------------------------------
 # stage 1: t2i fine-tune (train_t2i.py)
 # ---------------------------------------------------------------------------
-def make_stage1_step(unet: nn.Module, schedule: DDPMSchedule) -> Callable:
+def make_stage1_step(unet: nn.Module, schedule: DDPMSchedule,
+                     group: Optional[dist.ProcessGroup] = None) -> Callable:
     """``step(state, frozen, batch, generator) -> metrics``; trains whatever
-    of ``unet`` requires a gradient."""
+    of ``unet`` requires a gradient; ``group``: the data-parallel ranks."""
 
     def loss_fn(frozen: FrozenDiffusionStack, batch: Batch,
                 generator: Optional[torch.Generator] = None, *,
                 latent_noise=None, noise=None, timesteps=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         with torch.no_grad():
-            latents = _encode_latents(frozen, batch["pixel_values"], generator, latent_noise)
-            noise, t, noisy = _noise_and_t(schedule, latents, generator, noise, timesteps)
+            latents = _encode_latents(frozen, batch["pixel_values"], generator, latent_noise,
+                                      group)
+            noise, t, noisy = _noise_and_t(schedule, latents, generator, noise, timesteps,
+                                           group)
             ctx, pooled = _encode_text(frozen, batch["text_input_ids"],
                                        batch["text_input_ids_2"])
         pred = unet(noisy, t.float(), ctx, pooled, _time_ids(batch))
-        loss = losses.diffusion_loss(pred, noise, batch.get("sample_mask"))
+        loss = _diffusion_loss(pred, noise, batch, group)
         return loss, {"loss_diffusion": loss}
 
-    return _make_step(loss_fn)
+    return _make_step(loss_fn, group)
 
 
 # ---------------------------------------------------------------------------
 # stage 2: IP-conditioned training (train.py)
 # ---------------------------------------------------------------------------
 def make_stage2_step(unet: nn.Module, resampler: nn.Module, schedule: DDPMSchedule,
-                     cfg: Stage2Config) -> Callable:
+                     cfg: Stage2Config, group: Optional[dist.ProcessGroup] = None) -> Callable:
     """``step(state, frozen, batch, generator) -> metrics``.
 
     Expected batch (the bucket dataset's collate): pixel_values [B, H, W, 3];
@@ -183,7 +228,8 @@ def make_stage2_step(unet: nn.Module, resampler: nn.Module, schedule: DDPMSchedu
 
     ``resampler`` is the Perceiver ``Resampler`` (``cfg.ip_adapter_plus``,
     over the CLIP-H patch features) or an ``ImageProjDummyModel`` (over the
-    pooled CLIP-H CLS); both also take the Magi CLS.
+    pooled CLIP-H CLS); both also take the Magi CLS. ``group``: the
+    data-parallel ranks.
     """
     if cfg.ip_contrastive not in (None, "fast", "slow"):
         raise ValueError(f"ip_contrastive must be null, fast or slow, got {cfg.ip_contrastive!r}")
@@ -195,8 +241,10 @@ def make_stage2_step(unet: nn.Module, resampler: nn.Module, schedule: DDPMSchedu
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         b, i, s = batch["ip_exists"].shape
         with torch.no_grad():
-            latents = _encode_latents(frozen, batch["pixel_values"], generator, latent_noise)
-            noise, t, noisy = _noise_and_t(schedule, latents, generator, noise, timesteps)
+            latents = _encode_latents(frozen, batch["pixel_values"], generator, latent_noise,
+                                      group)
+            noise, t, noisy = _noise_and_t(schedule, latents, generator, noise, timesteps,
+                                           group)
             # frozen character encoders over all B*I*S crops (train.py:356-367)
             crops = batch["ip_pixel_values"].reshape(
                 (b * i * s,) + tuple(batch["ip_pixel_values"].shape[3:]))
@@ -223,8 +271,12 @@ def make_stage2_step(unet: nn.Module, resampler: nn.Module, schedule: DDPMSchedu
         else:
             contrastive = (losses.ip_contrastive_loss if cfg.ip_contrastive == "fast"
                            else losses.ip_contrastive_loss_slow)
-            loss_c = contrastive(image_embeds[:, manga.num_dummy_tokens:, :],
-                                 batch["ip_exists"], b, i, manga.num_vision_tokens)
+            blocks, exists = image_embeds[:, manga.num_dummy_tokens:, :], batch["ip_exists"]
+            if group is not None:     # over the global batch, samples in its order
+                blocks = gather_rows(blocks.reshape((b, s) + tuple(blocks.shape[1:])),
+                                     group).flatten(0, 1)
+                exists = gather_rows(exists, group)
+            loss_c = contrastive(blocks, exists, exists.shape[0], i, manga.num_vision_tokens)
 
         # source mean (train.py:380), then characters without a source zeroed
         ip_tokens = losses.mean_multiple_ip_embeds(
@@ -247,8 +299,8 @@ def make_stage2_step(unet: nn.Module, resampler: nn.Module, schedule: DDPMSchedu
         pred = unet(noisy, t.float(), ctx, pooled, _time_ids(batch),
                     ip_hidden_states=ip_tokens, ip_attn_bias=biases, ip_scale=1.0,
                     dialog_bbox=batch["dialog_bbox"])
-        loss_d = losses.diffusion_loss(pred, noise, batch.get("sample_mask"))
+        loss_d = _diffusion_loss(pred, noise, batch, group)
         loss = loss_d + cfg.ip_contrastive_weight * loss_c
         return loss, {"loss_diffusion": loss_d, "loss_ip_contrastive": loss_c}
 
-    return _make_step(loss_fn)
+    return _make_step(loss_fn, group)

@@ -17,7 +17,11 @@ LLaMA, and both Qwen resamplers (``agent_trainables``). Per step
 5. ``loss = diffusion_mse + mllm_loss_weight * (lm_scale lm + rec_scale rec)``.
 
 ``loss_fn`` draws as stage 2's does (latent-sample noise, diffusion noise,
-timesteps from ``generator``) or takes the draws as tensors.
+timesteps from ``generator``) or takes the draws as tensors. Under ``group``
+(data parallelism) the draws are the global batch's, and the diffusion, LM
+and reconstruction means are each scaled to the rank's share of the global
+mean over its own count (rows, supervised tokens, rows with a generation
+image), as ``train/diffusion.py`` does.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from diffsensei_tpu_torch.core.config import MangaConfig
@@ -33,10 +38,11 @@ from diffsensei_tpu_torch.models.mllm.peft import lora_trainable_mask
 from diffsensei_tpu_torch.models.schedulers import DDPMSchedule
 from diffsensei_tpu_torch.models.unet import attention_levels, level_spatial_shape
 from diffsensei_tpu_torch.ops.masked_ip import build_ip_attention_bias
+from diffsensei_tpu_torch.parallel.train import rank_weight
 from diffsensei_tpu_torch.train import losses
 from diffsensei_tpu_torch.train.diffusion import (
-    Batch, FrozenDiffusionStack, _encode_latents, _encode_text, _make_step, _noise_and_t,
-    _time_ids)
+    Batch, FrozenDiffusionStack, _diffusion_loss, _encode_latents, _encode_text, _make_step,
+    _noise_and_t, _time_ids)
 from diffsensei_tpu_torch.train.optim import partition_params
 
 
@@ -63,9 +69,9 @@ def agent_trainables(agent) -> Dict[str, nn.Parameter]:
 
 
 def make_stage3_step(unet: nn.Module, resampler: nn.Module, agent, schedule: DDPMSchedule,
-                     cfg: Stage3Config) -> Callable:
+                     cfg: Stage3Config, group: Optional[dist.ProcessGroup] = None) -> Callable:
     """``step(state, frozen, batch, generator) -> metrics``; ``unet`` and
-    ``resampler`` are frozen.
+    ``resampler`` are frozen; ``group``: the data-parallel ranks.
 
     Batch: the stage-2 fields, plus ``target_ip_pixel_values`` /
     ``target_magi_pixel_values`` [B, I, 224, 224, 3], ``mllm_input_ids`` /
@@ -85,8 +91,10 @@ def make_stage3_step(unet: nn.Module, resampler: nn.Module, agent, schedule: DDP
         b, i, s = batch["ip_exists"].shape
         d = manga.num_dummy_tokens
         with torch.no_grad():
-            latents = _encode_latents(frozen, batch["pixel_values"], generator, latent_noise)
-            noise, t, noisy = _noise_and_t(schedule, latents, generator, noise, timesteps)
+            latents = _encode_latents(frozen, batch["pixel_values"], generator, latent_noise,
+                                      group)
+            noise, t, noisy = _noise_and_t(schedule, latents, generator, noise, timesteps,
+                                           group)
             # the frozen character encoders and Resampler (train_mllm.py:343-355)
             flat = lambda k, lead: batch[k].reshape((lead,) + tuple(batch[k].shape[-3:]))
             clip_h, magi_cls = encode_chars(frozen, flat("ip_pixel_values", b * i * s),
@@ -110,6 +118,17 @@ def make_stage3_step(unet: nn.Module, resampler: nn.Module, agent, schedule: DDP
             "embeds_cmp_mask": batch["embeds_cmp_mask"],
             "embeds_gen_mask": batch["embeds_gen_mask"],
             "ids_cmp_mask": batch["ids_cmp_mask"], "ids_gen_mask": batch["ids_gen_mask"]})
+        if group is not None:
+            # each mean as the rank's share of the global one, over its own count
+            acfg = agent.config
+            tokens = (batch["mllm_labels"][:, 1:] != -100).sum()
+            rows = ((batch["embeds_gen_mask"].bool().sum(dim=1) > 0)
+                    & (batch["ids_gen_mask"].bool().sum(dim=1)
+                       >= acfg.input_resampler.num_queries)).sum()
+            aux = dict(aux, lm_loss=aux["lm_loss"] * rank_weight(tokens, group),
+                       rec_loss=aux["rec_loss"] * rank_weight(rows, group))
+            agent_total = (acfg.lm_loss_scale * aux["lm_loss"]
+                           + acfg.rec_loss_scale * aux["rec_loss"])
 
         # its reconstruction over the character block (train_mllm.py:60-68)
         ip_tokens = torch.cat([image_embeds[:, :d],
@@ -123,9 +142,9 @@ def make_stage3_step(unet: nn.Module, resampler: nn.Module, agent, schedule: DDP
         pred = unet(noisy, t.float(), ctx, pooled, _time_ids(batch),
                     ip_hidden_states=ip_tokens, ip_attn_bias=biases, ip_scale=1.0,
                     dialog_bbox=batch["dialog_bbox"])
-        loss_d = losses.diffusion_loss(pred, noise, batch.get("sample_mask"))
+        loss_d = _diffusion_loss(pred, noise, batch, group)
         loss = loss_d + cfg.mllm_loss_weight * agent_total
         return loss, {"loss_diffusion": loss_d, "loss_lm": aux["lm_loss"],
                       "loss_rec": aux["rec_loss"], "loss_mllm": agent_total}
 
-    return _make_step(loss_fn)
+    return _make_step(loss_fn, group)

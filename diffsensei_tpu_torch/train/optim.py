@@ -11,7 +11,10 @@
   buffers and no optimizer state.
 * ``make_optimizer``: AdamW (``torch.optim.AdamW``, whose decoupled decay is
   optax's ``adamw``) after a global-norm clip with optax's rule, stepping the
-  schedule per update, with ``optax.MultiSteps`` gradient accumulation.
+  schedule per update, with ``optax.MultiSteps`` gradient accumulation. Under
+  FSDP the parameters, gradients and moments are shards (DTensors): the
+  global norm sums the shards' squares over the ranks, and AdamW steps each
+  tensor alone (its fused loops do not mix shards and whole tensors).
 """
 
 from __future__ import annotations
@@ -20,7 +23,10 @@ import math
 from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from diffsensei_tpu_torch.parallel.train import is_sharded, local_like, local_part
 
 Schedule = Callable[[int], float]
 
@@ -163,18 +169,36 @@ class Optimizer:
         self.updates = 0                     # optimizer updates taken
         self.micro = 0                       # micro-steps in the current accumulation
         self._acc = None
+        sharded = any(is_sharded(p) for p in self.params)
         self.adamw = torch.optim.AdamW(self.params, lr=self.schedule(0), betas=betas,
-                                       eps=eps, weight_decay=weight_decay)
+                                       eps=eps, weight_decay=weight_decay,
+                                       foreach=False if sharded else None)
+
+    @staticmethod
+    def _global_norm(grads) -> torch.Tensor:
+        """optax's ``global_norm``; a sharded gradient's squares are summed
+        over the ranks that hold its shards."""
+        shards = [g for g in grads if is_sharded(g)]
+        if not shards:
+            return torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g.float()) for g in grads]))
+        sq = torch.stack([torch.linalg.vector_norm(local_part(g).float())
+                          for g in shards]).square().sum()
+        dist.all_reduce(sq, group=shards[0].device_mesh.get_group())
+        whole = [g for g in grads if not is_sharded(g)]
+        if whole:
+            sq = sq + torch.stack([torch.linalg.vector_norm(g.float().to(sq.device))
+                                   for g in whole]).square().sum()
+        return sq.sqrt()
 
     def _clip(self, grads) -> None:
         if self.max_grad_norm is None:
             return
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.float()) for g in grads]))
+        norm = self._global_norm(grads)
         # optax.clip_by_global_norm: scale by max / norm where norm >= max
         factor = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
                              self.max_grad_norm / norm)
-        torch._foreach_mul_(grads, factor)
+        torch._foreach_mul_([local_part(g) for g in grads], factor)
 
     def step(self) -> bool:
         """Consume the parameters' ``.grad``; returns True when it updated."""
@@ -207,10 +231,18 @@ class Optimizer:
                 "micro": self.micro, "acc": self._acc}
 
     def load_state_dict(self, state: Dict) -> None:
-        self.adamw.load_state_dict(state["adamw"])
+        """Load a state of ``state_dict`` (or its whole-tensor gathering);
+        each moment is put into its parameter's sharding."""
+        adamw = state["adamw"]
+        index = [i for g in adamw["param_groups"] for i in g["params"]]
+        adamw = dict(adamw, state={
+            i: {k: local_like(v, self.params[index.index(i)])
+                if torch.is_tensor(v) and v.dim() else v for k, v in st.items()}
+            for i, st in adamw["state"].items()})
+        self.adamw.load_state_dict(adamw)
         self.updates, self.micro = state["updates"], state["micro"]
         self._acc = (None if state["acc"] is None
-                     else [a.to(p.device) for a, p in zip(state["acc"], self.params)])
+                     else [local_like(a, p) for a, p in zip(state["acc"], self.params)])
 
 
 def make_optimizer(params: Iterable[torch.Tensor], learning_rate, weight_decay: float = 1e-2,

@@ -9,6 +9,12 @@ draws come from one generator seeded from ``seed``, whose state every
 checkpoint keeps. Unlike the JAX loop, the data stream is asked for from the
 restored step on (``batches_from(step)``), so a resumed run sees the batches
 the uninterrupted one would have seen, not the first epoch again.
+
+Under data parallelism (``env``, the rank's ``parallel.mesh.Distributed``)
+every rank runs the loop and gathers a checkpoint's state (its sharded
+tensors whole), rank 0 alone writes ``metrics.jsonl`` and the checkpoints,
+and the ranks wait for it before going on; on resume every rank reads the
+checkpoint and puts each tensor back into its sharding.
 """
 
 from __future__ import annotations
@@ -18,7 +24,9 @@ import signal
 from typing import Any, Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 
+from diffsensei_tpu_torch.parallel.mesh import Distributed
 from diffsensei_tpu_torch.train.checkpoint import CheckpointManager
 from diffsensei_tpu_torch.train.diffusion import TrainState
 from diffsensei_tpu_torch.utils.observability import (
@@ -42,14 +50,23 @@ class RunConfig:
 def run_training(step_fn: Callable, state: TrainState,
                  batches_from: Callable[[int], Iterable[Any]], cfg: RunConfig,
                  frozen=None, device="cuda",
-                 on_step: Optional[Callable[[int, dict], None]] = None) -> TrainState:
+                 on_step: Optional[Callable[[int, dict], None]] = None,
+                 env: Optional[Distributed] = None) -> TrainState:
     """Drive ``step_fn(state, frozen, batch, generator) -> metrics`` over
     ``batches_from(first_step)`` until ``max_train_steps``;
     ``on_step(step, metrics)`` sees every step's metrics (tensors on the
-    device)."""
+    device). ``env``: the rank, when the run is data-parallel."""
     device = torch.device(device)
+    writer = env is None or env.is_writer
     ckpt = CheckpointManager(cfg.log_dir, cfg.checkpoints_total_limit)
-    metrics_log = MetricsLogger(cfg.log_dir)
+    metrics_log = MetricsLogger(cfg.log_dir) if writer else None
+
+    def save(step: int) -> None:
+        payload = state.state_dict()        # a collective where tensors are sharded
+        if writer:
+            ckpt.save(step, payload, generator.get_state())
+        if env is not None:
+            dist.barrier(env.group)
     timer = StepTimer()
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
 
@@ -92,20 +109,22 @@ def run_training(step_fn: Callable, state: TrainState,
                 scalars.update(timer.scalars())
                 if (step + 1) % cfg.memory_log_every == 0:
                     scalars.update(device_memory_stats(device))
-                metrics_log.log(step + 1, scalars)
+                if metrics_log is not None:
+                    metrics_log.log(step + 1, scalars)
             else:
                 timer.step_done()
             step += 1
             if (step % cfg.checkpoint_every == 0 or step == cfg.max_train_steps
                     or step in cfg.checkpoint_steps):
-                ckpt.save(step, state.state_dict(), generator.get_state())
+                save(step)
         if step > start_step and step % cfg.checkpoint_every != 0 \
                 and step != cfg.max_train_steps:
-            ckpt.save(step, state.state_dict(), generator.get_state())
+            save(step)
     finally:
         if hasattr(batches, "close"):
             batches.close()              # stops a prefetching producer
         for sig, handler in prev_handlers.items():
             signal.signal(sig, handler)
-        metrics_log.close()
+        if metrics_log is not None:
+            metrics_log.close()
     return state

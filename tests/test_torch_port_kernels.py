@@ -749,3 +749,28 @@ def test_int8_cross_attention_runs_b5_like_its_twin_on_card(cuda):
     assert tdca.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert ((got.float() - want).abs().max() / want.abs().max()).item() <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,n", [(1, 2, 1024, 2), (2, 2, 2048, 4), (1, 3, 1000, 8)])
+def test_ring_schedule_on_b1_matches_one_b1_call_on_card(cuda, b, h, s, n):
+    """The ring's chunks on B1 and their log-sum-exp merges, n ranks' worth
+    in one process (``ring_schedule``), against B1 over the whole sequence:
+    o within 2e-2 and 5e-3 in relative Frobenius norm, lse within 1e-3, n²
+    launches."""
+    from diffsensei_tpu_torch.ops import ring_attention as tra
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((b, h, s, 64), generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    want_o, want_lse = tfa.flash_attention(q, k, v)
+    before = tfa.launches
+    o, lse = tra.ring_schedule(q, k, v, n, return_lse=True)
+    assert tfa.launches - before == n * n
+    err = (o.float() - want_o.float())
+    assert err.abs().max().item() < 2e-2
+    assert (err.norm() / want_o.float().norm()).item() < 5e-3
+    assert (lse - want_lse).abs().max().item() < 1e-3
+    # one rank of the ring is B1 itself: o cast through fp32 and back, exactly
+    one, one_lse = tra.ring_schedule(q, k, v, 1, return_lse=True)
+    assert torch.equal(one, want_o) and torch.equal(one_lse, want_lse)

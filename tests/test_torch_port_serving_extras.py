@@ -313,14 +313,16 @@ def test_cli_writes_a_panel_with_the_serving_extras(tmp_path):
     assert img.shape == (*snap_to_bucket(128, 96), 3) and img.dtype == np.uint8
 
 
-@pytest.mark.parametrize("flag", [["--mllm-tokenizer", "tok"], ["--context-parallel"],
+@pytest.mark.parametrize("flag", [["--mllm-tokenizer", "tok"],
+                                  ["--context-parallel", "--mllm-tokenizer", "tok"],
                                   ["--weights", "w.yaml", "--mllm-tokenizer", "tok"],
-                                  ["--tokenizer", "tok", "--context-parallel"],
+                                  ["--tokenizer", "tok", "--context-parallel",
+                                   "--mllm-tokenizer", "tok"],
                                   ["--agent-weights", "a.bin", "--quantize-llm",
                                    "--mllm-tokenizer", "tok"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, flag):
-    """``--mllm-tokenizer`` (A5) and ``--context-parallel`` (A11) raise, alone
-    or beside the ported flags, before any file is read."""
+    """``--mllm-tokenizer`` (A5) raises, alone or beside the ported flags
+    (``--context-parallel`` among them), before any file is read."""
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         tcli.main(["--device", "cpu", "--out", str(tmp_path / "p.png"), *flag])
 
