@@ -67,7 +67,8 @@ Run from the root of the repository. Phases, one JSON line each:
    launches a token, the load's device peak below the bf16 LLM's bytes;
    eval_mllm_item: one ``MangaEvalMLLMDataset`` item's prompt ids with the
    agent's token spec.
-9. profile_decode: ``torch.profiler`` over 16 of the agent's decode steps:
+9. profile_decode: ``torch.profiler`` over 16 of the agent's decode steps,
+   through ``utils.observability.profile_trace`` (the trace file's bytes):
    device time and kernels a token, the device's busy share, the top kernels;
 10. flash_attention_bwd (run after phase 5): B2 (dQ) and B4 (dK/dV) against
    their plain twin at the training shapes and the edge cases, with times
@@ -126,6 +127,29 @@ Run from the root of the repository. Phases, one JSON line each:
    (within 1e-3) at once, then the FSDP checkpoint resumed for a third;
    train_dp2: two ranks sharing the card over gloo, ``dp``, a bucket batch
    of 2, 2 steps: trainables and losses bit-equal on both ranks.
+19. the model axis (tensor parallelism of the agent's LLaMA): int4_matmul_tp
+   (after phase 5): B6 at a model rank's ten layer shapes at tp = 2 and 4
+   against its plain twin, with times, bounds and a rank's B6 a token;
+   model_axis (after serve_agent): serve_agent's int4 LLaMA cut on the card
+   into 2 and 4 ranks' shard sets run in one process by
+   ``parallel.tensor.model_axis_schedule`` (83-token prefill, 16 decode
+   steps fed the unsharded ids): logits within 2e-2 of the unsharded, B6
+   281 x tp a token, each rank's device ms a token beside its bound;
+   serve_agent_tp (after train_mllm): ``generate`` of an 8-layer
+   SEED-X-width int4 agent cut over two gloo ranks sharing the card under
+   ``torch.distributed.run`` (an 83-token prompt ending with ``<img>``: the
+   forced ladder to ``</img>``, then 32 free tokens): ids and
+   ``img_gen_feat`` against the unsharded agent on each rank, B6 57 a token,
+   half the KV cache; while it runs, train_mllm_tp: two stage-3 SGD steps
+   on a ``(data=1, model=2)`` mesh of two more gloo ranks (full SDXL, a
+   4-layer SEED-X-width bf16 LLaMA with fp32 LoRA r 64) against the
+   one-process step (losses, first gradients, the trainables' move),
+   replicated trainables bit-equal across the ranks (the seconds of both
+   are host round trips, contended as the two run at once); train_mllm_fsdp: T3's config with
+   ``trainer.parallel: fsdp`` through the train CLI as one NCCL rank, 2
+   steps at T3's depth against T3's losses, a whole-tensor checkpoint;
+20. qwen_visual: the Qwen-VL tower with attention pooling at Qwen-VL's
+   visual widths, 2 layers, bf16 on the card against fp32 on the CPU.
 
 The kernels' launch counts are set to 0 before each served or trained path
 and checked after it (every kernel, every path), and B3's calls by shape
@@ -135,7 +159,9 @@ kernels line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. Needs one CUDA device; imports nothing of JAX.
 ``python3 chip_smoke.py train-rank OUT ARGS...`` is the rank of a train CLI
-run that train_dp and train_dp2 start under ``torch.distributed.run``.
+run that train_dp, train_dp2 and train_mllm_fsdp start under
+``torch.distributed.run``; ``agent-tp-rank OUT`` and ``train-tp-rank OUT LR``
+the ranks of serve_agent_tp and train_mllm_tp.
 """
 
 from __future__ import annotations
@@ -424,18 +450,22 @@ def check_flash(device) -> dict:
 
 
 def kernels_per_call(fn) -> int | None:
-    """Device kernels one call of ``fn`` runs, from ``torch.profiler`` (None
-    where the profiler sees no device activity)."""
+    """Device kernels one call of ``fn`` runs, from ``torch.profiler``; None
+    where three profiles see no device activity (one has missed every
+    kernel of a B3 call on the card's machine, a run of the 52 shapes)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.count for e in kernels) if kernels else None
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            return sum(e.count for e in kernels)
+    return None
 
 
 def gn_inputs(shape, dtype_name, gen, device):
@@ -1760,7 +1790,7 @@ def serve_agent(device, mods, ids, max_new_tokens: int = 500) -> dict:
         raise AssertionError(f"bad panel: {row}")
     eval_mllm_item(spec, encode, mods.manga)
     profile_decode(device, agent.llm)
-    return launches
+    return launches, agent.llm
 
 
 def eval_mllm_item(spec, encode, manga) -> None:
@@ -2551,46 +2581,20 @@ def profile_train(prof, wall_s: float, step: int, phase: str = "profile_train") 
                   for e in top]})
 
 
-def check_reference_train_mllm(device, num_layers: int = 2, tokens: int = 160) -> None:
-    """One stage-3 ``loss_fn`` and its backward on a cut-down stack: the
-    diffusion stack of ``check_reference_train`` (UNet 320/640 with per-block
-    remat; full VAE and Resampler; 2-layer encoders), frozen, beside a
-    SEED-X-width agent cut to ``num_layers`` LLaMA layers (hidden 5120, 40
-    heads of 128, vocab 32330, LoRA r 64 on all seven projections, per-layer
-    remat; the full Qwen resamplers) and a ``tokens``-long stream. On the card
-    the LLaMA base is bf16 and the agent's trainables fp32 (kernels B1-B5 on),
-    against the same weights (rounded to bf16 on both sides), batch and draws
-    on the CPU in fp32. Bounds as ``check_reference_train``: the loss within
-    2e-2, the concatenated trainables' gradient within 5e-2 (relative), every
-    gradient tensor within 1.5e-1."""
-    import dataclasses
-    import torch
-    from diffsensei_tpu_torch.core.config import AgentConfig, LlamaConfig
+def stage3_batch(manga, agent, hw: int, tokens: int, seed: int = 13):
+    """``(batch, draws)`` of one stage-3 step as numpy: an ``hw``² panel, its
+    four characters' crops and targets, a dialog box, a ``tokens``-long
+    stream of the agent's token spec, the noise and a timestep of 500."""
     from diffsensei_tpu_torch.data.mllm_dataset import build_mllm_token_stream
-    from diffsensei_tpu_torch.models.mllm.seed_x import ContinuousLVLM
-    from diffsensei_tpu_torch.models.schedulers import DDPMSchedule
-    from diffsensei_tpu_torch.train import cli, diffusion as td, mllm_step
+    from diffsensei_tpu_torch.train import cli
 
-    cpu, card = cut_down_stacks(device, seed=10)
-    acfg = AgentConfig(llm=dataclasses.replace(LlamaConfig.seed_x_13b(), num_layers=num_layers))
-    agents = {"cpu": ContinuousLVLM.build(acfg, torch.float32, device="cpu", seed=11),
-              "card": ContinuousLVLM.build(acfg, torch.bfloat16, device=device, seed=11)}
-    with torch.no_grad():
-        for name, p in agents["cpu"].llm.named_parameters():
-            if name.endswith("lora_B.weight"):   # nonzero, so that lora_A has a gradient
-                p.normal_(0.0, 0.02, generator=torch.Generator().manual_seed(12))
-        for cpu_mod, card_mod in zip(agents["cpu"].networks(), agents["card"].networks()):
-            for p in cpu_mod.parameters():
-                p.copy_(p.bfloat16().float())
-            card_mod.load_state_dict(cpu_mod.state_dict())
-    manga = cpu.manga
-    spec = cli.mllm_token_spec(agents["cpu"], {})
+    spec = cli.mllm_token_spec(agent, {})
     stream = build_mllm_token_stream(spec.encode_text("two girls talk on a rainy street"),
                                      spec, [], tokens)
-    rng = np.random.default_rng(13)
-    i, hw = manga.max_num_ips, 512
+    rng = np.random.default_rng(seed)
+    i = manga.max_num_ips
     boxes = np.array([[[0.05, 0.1, 0.45, 0.9], [0.5, 0.1, 0.95, 0.6], [0.5, 0.6, 0.8, 0.95],
-                       [0.1, 0.7, 0.3, 0.95]]])
+                       [0.1, 0.7, 0.3, 0.95]]])[:, :i]
     batch = dict(
         pixel_values=rng.uniform(-1, 1, (1, hw, hw, 3)),
         text_input_ids=rng.integers(1, 49000, (1, 77)),
@@ -2607,11 +2611,51 @@ def check_reference_train_mllm(device, num_layers: int = 2, tokens: int = 160) -
         **{k: v[None] for k, v in stream.items() if k != "mllm_attention_mask"})
     draws = dict(latent_noise=rng.normal(size=(1, hw // 8, hw // 8, 4)),
                  noise=rng.normal(size=(1, hw // 8, hw // 8, 4)), timesteps=np.array([500]))
+    return batch, draws
 
-    def as_t(a, dev):
-        a = np.asarray(a)
-        dtype = {"b": torch.bool, "i": torch.int64}.get(a.dtype.kind, torch.float32)
-        return torch.tensor(a, dtype=dtype, device=dev)
+
+def as_t(a, dev):
+    """A numpy array as a tensor on ``dev``: bool, int64 or float32."""
+    import torch
+
+    a = np.asarray(a)
+    dtype = {"b": torch.bool, "i": torch.int64}.get(a.dtype.kind, torch.float32)
+    return torch.tensor(a, dtype=dtype, device=dev)
+
+
+def check_reference_train_mllm(device, num_layers: int = 2, tokens: int = 160) -> None:
+    """One stage-3 ``loss_fn`` and its backward on a cut-down stack: the
+    diffusion stack of ``check_reference_train`` (UNet 320/640 with per-block
+    remat; full VAE and Resampler; 2-layer encoders), frozen, beside a
+    SEED-X-width agent cut to ``num_layers`` LLaMA layers (hidden 5120, 40
+    heads of 128, vocab 32330, LoRA r 64 on all seven projections, per-layer
+    remat; the full Qwen resamplers) and a ``tokens``-long stream. On the card
+    the LLaMA base is bf16 and the agent's trainables fp32 (kernels B1-B5 on),
+    against the same weights (rounded to bf16 on both sides), batch and draws
+    on the CPU in fp32. Bounds as ``check_reference_train``: the loss within
+    2e-2, the concatenated trainables' gradient within 5e-2 (relative), every
+    gradient tensor within 1.5e-1."""
+    import dataclasses
+    import torch
+    from diffsensei_tpu_torch.core.config import AgentConfig, LlamaConfig
+    from diffsensei_tpu_torch.models.mllm.seed_x import ContinuousLVLM
+    from diffsensei_tpu_torch.models.schedulers import DDPMSchedule
+    from diffsensei_tpu_torch.train import diffusion as td, mllm_step
+
+    cpu, card = cut_down_stacks(device, seed=10)
+    acfg = AgentConfig(llm=dataclasses.replace(LlamaConfig.seed_x_13b(), num_layers=num_layers))
+    agents = {"cpu": ContinuousLVLM.build(acfg, torch.float32, device="cpu", seed=11),
+              "card": ContinuousLVLM.build(acfg, torch.bfloat16, device=device, seed=11)}
+    with torch.no_grad():
+        for name, p in agents["cpu"].llm.named_parameters():
+            if name.endswith("lora_B.weight"):   # nonzero, so that lora_A has a gradient
+                p.normal_(0.0, 0.02, generator=torch.Generator().manual_seed(12))
+        for cpu_mod, card_mod in zip(agents["cpu"].networks(), agents["card"].networks()):
+            for p in cpu_mod.parameters():
+                p.copy_(p.bfloat16().float())
+            card_mod.load_state_dict(cpu_mod.state_dict())
+    manga = cpu.manga
+    batch, draws = stage3_batch(manga, agents["cpu"], 512, tokens)
 
     def grads(mods, agent, dev):
         mods.unet.enable_remat()
@@ -2680,6 +2724,8 @@ MLLM_STEPS, MLLM_PROFILED_STEP = 4, 3
 # then under model.agent.remat_policy: attn; 0 since the data-axis phases
 # came (the smoke's time limit), the policy held by tests/test_torch_port_remat.py
 MLLM_ATTN_STEPS = 0
+T3_LOSSES: list = []          # T3's losses by step, from the train_mllm phase
+T3_CKPT_SHAPES: dict = {}     # its step-2 checkpoint's trainables, name -> shape
 
 
 def train_mllm(device) -> dict:
@@ -2784,9 +2830,15 @@ def train_mllm(device) -> dict:
         ckpts = {p.parent.name: p.stat().st_size
                  for p in (tmp / "logs").glob("step-*/ckpt.pt")}
 
+        first = torch.load(tmp / "logs" / "step-2" / "ckpt.pt", mmap=True, map_location="cpu",
+                           weights_only=False)["state"]["params"]
+        T3_CKPT_SHAPES.update({k: tuple(v.shape) for k, v in first.items()})
+        del first
+
     for row, rec in zip(rows, logged):
         row.update(step_s=rec["time/step_s"], data_s=rec["time/data_s"])
         emit({"phase": "train_mllm", **row})
+    T3_LOSSES[:] = [r["loss"] for r in rows]
     mods, agent = built.pop("mods"), built.pop("agent")
     after = {"unet": checksums(mods.unet), "resampler": checksums(mods.resampler)}
     for name, mod in zip(("llm", "input_resampler", "output_resampler"), agent.networks()):
@@ -2844,24 +2896,32 @@ def profile_decode(device, llm, prompt_len: int = 83, steps: int = 16) -> None:
     summed) beside the host clock, the kernels launched a token, and the
     kernels that take the most device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from diffsensei_tpu_torch.models.mllm.llama import init_caches
+    from diffsensei_tpu_torch.utils.observability import profile_trace
 
     caches = init_caches(llm.config, 1, prompt_len + steps + 1, torch.float32, device)
     tok = torch.full((1, 1), 5, device=device)
     pos = lambda i: torch.full((1, 1), i, device=device)
-    with torch.inference_mode():
-        llm(torch.arange(3, 3 + prompt_len, device=device)[None],
-            positions=torch.arange(prompt_len, device=device)[None],
-            caches=caches, cache_index=0)
-        llm(tok, positions=pos(prompt_len), caches=caches, cache_index=prompt_len)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(1, steps + 1):
-                llm(tok, positions=pos(prompt_len + i), caches=caches, cache_index=prompt_len + i)
+    trace_dir = pathlib.Path(tempfile.mkdtemp(prefix="diffsensei_trace_"))
+    try:
+        with torch.inference_mode():
+            llm(torch.arange(3, 3 + prompt_len, device=device)[None],
+                positions=torch.arange(prompt_len, device=device)[None],
+                caches=caches, cache_index=0)
+            llm(tok, positions=pos(prompt_len), caches=caches, cache_index=prompt_len)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            with profile_trace(str(trace_dir)) as prof:
+                t0 = time.perf_counter()
+                for i in range(1, steps + 1):
+                    llm(tok, positions=pos(prompt_len + i), caches=caches,
+                        cache_index=prompt_len + i)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        trace_bytes = {f.name: f.stat().st_size for f in trace_dir.iterdir()}
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    if len(trace_bytes) != 1 or min(trace_bytes.values()) == 0:
+        raise AssertionError(f"profile_trace wrote {trace_bytes}")
     events = prof.key_averages()
     # device-side entries only: the operators' own rows repeat their kernels' time
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -2870,6 +2930,7 @@ def profile_decode(device, llm, prompt_len: int = 83, steps: int = 16) -> None:
     launch_calls = sum(e.count for e in events if "LaunchKernel" in e.key)
     seen = bool(kernels)     # None below: the profiler saw no device time
     emit({"phase": "profile_decode", "steps": steps,
+          "trace_file_bytes": sum(trace_bytes.values()),
           "wall_ms_per_token_profiled": wall / steps * 1e3,
           "device_ms_per_token": device_us / steps / 1e3 if seen else None,
           "device_busy_share": device_us / 1e6 / wall if seen else None,
@@ -3104,11 +3165,19 @@ def torchrun_train(out, nproc: int, config, *extra, timeout: float = 900):
     """Start the train CLI on ``config`` under ``torch.distributed.run`` with
     ``nproc`` ranks on this card, each through ``train_rank``; returns a
     function that waits for it and gives every rank's record."""
+    return torchrun_ranks("train-rank", out, nproc, "--config", str(config), *extra,
+                          timeout=timeout)
+
+
+def torchrun_ranks(mode: str, out, nproc: int, *args, timeout: float = 900):
+    """Start ``nproc`` ranks of this script's ``mode`` (``RANK_MODES``) under
+    ``torch.distributed.run`` on this card, each writing
+    ``OUT.rank<r>.json``; returns a function that waits for them and gives
+    every rank's record."""
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-         str(nproc), str(pathlib.Path(__file__).resolve()), "train-rank", str(out),
-         "--config", str(config), *extra],
+         str(nproc), str(pathlib.Path(__file__).resolve()), mode, str(out), *args],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def records() -> list:
@@ -3117,7 +3186,7 @@ def torchrun_train(out, nproc: int, config, *extra, timeout: float = 900):
         finally:
             stop(proc)
         if proc.returncode != 0:
-            raise AssertionError(f"torchrun of the train CLI failed ({proc.returncode}):\n"
+            raise AssertionError(f"torchrun of {mode} failed ({proc.returncode}):\n"
                                  f"{log[-3000:]}")
         recs = [json.loads(pathlib.Path(f"{out}.rank{r}.json").read_text())
                 for r in range(nproc)]
@@ -3234,6 +3303,613 @@ def train_dp2(device, weights_root) -> dict:
     return path_counts(records)
 
 
+# ---------------------------------------------------------------------------
+# the model axis: B6 at a rank's shapes, the sharded LLaMA in one process,
+# the agent and stage 3 on two ranks sharing the card, stage 3 under FSDP;
+# then the Qwen-VL tower (A8)
+# ---------------------------------------------------------------------------
+INT4_TP_CASES = [  # (tp, in, features, a rank's calls a token) of the SEED-X LLaMA, T = 1
+    (2, 5120, 2560, 120), (2, 5120, 6912, 80), (2, 6912, 5120, 40), (2, 2560, 5120, 40),
+    (2, 5120, 16165, 1),
+    (4, 5120, 1280, 120), (4, 5120, 3456, 80), (4, 3456, 5120, 40), (4, 1280, 5120, 40),
+    (4, 5120, 8083, 1)]
+
+
+def check_int4_tp(device) -> list:
+    """B6 at a model rank's layers under tensor parallelism (q/k/v and o,
+    gate/up and down, lm_head's vocabulary rows, at tp = 2 and 4), T = 1,
+    fp32 x as the sharded decode passes it, against its plain twin:
+    relative Frobenius under 2e-2, allclose 2e-2 to the bf16-dequant
+    product, two calls bit-equal; timed as ``check_int4`` times its rows
+    beside the twin and ``torch.matmul`` on the bf16-dequantized weight.
+    Then a rank's B6 time a token (calls x ms) beside its bound."""
+    import torch
+    from diffsensei_tpu_torch.ops import int4_matmul as i4
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    rows, per_rank = [], {}
+    for tp, in_f, features, calls in INT4_TP_CASES:
+        padded = i4.padded_features(features, in_f, 128)
+        wbytes = in_f * padded // 2 + (in_f // 128) * padded * 4
+        copies = min(64, -(-256 * 2**20 // wbytes))
+        weights = [(torch.randint(0, 256, (in_f, padded // 2), generator=gen, device=device,
+                                  dtype=torch.uint8),
+                    (torch.rand((in_f // 128, padded), generator=gen, device=device) + 0.5)
+                    / (4.61 * in_f ** 0.5))
+                   for _ in range(copies)]
+        x = torch.randn((1, in_f), generator=gen, device=device)
+        xb = x.bfloat16()
+        xf = xb.float()
+        packed, scale = weights[0]
+        got = i4.int4_decode_matmul(x, packed, scale)
+        again = i4.int4_decode_matmul(x, packed, scale)
+        torch.cuda.synchronize()
+        dense = [i4.dequantize(q, s_, torch.bfloat16) for q, s_ in weights]
+        ref = xf @ dense[0].float()
+        twin = i4.int4_decode_fallback(xf, packed, scale)
+        row = dict(tp=tp, shape=[1, in_f, features], padded=padded, x="float32",
+                   calls_per_token=calls, copies=copies,
+                   max_abs_err=(got - twin).abs().max().item(),
+                   rel_frobenius=((got - twin).norm() / twin.norm()).item(),
+                   allclose_bf16=torch.allclose(got, ref, rtol=2e-2, atol=2e-2),
+                   bit_equal=torch.equal(got, again),
+                   ms=cuda_ms([lambda q=q, s_=s_: i4.int4_decode_matmul(x, q, s_)
+                               for q, s_ in weights]),
+                   plain_ms=cuda_ms([lambda q=q, s_=s_: i4.int4_decode_fallback(xf, q, s_)
+                                     for q, s_ in weights]),
+                   library_ms=cuda_ms([lambda w=w: torch.matmul(xb, w) for w in dense]),
+                   **bound(wbytes + 4 * in_f + 4 * padded, 2 * in_f * padded))
+        rows.append(row)
+        emit({"phase": "int4_matmul_tp", **row})
+        if not (row["allclose_bf16"] and row["rel_frobenius"] < 2e-2 and row["bit_equal"]):
+            raise AssertionError(f"int4_decode_matmul disagrees with its plain twin: {row}")
+        acc = per_rank.setdefault(tp, dict(ms=0.0, bound_ms=0.0, calls=0))
+        acc["ms"] += calls * row["ms"]
+        acc["bound_ms"] += calls * row["bound_ms"]
+        acc["calls"] += calls
+        del weights, dense, twin, ref
+        torch.cuda.empty_cache()
+    emit({"phase": "int4_matmul_tp", "per_token_per_rank": per_rank})
+    return rows
+
+
+def profiled_device_ms(fn, calls: int) -> dict:
+    """Device time a call of ``fn`` (its kernels' time summed by
+    ``torch.profiler``), kernels a call and the host's ms a call, over
+    ``calls`` calls after a warm one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    return dict(device_ms=device_us / calls / 1e3 if kernels else None,
+                kernels=sum(e.count for e in kernels) / calls if kernels else None,
+                wall_ms=wall / calls * 1e3)
+
+
+def model_axis(device, llm, prompt_len: int = 83, steps: int = 16) -> dict:
+    """The served int4 SEED-X LLaMA (40 layers, serve_agent's) cut on the
+    card into 2 and then 4 model ranks' shard sets (``shard_sets``: int4
+    column shards repacked layer by layer), run in one process by
+    ``model_axis_schedule`` (each shard set's own forward in a thread, the
+    all-reduces summed in rank order): an ``prompt_len``-token prefill and ``steps``
+    decode steps fed the unsharded LLaMA's greedy ids. Checks: each step's
+    last logits within B6's limit (relative Frobenius 2e-2) of the
+    unsharded ones; B6 281 x tp launches a token exactly (the prefill
+    dequantizes: none) and no other kernel. The first and the last rank's
+    shard set alone for a decode step: device ms (``torch.profiler``, 3
+    steps) beside its bound, its weight bytes over the HBM rate (about
+    2.0 / tp ms)."""
+    import functools
+    import torch
+    from diffsensei_tpu_torch.models.mllm.llama import init_caches
+    from diffsensei_tpu_torch.parallel.tensor import model_axis_schedule, shard_sets
+
+    cfg = llm.config
+    total = prompt_len + steps
+    prompt = torch.from_numpy(np.random.default_rng(14).integers(
+        3, cfg.vocab_size, (1, prompt_len))).to(device)
+    pos = lambda i, n=1: torch.arange(i, i + n, device=device)[None]
+
+    def decode(forward, caches, tokens=None):
+        """Prefill and ``steps`` decode steps: the last logits of each, the
+        tokens fed (greedy unless ``tokens``), the decode's host seconds."""
+        logits, _, caches = forward(input_ids=prompt, positions=pos(0, prompt_len),
+                                    caches=caches, cache_index=0)
+        out, fed = [logits[0, -1].float()], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            fed.append(int(out[-1].argmax()) if tokens is None else tokens[i])
+            logits, _, caches = forward(input_ids=torch.full((1, 1), fed[-1], device=device),
+                                        positions=pos(prompt_len + i), caches=caches,
+                                        cache_index=prompt_len + i)
+            out.append(logits[0, -1].float())
+        torch.cuda.synchronize()
+        return out, fed, time.perf_counter() - t0
+
+    counts = expect()
+    with torch.inference_mode():
+        want, ids, whole_s = decode(llm, init_caches(cfg, 1, total, torch.float32, device))
+        for tp in (2, 4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            shards = shard_sets(llm, tp)
+            torch.cuda.synchronize()
+            shard_s = time.perf_counter() - t0
+            caches = [init_caches(cfg, 1, total, torch.float32, device, tp=tp) for _ in shards]
+            before = launch_counts()
+            got, _, tp_s = decode(functools.partial(model_axis_schedule, shards), caches, ids)
+            launches = since(before)
+            rel = [((g - w).norm() / w.norm()).item() for g, w in zip(got, want)]
+            ranks = []
+            for r in (0, tp - 1):     # alike but for the last rank's shorter vocabulary
+                shard, tok = shards[r], torch.full((1, 1), ids[-1], device=device)
+                wbytes = sum(p.numel() * p.element_size() for n, p in shard.named_parameters()
+                             if ".kernel_" in n)
+                # the shard set alone: its rank's work, each all-reduce the identity
+                timing = profiled_device_ms(lambda: model_axis_schedule(
+                    [shard], input_ids=tok, positions=pos(total - 1), caches=[caches[r]],
+                    cache_index=total - 1), 3)
+                ranks.append(dict(rank=r, weight_bytes=wbytes, **bound(wbytes, 0), **timing))
+            cache_bytes = [sum(t.numel() * t.element_size() for kv in c for t in kv)
+                           for c in caches]
+            row = dict(tp=tp, layers=cfg.num_layers, prompt_tokens=prompt_len, steps=steps,
+                       shard_s=shard_s, max_rel_frobenius=max(rel), prefill_rel_frobenius=rel[0],
+                       max_abs_diff=max((g - w).abs().max().item() for g, w in zip(got, want)),
+                       argmax_agree=sum(int(g.argmax()) == int(w.argmax())
+                                        for g, w in zip(got, want)),
+                       schedule_host_ms_per_token=tp_s / steps * 1e3,
+                       unsharded_host_ms_per_token=whole_s / steps * 1e3,
+                       cache_bytes_per_rank=cache_bytes, ranks=ranks, launches=launches)
+            emit({"phase": "model_axis", **row})
+            want_launches = expect(int4=(7 * cfg.num_layers + 1) * tp * steps)
+            if row["max_rel_frobenius"] > 2e-2 or launches != want_launches:
+                raise AssertionError(f"the model axis's schedule disagrees with the unsharded "
+                                     f"LLaMA (launches expected {want_launches}): {row}")
+            counts = {k: counts[k] + launches[k] for k in KERNELS}
+            del shards, caches
+            gc.collect()
+            torch.cuda.empty_cache()
+    return counts
+
+
+AGENT_TP_LAYERS, AGENT_TP_PROMPT, AGENT_TP_FREE = 8, 83, 32
+
+
+def seed_x_agent_config(layers: int):
+    """``AgentConfig()`` (SEED-X width: the 13B LLaMA's, its resamplers)
+    with the LLaMA cut to ``layers`` layers."""
+    import dataclasses
+    from diffsensei_tpu_torch.core.config import AgentConfig, LlamaConfig
+
+    return AgentConfig(llm=dataclasses.replace(LlamaConfig.seed_x_13b(), num_layers=layers))
+
+
+def agent_tp_rank(argv) -> int:
+    """A rank of serve_agent_tp (this script's ``agent-tp-rank OUT`` mode,
+    under ``torch.distributed.run``): the int4 SEED-X-width agent cut to
+    ``AGENT_TP_LAYERS`` layers, built whole on this rank's card from seed 0,
+    its greedy ``generate`` on an ``AGENT_TP_PROMPT``-token prompt ending
+    with ``<img>`` (the forced ladder to ``</img>``, then
+    ``AGENT_TP_FREE`` free tokens) unsharded, then cut over the model axis
+    of all ranks (``shard_agent``) and again; writes OUT.rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    from diffsensei_tpu_torch.models.mllm import seed_x
+    from diffsensei_tpu_torch.parallel.mesh import (
+        MeshSpec, init_distributed, make_mesh, model_group)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = argv[0]
+    env = init_distributed()
+    group = model_group(make_mesh(MeshSpec(data=1, model=env.world)))
+    acfg = seed_x_agent_config(AGENT_TP_LAYERS)
+    agent = seed_x.ContinuousLVLM.build(acfg, quantized="int4", device=env.device, seed=0)
+    vocab, nq = acfg.llm.vocab_size, acfg.input_resampler.num_queries
+    ladder = np.arange(vocab - nq - 2, vocab)
+    prompt = np.concatenate([np.random.default_rng(15).integers(3, ladder[0],
+                                                                AGENT_TP_PROMPT - 1),
+                             ladder[:1]])[None]
+    new = nq + 1 + AGENT_TP_FREE
+    cache_bytes, make_caches = [], seed_x.init_caches
+
+    def recording_caches(*args, **kwargs):
+        caches = make_caches(*args, **kwargs)
+        cache_bytes.append(sum(t.numel() * t.element_size() for kv in caches for t in kv))
+        return caches
+
+    seed_x.init_caches = recording_caches
+
+    def run(agent):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before, t0 = launch_counts(), time.perf_counter()
+        res = agent.generate(prompt, ladder_ids=ladder, max_new_tokens=new)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return dict(seconds=seconds, s_per_token=seconds / new,
+                    ids=res["output_ids"][0].tolist(), num_gen_imgs=res["num_gen_imgs"],
+                    launches=since(before), cache_bytes=cache_bytes[-1],
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30), res["img_gen_feat"]
+
+    with torch.inference_mode():
+        whole, feat = run(agent)
+        agent = seed_x.shard_agent(agent, group)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sharded, tp_feat = run(agent)
+        rel = ((tp_feat.float() - feat.float()).norm() / feat.float().norm()).item()
+        diff = (tp_feat.float() - feat.float()).abs().max().item()
+    rank = dist.get_rank()
+    pathlib.Path(f"{out}.rank{rank}.json").write_text(json.dumps(dict(
+        rank=rank, world=dist.get_world_size(), backend=dist.get_backend(),
+        layers=AGENT_TP_LAYERS, prompt_tokens=int(prompt.shape[1]), new_tokens=new,
+        whole=whole, sharded=sharded, img_gen_feat_rel_frobenius=rel,
+        img_gen_feat_max_abs_diff=diff, img_gen_feat_shape=list(tp_feat.shape),
+        img_gen_feat_bits=bits_digest([tp_feat]))))
+    dist.destroy_process_group()
+    return 0
+
+
+def serve_agent_tp(device, beside=None):
+    """The agent's decode under tensor parallelism on two gloo ranks that
+    share the card (``agent_tp_rank`` under ``torch.distributed.run``): at
+    SEED-X width, 8 layers (a depth cut: every token's all-reduces go
+    through the host). Checks on each rank: the ids equal the unsharded
+    agent's and the other rank's; ``img_gen_feat`` within 2e-2 (relative
+    Frobenius) of the unsharded one and bit-equal across the ranks; B6 57 a
+    token (8 x 7 + lm_head) and no other kernel; a KV cache of half the
+    unsharded bytes. Returns the path's launch counts; with ``beside``, a
+    phase run while the ranks run (for the smoke's time), also its
+    result."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = torchrun_ranks("agent-tp-rank", pathlib.Path(tmp) / "out", 2)
+        try:
+            other = beside(device) if beside else None
+            records = ranks()
+        finally:
+            ranks.stop()
+    per_token = 7 * AGENT_TP_LAYERS + 1
+    r0 = records[0]
+    row = dict(backend=r0["backend"], world=r0["world"], layers=r0["layers"],
+               prompt_tokens=r0["prompt_tokens"], new_tokens=r0["new_tokens"],
+               ids_equal_to_unsharded=[r["sharded"]["ids"] == r["whole"]["ids"] for r in records],
+               ids_equal_across_ranks=all(r["sharded"]["ids"] == r0["sharded"]["ids"]
+                                          for r in records),
+               num_gen_imgs=[r["sharded"]["num_gen_imgs"] for r in records],
+               img_gen_feat_shape=r0["img_gen_feat_shape"],
+               img_gen_feat_rel_frobenius=[r["img_gen_feat_rel_frobenius"] for r in records],
+               img_gen_feat_max_abs_diff=[r["img_gen_feat_max_abs_diff"] for r in records],
+               img_gen_feat_equal_across_ranks=all(r["img_gen_feat_bits"] ==
+                                                   r0["img_gen_feat_bits"] for r in records),
+               b6_per_token=[r["sharded"]["launches"]["int4"] / r["new_tokens"]
+                             for r in records],
+               cache_share=[r["sharded"]["cache_bytes"] / r["whole"]["cache_bytes"]
+                            for r in records],
+               s_per_token={r["rank"]: r["sharded"]["s_per_token"] for r in records},
+               unsharded_s_per_token={r["rank"]: r["whole"]["s_per_token"] for r in records},
+               peak_gib={r["rank"]: r["sharded"]["peak_gib"] for r in records},
+               launches={r["rank"]: r["sharded"]["launches"] for r in records},
+               note="seconds a token over gloo: each all-reduce goes through the host")
+    emit({"phase": "serve_agent_tp", **row})
+    from diffsensei_tpu_torch.ops.int4_matmul import MAX_TOKENS
+
+    # one forward a new token, and the prefill's where a prompt is short enough for B6
+    want = expect(int4=per_token * (r0["new_tokens"] + (r0["prompt_tokens"] <= MAX_TOKENS)))
+    if (row["backend"] != "gloo" or row["world"] != 2 or not all(row["ids_equal_to_unsharded"])
+            or not row["ids_equal_across_ranks"] or row["num_gen_imgs"] != [1, 1]
+            or max(row["img_gen_feat_rel_frobenius"]) > 2e-2
+            or not row["img_gen_feat_equal_across_ranks"] or row["cache_share"] != [0.5, 0.5]
+            or any(r["sharded"]["launches"] != want for r in records)):
+        raise AssertionError(f"the agent on two model ranks disagrees (launches expected "
+                             f"{want}): {row}")
+    counts = {k: sum(r["sharded"]["launches"][k] for r in records) for k in KERNELS}
+    return (counts, other) if beside else counts
+
+
+# an SGD rate at which the first step moves the loss by 2% (22.61 -> 22.16 on an
+# H100), so that a partial update shows in the second loss well above its 1e-3
+# limit; the trainables' move is held on its own at every rate. At 1e-3 the first
+# step halves the loss (22.6 -> 10.8) and the second loss is 1.6e-2 from the
+# one-process one, while the move agrees within 0.93% as at 1e-4 and 3e-5: the
+# layouts' bf16 differences grown by that step, not a wrong update
+# (tools/torch_model_axis_probe.py train_mllm_tp_rates)
+TRAIN_TP_LAYERS, TRAIN_TP_LR, TRAIN_TP_HW, TRAIN_TP_TOKENS = 4, 3e-5, 1024, 400
+# a stage-3 step at T3's shapes: B1 70 + 70 replayed, B2/B4 69, B3 34 + 28 replayed + 20
+# in the VAE encoder, B5 70 + 70 replayed (train_mllm's count)
+T3_STEP = dict(flash_fwd=140, flash_dq=69, flash_dkv=69, groupnorm=82, dual=140)
+
+
+def train_tp_stack(device):
+    """The full SDXL stack, random weights from seed 0."""
+    from diffsensei_tpu_torch.pipelines.pipeline import PipelineModules
+
+    return PipelineModules.sdxl(device=device, seed=0, init="random")
+
+
+def train_tp_rank(argv) -> int:
+    """A rank of train_mllm_tp (this script's ``train-tp-rank OUT`` mode):
+    the full SDXL stack (random, seed 0, per-block remat) and a SEED-X-width
+    agent of ``TRAIN_TP_LAYERS`` layers (bf16 base, LoRA r 64 with B drawn
+    nonzero, per-layer remat), the same on every rank, then two
+    SGD-with-momentum steps of stage 3 on one 1024² batch with fixed draws:
+    on rank 0 first with the agent whole (the one-process step, its first
+    gradients and its trainables' move saved beside OUT), then on every
+    rank with it cut over a ``(data=1, model=ranks)`` mesh's model axis,
+    DDP over its data axis, its first gradients and move against the saved
+    ones cut to the rank's shards. argv: OUT and the SGD rate. Writes
+    OUT.rank<r>.json."""
+    import copy
+    import torch
+    import torch.distributed as dist
+    from diffsensei_tpu_torch.models.mllm.seed_x import ContinuousLVLM, shard_agent
+    from diffsensei_tpu_torch.models.schedulers import DDPMSchedule
+    from diffsensei_tpu_torch.parallel.mesh import (
+        MeshSpec, data_group, init_distributed, llm_param_sharding_rules, make_mesh,
+        model_group, sharded_dim)
+    from diffsensei_tpu_torch.parallel.tensor import shard_llama_state
+    from diffsensei_tpu_torch.parallel.train import wrap_ddp
+    from diffsensei_tpu_torch.train import diffusion as td, mllm_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, lr = argv[0], float(argv[1])
+    env = init_distributed()
+    device = env.device
+    mesh = make_mesh(MeshSpec(data=1, model=env.world))
+    dgroup, mgroup = data_group(mesh), model_group(mesh)
+    mods = train_tp_stack(device)
+    mods.unet.enable_remat()
+    acfg = seed_x_agent_config(TRAIN_TP_LAYERS)
+    agent = ContinuousLVLM.build(acfg, mods.unet.dtype, device=device, seed=3, remat=True)
+    with torch.no_grad():
+        gen = torch.Generator(device=device).manual_seed(12)
+        for name, p in agent.llm.named_parameters():
+            if name.endswith("lora_B.weight"):   # nonzero, so that lora_A moves in step 1
+                p.normal_(0.0, 0.02, generator=gen)
+    batch, draws = stage3_batch(mods.manga, agent, TRAIN_TP_HW, TRAIN_TP_TOKENS)
+    batch = {k: as_t(v, device) for k, v in batch.items()}
+    draws = {k: as_t(v, device) for k, v in draws.items()}
+    frozen = td.FrozenDiffusionStack(
+        vae=mods.vae, text_encoder=mods.text_encoder, text_encoder_2=mods.text_encoder_2,
+        image_encoder=mods.image_encoder, magi_encoder=mods.magi_encoder,
+        vae_scaling=mods.vae.config.scaling_factor)
+    frozen_unet = lambda: bits_digest(list(mods.unet.parameters())
+                                      + list(mods.resampler.parameters()))
+
+    def steps(agent, group, ddp):
+        params = mllm_step.agent_trainables(agent)
+        start = {k: p.detach().float().clone() for k, p in params.items()}
+        step = mllm_step.make_stage3_step(mods.unet, mods.resampler, agent, DDPMSchedule(),
+                                          mllm_step.Stage3Config(manga=mods.manga), group)
+        if ddp:
+            wrap_ddp(step, {"llm": agent.llm, "input_resampler": agent.input_resampler,
+                            "output_resampler": agent.output_resampler}, env, group=dgroup)
+        sgd = torch.optim.SGD(list(params.values()), lr=lr, momentum=0.9)
+        rows, grads = [], None
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before, t0 = launch_counts(), time.perf_counter()
+            loss, metrics = step.forward(frozen, batch, None, **draws)
+            loss.backward()
+            if grads is None:
+                grads = {k: p.grad.detach().float().clone() for k, p in params.items()}
+            sgd.step()
+            sgd.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            rows.append(dict(loss=float(loss), **{k: float(v) for k, v in metrics.items()},
+                             host_s=time.perf_counter() - t0, launches=since(before),
+                             peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+        moved = {k: p.detach().float() - start.pop(k) for k, p in params.items()}
+        return rows, params, grads, moved
+
+    unet_before = frozen_unet()
+    reference = None
+    if env.rank == 0:
+        whole = copy.deepcopy(agent)
+        reference, _, grads, moved = steps(whole, None, False)
+        torch.save({k: g.cpu() for k, g in grads.items()}, f"{out}.grads.pt")
+        torch.save({k: m.cpu() for k, m in moved.items()}, f"{out}.moved.pt")
+        del whole, grads, moved
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    agent = shard_agent(agent, mgroup)
+    base = [p for n, p in agent.llm.named_parameters() if ".base." in n]
+    base_before = bits_digest(base)
+    rows, params, grads, moved = steps(agent, dgroup, True)
+    mrank, msize = dist.get_rank(mgroup), dist.get_world_size(mgroup)
+
+    def against(got, path):
+        """Relative Frobenius distances of ``got`` to the one-process tensors
+        saved at ``path``, cut to this rank's shards: over all, the worst
+        tensor's and the median."""
+        want = {k: (shard_llama_state({k[4:]: g}, acfg.llm, mrank, msize)[k[4:]]
+                    if k.startswith("llm.") else g).to(device)
+                for k, g in torch.load(path).items()}
+        per = {k: ((got[k] - w).norm() / w.norm()).item()
+               for k, w in want.items() if w.norm() > 0}
+        cat = lambda d: torch.cat([d[k].flatten() for k in sorted(want)])
+        worst = max(per, key=per.get)
+        return dict(rel_frobenius=((cat(got) - cat(want)).norm() / cat(want).norm()).item(),
+                    worst_tensor=worst, worst_rel_frobenius=per[worst],
+                    median_rel_frobenius=float(np.median(list(per.values()))))
+
+    # the first gradients, and the trainables' move over both steps (rate,
+    # momentum and the second gradient), against the one-process ones
+    first_grads, update = against(grads, f"{out}.grads.pt"), against(moved, f"{out}.moved.pt")
+    rules = llm_param_sharding_rules()
+    replicated = [p for n, p in params.items()
+                  if not n.startswith("llm.")
+                  or sharded_dim(n[len("llm."):], p.dim(), rules) is None]
+    rank = dist.get_rank()
+    pathlib.Path(f"{out}.rank{rank}.json").write_text(json.dumps(dict(
+        rank=rank, world=dist.get_world_size(), backend=dist.get_backend(),
+        layers=TRAIN_TP_LAYERS, lr=lr, steps=rows, reference=reference, grads=first_grads,
+        update=update, trainables=len(params), replicated_trainables=len(replicated),
+        replicated=bits_digest(replicated), frozen_base_moved=bits_digest(base) != base_before,
+        frozen_unet=[unet_before, frozen_unet()])))
+    dist.destroy_process_group()
+    return 0
+
+
+def train_mllm_tp(device, lr: float = TRAIN_TP_LR) -> dict:
+    """Stage 3 on a ``(data=1, model=2)`` mesh of two gloo ranks sharing the
+    card (``train_tp_rank``): full SDXL width, the LLaMA at SEED-X width cut
+    to 4 layers (bf16, fp32 LoRA r 64), two SGD-with-momentum steps.
+    SGD rate ``lr``. Checks: each rank's losses within 1e-3 (relative) of
+    the one-process step's from the same state, batch and draws, and equal
+    across the ranks; its first gradients, and its trainables' move over
+    the two steps (the rate, the momentum and the second gradient), within
+    ``check_reference_train_mllm``'s bounds of the one-process ones cut to
+    its shards (5e-2 relative over all, 1.5e-1 the worst tensor); the replicated trainables bit-equal
+    across the ranks; the frozen LLaMA base, UNet and Resampler unmoved and
+    the latter two bit-equal across the ranks; T3's launches a step on each
+    rank."""
+    with tempfile.TemporaryDirectory() as tmp:
+        records = torchrun_ranks("train-tp-rank", pathlib.Path(tmp) / "out", 2, str(lr))()
+    ref = next(r["reference"] for r in records if r["reference"])
+    keys = ("loss", "loss_diffusion", "loss_lm", "loss_rec")
+    rel = {r["rank"]: [max(abs(s[k] - w[k]) / max(abs(w[k]), 1e-30) for k in keys)
+                       for s, w in zip(r["steps"], ref)] for r in records}
+    row = dict(backend=records[0]["backend"], world=records[0]["world"],
+               layers=records[0]["layers"], lr=lr,
+               losses=[s["loss"] for s in records[0]["steps"]],
+               one_process_losses=[s["loss"] for s in ref], max_rel_diff_by_rank=rel,
+               grads={r["rank"]: r["grads"] for r in records},
+               update={r["rank"]: r["update"] for r in records},
+               losses_equal_across_ranks=all(
+                   [s["loss"] for s in r["steps"]] == [s["loss"] for s in records[0]["steps"]]
+                   for r in records),
+               trainables=records[0]["trainables"],
+               replicated_trainables=records[0]["replicated_trainables"],
+               replicated_equal=all(r["replicated"] == records[0]["replicated"]
+                                    for r in records),
+               frozen_base_moved=[r["frozen_base_moved"] for r in records],
+               frozen_unet_equal=all(r["frozen_unet"][0] == r["frozen_unet"][1]
+                                     == records[0]["frozen_unet"][0] for r in records),
+               step_host_s={r["rank"]: [s["host_s"] for s in r["steps"]] for r in records},
+               one_process_step_host_s=[s["host_s"] for s in ref],
+               peak_gib={r["rank"]: [s["peak_gib"] for s in r["steps"]] for r in records},
+               one_process_peak_gib=[s["peak_gib"] for s in ref],
+               launches={r["rank"]: [s["launches"] for s in r["steps"]] for r in records},
+               note="seconds a step over gloo: the activations' all-reduces go through the host")
+    emit({"phase": "train_mllm_tp", **row})
+    want = expect(**T3_STEP)
+    if (row["backend"] != "gloo" or max(max(v) for v in rel.values()) > 1e-3
+            or any(r[k]["rel_frobenius"] > 5e-2 or r[k]["worst_rel_frobenius"] > 1.5e-1
+                   for r in records for k in ("grads", "update"))
+            or not row["losses_equal_across_ranks"] or not row["replicated_equal"]
+            or any(row["frozen_base_moved"]) or not row["frozen_unet_equal"]
+            or any(s["launches"] != want for r in records for s in r["steps"])):
+        raise AssertionError(f"stage 3 on the model axis disagrees (launches expected "
+                             f"{want}): {row}")
+    return {k: sum(s["launches"][k] for r in records for s in r["steps"]) for k in KERNELS}
+
+
+def train_mllm_fsdp(device) -> dict:
+    """T3 under ``trainer.parallel: fsdp``: the train CLI on
+    ``configs/train/mllm.yaml`` with train_mllm's changes (random init,
+    synthetic pages, logs beside them) and ``parallel: fsdp``,
+    ``max_train_steps: 2``, a checkpoint at step 2, as one NCCL rank under
+    ``torch.distributed.run`` (``train_rank``), at T3's depth: the agent's
+    LLaMA (one FSDP unit a layer, ``embed_tokens_only`` a forward method)
+    and resamplers, the frozen stack, UNet and Resampler sharded over a
+    data axis of one. Checks: T3's launches a step; losses within 1e-3
+    (relative) of T3's first two; the checkpoint's trainables whole, under
+    the names and shapes of T3's."""
+    import torch
+    import yaml
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        write_mangazero(tmp)
+        cfg = yaml.safe_load(pathlib.Path("configs/train/mllm.yaml").read_text())
+        cfg.pop("weights")
+        cfg["model"]["init"] = "random"
+        cfg["train_data"].update(ann_path=str(tmp / "annotations.json"), image_root=str(tmp))
+        cfg["trainer"].update(parallel="fsdp", max_train_steps=2, log_every=1,
+                              checkpoint_every=2, log_dir=str(tmp / "logs"))
+        (tmp / "config.yaml").write_text(yaml.safe_dump(cfg))
+        (rec,) = torchrun_train(tmp / "out", 1, tmp / "config.yaml")()
+        params = torch.load(tmp / "logs" / "step-2" / "ckpt.pt", mmap=True, map_location="cpu",
+                            weights_only=False)["state"]["params"]
+        whole = all(type(v) is torch.Tensor for v in params.values())
+        layout = {k: tuple(v.shape) for k, v in params.items()} == T3_CKPT_SHAPES
+        del params
+    steps = rec["steps"]
+    row = dict(backend=rec["backend"], world=rec["world"], wall_s=rec["wall_s"],
+               losses=[r["loss"] for r in steps], t3_losses=T3_LOSSES[:2],
+               rel_diff_to_t3=[abs(r["loss"] - w) / abs(w) for r, w in zip(steps, T3_LOSSES)],
+               step_host_s=[r["host_s"] for r in steps], peak_gib=[r["peak_gib"] for r in steps],
+               checkpoint_whole=whole, checkpoint_layout_of_t3=layout,
+               launches=[r["launches"] for r in steps])
+    emit({"phase": "train_mllm_fsdp", **row})
+    want = expect(**T3_STEP)
+    if (len(steps) != 2 or max(row["rel_diff_to_t3"]) > 1e-3 or not whole or not layout
+            or any(c != want for c in row["launches"])):
+        raise AssertionError(f"T3 under FSDP differs from T3 (launches expected {want}): {row}")
+    return path_counts([rec])
+
+
+def check_qwen_visual(device) -> dict:
+    """The Qwen-VL tower with attention pooling (A8) at Qwen-VL's published
+    visual widths, this script's own config (no package preset): 1664 wide,
+    16 heads, MLP 8192, patch 14, its 16 x 16 position table resized to a
+    448 px panel's 32 x 32 grid, 256 pooled queries of 4096 (32 heads), the
+    projection 4096; cut to 2 layers. bf16 on the card against the same
+    weights in fp32 on the CPU: relative Frobenius within 5e-2; one B1
+    launch (the pool's 1024 keys at head_dim 128; the blocks' head_dim 104
+    takes the plain path)."""
+    import copy
+    import torch
+    from diffsensei_tpu_torch.core.config import QwenResamplerConfig, VisionEncoderConfig
+    from diffsensei_tpu_torch.models.mllm.qwen_visual import VisionTransformerWithAttnPool
+    from diffsensei_tpu_torch.utils.init import init_flax_like_
+
+    cfg = VisionEncoderConfig(image_size=224, patch_size=14, hidden_size=1664, num_layers=2,
+                              num_heads=16, intermediate_size=8192, norm_eps=1e-6)
+    pool = QwenResamplerConfig(grid_size=16, embed_dim=4096, num_heads=32, kv_dim=1664)
+    with torch.device("meta"):
+        cpu = VisionTransformerWithAttnPool(cfg, pool, output_dim=4096)
+    gen = torch.Generator().manual_seed(16)
+    init_flax_like_(cpu.to_empty(device="cpu"), gen)
+    with torch.no_grad():      # the parameters outside the layers init_flax_like_ knows
+        cpu.positional_embedding.normal_(0.0, 0.02, generator=gen)
+        cpu.proj.normal_(0.0, 4096 ** -0.5, generator=gen)
+        cpu.attn_pool.attn.in_proj_weight.normal_(0.0, 4096 ** -0.5, generator=gen)
+    card = copy.deepcopy(cpu).to(device=device, dtype=torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(17).uniform(0, 1, (1, 448, 448, 3))).float()
+    with torch.inference_mode():
+        want = cpu(x)
+        reset_counts()
+        got = card(x.to(device))
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        got = got.float().cpu()
+    row = dict(module="qwen_visual_attn_pool_1664_2_layers_bf16", shape=list(got.shape),
+               finite=bool(torch.isfinite(got).all()),
+               rel_frobenius=((got - want).norm() / want.norm()).item(),
+               max_abs_diff=(got - want).abs().max().item(), bound=5e-2, launches=launches)
+    emit({"phase": "qwen_visual", **row})
+    if (row["shape"] != [1, 256, 4096] or not row["finite"] or row["rel_frobenius"] > 5e-2
+            or launches != expect(flash_fwd=1)):
+        raise AssertionError(f"the Qwen-VL tower on the card disagrees with the CPU: {row}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3278,6 +3954,7 @@ def main() -> int:
     flash = check_flash(device)
     gnorm = check_groupnorm(device)
     int4 = check_int4(device)
+    int4_tp = check_int4_tp(device)
     flash_dq, flash_dkv = check_flash_bwd(device)
     dual = check_dual(device)
     ring = check_ring(device)
@@ -3294,7 +3971,9 @@ def main() -> int:
         paths["serve_extras"] = serve_extras(device, mods, r1)
         deep_cache_exact(device, mods, r1[0])
         paths["eval_pages"] = eval_pages(device, mods)
-        paths["serve_agent"] = serve_agent(device, mods, ids)
+        paths["serve_agent"], llm = serve_agent(device, mods, ids)
+        paths["model_axis"] = model_axis(device, llm)
+        del llm
         paths["agent_weights"] = agent_weights(device, weights_root)
         paths["serve_cp"] = serve_cp(device, mods, ids, weights_root)
         del mods
@@ -3316,6 +3995,12 @@ def main() -> int:
         shutil.rmtree(weights_root, ignore_errors=True)
     paths["train_lora"] = train_lora(device)
     paths["train_mllm"] = train_mllm(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the two gloo runs on the card at once: both time host round trips
+    paths["serve_agent_tp"], paths["train_mllm_tp"] = serve_agent_tp(device, train_mllm_tp)
+    paths["train_mllm_fsdp"] = train_mllm_fsdp(device)
+    paths["qwen_visual"] = check_qwen_visual(device)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -3342,7 +4027,10 @@ def main() -> int:
              source="diffsensei_tpu_torch/csrc/int4_matmul.cu",
              replaces="diffsensei_tpu/ops/int4_matmul.py:125",
              design="one launch: cluster split-K, TMA ring, mma.sync, fp32 x",
-             **on_paths("int4"), **int4),
+             **on_paths("int4"), **int4,
+             tp_shapes=[{k: r[k] for k in ("tp", "shape", "calls_per_token", "ms", "plain_ms",
+                                           "library_ms", "bound_ms", "max_abs_err")}
+                        for r in int4_tp]),
         dict(name="flash_attention_dq", route="cuda",
              source="diffsensei_tpu_torch/csrc/flash_attention.cu",
              replaces="diffsensei_tpu/ops/flash_attention.py:196",
@@ -3363,6 +4051,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["train-rank"]:
-        sys.exit(train_rank(sys.argv[2:]))
+    RANK_MODES = {"train-rank": train_rank, "agent-tp-rank": agent_tp_rank,
+                  "train-tp-rank": train_tp_rank}
+    if sys.argv[1:2] and sys.argv[1] in RANK_MODES:
+        sys.exit(RANK_MODES[sys.argv[1]](sys.argv[2:]))
     sys.exit(main())

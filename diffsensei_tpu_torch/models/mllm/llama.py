@@ -23,6 +23,15 @@ the embeddings, ``lm_head``, the norms) may sit in a bf16 model, because the
 dense layers cast their weights to the activations' dtype at use and the
 forward computes in ``compute_dtype`` when it is set. As in the JAX package,
 the training forward masks causally and not over the padding.
+
+Tensor parallelism (``tp_group``, the mesh's model axis; the JAX package's
+``llm_param_sharding_rules`` with the KV cache's ``kv_sharding``): each rank
+builds only its shards, ``num_heads / tp`` query and ``num_kv_heads / tp``
+KV heads a layer, column-parallel q/k/v and gate/up, row-parallel o and
+down, the vocabulary split over the embedding and ``lm_head``; the
+collectives and the layout are ``parallel/tensor.py``'s, the shards
+``shard_llama_state``'s. A ``ScheduleRank`` in place of the process group
+builds a rank's shard set for ``model_axis_schedule``.
 """
 
 from __future__ import annotations
@@ -40,6 +49,9 @@ from diffsensei_tpu_torch.models import remat
 from diffsensei_tpu_torch.models.layers import Linear
 from diffsensei_tpu_torch.ops import int4_matmul as i4
 from diffsensei_tpu_torch.ops.attention import multi_head_attention
+from diffsensei_tpu_torch.parallel.tensor import (
+    ModelAxis, check_model_axis, copy_to_model, gather_vocab, model_axis, reduce_from_model,
+    vocab_range)
 
 NEG_INF = -1e30
 Cache = Tuple[torch.Tensor, torch.Tensor]
@@ -104,12 +116,16 @@ class LoRADense(nn.Module):
     """A projection: a base (dense ``Linear`` without bias, ``Int8Dense``
     or ``Int4Dense`` by ``quantized``: False, True/"int8", "int4") plus an
     optional low-rank adapter, ``y = base(x) + (alpha/r) (x A) B``; the dense
-    weights are cast to x's dtype at use."""
+    weights are cast to x's dtype at use. Under tensor parallelism
+    (``parallel``: "column" or "row" on ``axis``) the sizes are the rank's
+    and the collectives ``parallel/tensor.py``'s."""
 
     def __init__(self, in_features: int, features: int, lora_rank: int = 0,
                  lora_alpha: float = 16.0, quantized=False, dtype=torch.float32,
-                 device=None):
+                 device=None, parallel: Optional[str] = None,
+                 axis: Optional[ModelAxis] = None):
         super().__init__()
+        self.parallel, self.axis = (parallel, axis) if axis is not None else (None, None)
         kw = dict(dtype=dtype, device=device)
         if str(quantized) == "int4":
             self.base = Int4Dense(in_features, features, **kw)
@@ -123,9 +139,24 @@ class LoRADense(nn.Module):
             self.lora_B = Linear(lora_rank, features, bias=False, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale = self.lora_alpha / max(self.lora_rank, 1)
+        if self.parallel == "column":
+            # A reads x before the copy, so x's gradient through it is summed once
+            y = self.base(copy_to_model(x, self.axis))
+            if self.lora_rank > 0:
+                y = y + scale * self.lora_B(copy_to_model(self.lora_A(x), self.axis))
+            return y
+        if self.parallel == "row":
+            y = self.base(x)
+            if self.lora_rank > 0:
+                h = self.lora_A(x)
+                # B is whole on every rank and its gradient a partial sum: summed backward
+                b = copy_to_model(self.lora_B.weight, self.axis)
+                y = y + scale * F.linear(h, b.to(h.dtype))
+            return reduce_from_model(y, self.axis)
         y = self.base(x)
         if self.lora_rank > 0:
-            y = y + (self.lora_alpha / self.lora_rank) * self.lora_B(self.lora_A(x))
+            y = y + scale * self.lora_B(self.lora_A(x))
         return y
 
 
@@ -170,18 +201,25 @@ def decode_bias(positions: torch.Tensor, klen: int) -> torch.Tensor:
     return torch.where(kpos <= qpos, zero, torch.full_like(zero, NEG_INF))
 
 
+def _tp(axis: Optional[ModelAxis]) -> int:
+    return 1 if axis is None else axis.size
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, lora_rank: int = 0, quantized=False,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, axis: Optional[ModelAxis] = None):
         super().__init__()
         self.config = config
-        hd, h, kvh = config.head_dim, config.num_heads, config.num_kv_heads
-        kw = dict(lora_rank=lora_rank, quantized=quantized, dtype=dtype, device=device)
+        hd, tp = config.head_dim, _tp(axis)
+        self.num_heads, self.num_kv_heads = config.num_heads // tp, config.num_kv_heads // tp
+        h, kvh = self.num_heads, self.num_kv_heads
+        kw = dict(lora_rank=lora_rank, quantized=quantized, dtype=dtype, device=device,
+                  axis=axis)
         d = config.hidden_size
-        self.q_proj = LoRADense(d, h * hd, **kw)
-        self.k_proj = LoRADense(d, kvh * hd, **kw)
-        self.v_proj = LoRADense(d, kvh * hd, **kw)
-        self.o_proj = LoRADense(h * hd, d, **kw)
+        self.q_proj = LoRADense(d, h * hd, parallel="column", **kw)
+        self.k_proj = LoRADense(d, kvh * hd, parallel="column", **kw)
+        self.v_proj = LoRADense(d, kvh * hd, parallel="column", **kw)
+        self.o_proj = LoRADense(h * hd, d, parallel="row", **kw)
 
     def forward(self, x, cos, sin, positions, cache: Optional[Cache] = None,
                 cache_index: Optional[int] = None, bias: Optional[torch.Tensor] = None):
@@ -193,9 +231,9 @@ class LlamaAttention(nn.Module):
         def heads(t, n):
             return t.reshape(b, s, n, hd).transpose(1, 2)
 
-        q = apply_rotary(heads(self.q_proj(x), cfg.num_heads), cos, sin, positions)
-        k = apply_rotary(heads(self.k_proj(x), cfg.num_kv_heads), cos, sin, positions)
-        v = heads(self.v_proj(x), cfg.num_kv_heads)
+        q = apply_rotary(heads(self.q_proj(x), self.num_heads), cos, sin, positions)
+        k = apply_rotary(heads(self.k_proj(x), self.num_kv_heads), cos, sin, positions)
+        v = heads(self.v_proj(x), self.num_kv_heads)
 
         new_cache = None
         if cache is not None:
@@ -205,8 +243,8 @@ class LlamaAttention(nn.Module):
             k, v = ck, cv
             new_cache = (ck, cv)
 
-        if cfg.num_kv_heads != cfg.num_heads:
-            rep = cfg.num_heads // cfg.num_kv_heads
+        if self.num_kv_heads != self.num_heads:
+            rep = self.num_heads // self.num_kv_heads
             k = k.repeat_interleave(rep, dim=1)
             v = v.repeat_interleave(rep, dim=1)
 
@@ -216,19 +254,20 @@ class LlamaAttention(nn.Module):
             if bias is None:
                 bias = decode_bias(positions, k.shape[2])
             o = multi_head_attention(q, k, v, bias=bias)
-        o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * hd)
+        o = o.transpose(1, 2).reshape(b, s, self.num_heads * hd)
         return self.o_proj(o), new_cache
 
 
 class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, lora_rank: int = 0, quantized=False,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, axis: Optional[ModelAxis] = None):
         super().__init__()
-        kw = dict(lora_rank=lora_rank, quantized=quantized, dtype=dtype, device=device)
-        d, f = config.hidden_size, config.intermediate_size
-        self.gate_proj = LoRADense(d, f, **kw)
-        self.up_proj = LoRADense(d, f, **kw)
-        self.down_proj = LoRADense(f, d, **kw)
+        kw = dict(lora_rank=lora_rank, quantized=quantized, dtype=dtype, device=device,
+                  axis=axis)
+        d, f = config.hidden_size, config.intermediate_size // _tp(axis)
+        self.gate_proj = LoRADense(d, f, parallel="column", **kw)
+        self.up_proj = LoRADense(d, f, parallel="column", **kw)
+        self.down_proj = LoRADense(f, d, parallel="row", **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -236,10 +275,10 @@ class LlamaMLP(nn.Module):
 
 class LlamaLayer(nn.Module):
     def __init__(self, config: LlamaConfig, lora_rank: int = 0, quantized=False,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, axis: Optional[ModelAxis] = None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
-        qkw = dict(lora_rank=lora_rank, quantized=quantized, **kw)
+        qkw = dict(lora_rank=lora_rank, quantized=quantized, axis=axis, **kw)
         self.input_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
         self.attn = LlamaAttention(config, **qkw)
         self.post_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
@@ -259,25 +298,37 @@ class LlamaForCausalLM(nn.Module):
     ``inputs_embeds`` is first-class (the agent scatters image embeddings into
     token slots first); ``caches`` is a list of per-layer ``(k, v)`` buffers
     (``init_caches``) with ``cache_index`` the write offset, or None for a
-    full causal forward. ``quantized``: False, True/"int8" or "int4"."""
+    full causal forward. ``quantized``: False, True/"int8" or "int4".
+
+    ``tp_group``: the model axis's process group (or ``ScheduleRank``); the
+    module then holds this rank's shards (``parallel/tensor.py``) and every rank returns the whole
+    logits. A layout that does not split over the group raises
+    ``ValueError`` here (``check_model_axis``)."""
 
     def __init__(self, config: LlamaConfig, lora_rank: int = 0, quantized=False,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, tp_group=None):
         super().__init__()
         self.config, self.lora_rank, self.quantized = config, lora_rank, quantized
         self._dtype = dtype
+        self.axis = model_axis(tp_group)
+        if self.axis is not None:
+            check_model_axis(config, self.axis.size, quantized)
+            self.vocab_rows = vocab_range(config.vocab_size, self.axis.rank, self.axis.size)
+        else:
+            self.vocab_rows = (0, config.vocab_size)
+        rows = self.vocab_rows[1] - self.vocab_rows[0]
         kw = dict(dtype=dtype, device=device)
-        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size, **kw)
+        self.embed_tokens = nn.Embedding(rows, config.hidden_size, **kw)
         self.layers = nn.ModuleList(
-            LlamaLayer(config, lora_rank, quantized=quantized, **kw)
+            LlamaLayer(config, lora_rank, quantized=quantized, axis=self.axis, **kw)
             for _ in range(config.num_layers))
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
         if str(quantized) == "int4":
-            self.lm_head = Int4Dense(config.hidden_size, config.vocab_size, **kw)
+            self.lm_head = Int4Dense(config.hidden_size, rows, **kw)
         elif quantized:
-            self.lm_head = Int8Dense(config.hidden_size, config.vocab_size, **kw)
+            self.lm_head = Int8Dense(config.hidden_size, rows, **kw)
         else:
-            self.lm_head = Linear(config.hidden_size, config.vocab_size, bias=False, **kw)
+            self.lm_head = Linear(config.hidden_size, rows, bias=False, **kw)
         self.compute_dtype: Optional[torch.dtype] = None
         self.remat = False
         self.remat_policy: Optional[str] = None
@@ -287,6 +338,11 @@ class LlamaForCausalLM(nn.Module):
     def dtype(self) -> torch.dtype:
         """The compute dtype: ``compute_dtype`` when set, else the build's."""
         return self.compute_dtype or self._dtype
+
+    @property
+    def tp_size(self) -> int:
+        """Ranks on the model axis (1 without tensor parallelism)."""
+        return _tp(self.axis)
 
     def enable_remat(self, policy: Optional[str] = None) -> None:
         """Recompute each layer in the backward: in full (None), or keeping
@@ -312,13 +368,29 @@ class LlamaForCausalLM(nn.Module):
         return self._rope[key]
 
     def embed_tokens_only(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """Token embedding lookup (the agent needs it before scattering)."""
-        return self.embed_tokens(input_ids)
+        """Token embedding lookup (the agent needs it before scattering);
+        under tensor parallelism each rank looks up its rows, zero for the
+        others', and the ranks' lookups are summed."""
+        if self.axis is None:
+            return self.embed_tokens(input_ids)
+        start, stop = self.vocab_rows
+        local = input_ids - start
+        inside = (local >= 0) & (local < stop - start)
+        emb = self.embed_tokens(torch.where(inside, local, 0)).masked_fill(~inside[..., None], 0)
+        return reduce_from_model(emb, self.axis)
+
+    def lm_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """``lm_head`` over the final hidden state; under tensor parallelism
+        the ranks' vocabulary slices gathered whole."""
+        if self.axis is None:
+            return self.lm_head(x)
+        return gather_vocab(self.lm_head(copy_to_model(x, self.axis)), self.axis,
+                            self.vocab_rows[0], self.config.vocab_size)
 
     def forward(self, input_ids=None, inputs_embeds=None, positions=None,
                 caches: Optional[List[Cache]] = None, cache_index: Optional[int] = None):
         if inputs_embeds is None:
-            inputs_embeds = self.embed_tokens(input_ids)
+            inputs_embeds = self.embed_tokens_only(input_ids)
         x = inputs_embeds.to(self.dtype)
         b, s, _ = x.shape
         if positions is None:
@@ -333,13 +405,15 @@ class LlamaForCausalLM(nn.Module):
                 x, nc = layer(x, cos, sin, positions, caches[idx], cache_index, bias)
             new_caches.append(nc)
         x = self.norm(x)
-        logits = self.lm_head(x)
-        return logits, x, (new_caches if caches is not None else None)
+        return self.lm_logits(x), x, (new_caches if caches is not None else None)
 
 
 def init_caches(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.float32,
-                device=None) -> List[Cache]:
-    shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+                device=None, tp: int = 1) -> List[Cache]:
+    """Per-layer ``(k, v)`` buffers ``[B, H_kv / tp, max_len, D]``: under
+    tensor parallelism a rank's KV heads only (the JAX ``kv_sharding``
+    ``P(None, "model", None, None)``)."""
+    shape = (batch, cfg.num_kv_heads // tp, max_len, cfg.head_dim)
     return [(torch.zeros(shape, dtype=dtype, device=device),
              torch.zeros(shape, dtype=dtype, device=device))
             for _ in range(cfg.num_layers)]

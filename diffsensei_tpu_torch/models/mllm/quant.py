@@ -8,7 +8,8 @@ the port's LLM state dict: LoRA merged into each projection, then every
 projection and ``lm_head`` quantized; embeddings and norms stay as they are.
 ``quantize_agent`` applies it to an agent on its device;
 ``quantize_agent_on_host`` to a checkpoint on the host, for an agent built on
-the meta device, so that only the quantized LLM reaches the card.
+the meta device, so that only the quantized LLM reaches the card (under
+tensor parallelism only this rank's shards of it).
 
 * int8: per output channel, symmetric, ``scale = max|w[:, j]| / 127``.
 * int4: group-wise symmetric (``g = gcd(128, in)``), range +-7, output
@@ -139,11 +140,12 @@ def quantize_llm_state(state: Mapping[str, torch.Tensor],
     return out
 
 
-def _quantized_llm(config, bits: int, dtype):
+def _quantized_llm(config, bits: int, dtype, tp_group=None):
     from diffsensei_tpu_torch.models.mllm.llama import LlamaForCausalLM
 
     with torch.device("meta"):
-        return LlamaForCausalLM(config, quantized="int4" if bits == 4 else "int8", dtype=dtype)
+        return LlamaForCausalLM(config, quantized="int4" if bits == 4 else "int8", dtype=dtype,
+                                tp_group=tp_group)
 
 
 @torch.no_grad()
@@ -163,13 +165,16 @@ def quantize_agent(agent, bits: int = 8):
 
 @torch.no_grad()
 def quantize_agent_on_host(agent, entries: Mapping[str, Mapping[str, torch.Tensor]],
-                           bits: int = 8, device="cuda"):
+                           bits: int = 8, device="cuda", tp_group=None):
     """The serve CLI's ``--quantize-llm`` load: ``agent`` built on the meta
     device and its checkpoint's state dicts (``utils.load.agent_entries``,
     host tensors) -> the agent with the quantized LLM and both resamplers on
     ``device``. The float LLM is cast to the agent's dtype and quantized on
     the host, so it never reaches the card; the bytes are ``quantize_agent``'s
-    for the same weights. A checkpoint without a resampler group raises."""
+    for the same weights. With ``tp_group`` (the model axis) the host cuts
+    this rank's shards (``parallel.tensor.shard_llama_state``) and only they
+    reach the card. A checkpoint without a resampler group raises."""
+    from diffsensei_tpu_torch.parallel.tensor import model_axis, shard_llama_state
     from diffsensei_tpu_torch.utils.load import assign
 
     for name in ("llm", "input_resampler", "output_resampler"):
@@ -177,7 +182,10 @@ def quantize_agent_on_host(agent, entries: Mapping[str, Mapping[str, torch.Tenso
             raise ValueError(f"--quantize-llm: the agent checkpoint is missing the {name} group")
     llm = agent.llm
     state = quantize_llm_state({k: v.to(llm.dtype) for k, v in entries["llm"].items()}, bits)
-    qllm = _quantized_llm(llm.config, bits, llm.dtype)
+    axis = model_axis(tp_group)
+    if axis is not None:
+        state = shard_llama_state(state, llm.config, axis.rank, axis.size)
+    qllm = _quantized_llm(llm.config, bits, llm.dtype, tp_group)
     assign(qllm, state, device, "llm")
     for name in ("input_resampler", "output_resampler"):
         assign(getattr(agent, name), entries[name], device, name)

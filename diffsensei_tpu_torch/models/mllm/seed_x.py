@@ -11,6 +11,11 @@ prompt (port of ``diffsensei_tpu/models/mllm/seed_x.py``, serving half).
   chosen token stays on the device between steps.
 * The agent's output is the ``nq`` hidden states before each ``</img>``,
   resampled by the output resampler into ``img_gen_feat``.
+* Under tensor parallelism (``shard_agent``: the LLM split over the mesh's
+  model axis, ``parallel/tensor.py``) every model rank decodes the same
+  tokens: ``pick`` reads the gathered logits, the KV cache holds the
+  rank's KV heads (the JAX ``kv_sharding``), and the resamplers are whole
+  on each rank, so ``output_ids`` and ``img_gen_feat`` agree on all of them.
 * ``loss`` is the stage-3 training forward: resample the character blocks,
   scatter the comprehension block into the token stream, the LLM's LM loss,
   and the reconstruction loss of the output resampler over the generation
@@ -206,6 +211,17 @@ class ContinuousLVLM:
                 "num_gen_imgs": len(feats)}
 
 
+def shard_agent(agent: ContinuousLVLM, group=None) -> ContinuousLVLM:
+    """The agent with its LLM cut into this rank's shards over the model
+    axis ``group`` (a process group, or a ``ScheduleRank`` for
+    ``model_axis_schedule``), on the agent's device; the resamplers are
+    shared. Build the whole agent first (``build``, a loader or
+    ``quant.quantize_agent``), so that every rank cuts the same weights."""
+    from diffsensei_tpu_torch.parallel.tensor import shard_llm
+
+    return dataclasses.replace(agent, llm=shard_llm(agent.llm, group))
+
+
 def _greedy_decode(llm: LlamaForCausalLM, input_embeds: torch.Tensor,
                    last_prompt_token: torch.Tensor, prompt_len: int, max_len: int,
                    succ: torch.Tensor, spont_mask: torch.Tensor):
@@ -215,7 +231,7 @@ def _greedy_decode(llm: LlamaForCausalLM, input_embeds: torch.Tensor,
     token (the state that predicts token k+1)."""
     b = input_embeds.shape[0]
     dev = input_embeds.device
-    caches = init_caches(llm.config, b, max_len, input_embeds.dtype, dev)
+    caches = init_caches(llm.config, b, max_len, input_embeds.dtype, dev, tp=llm.tp_size)
     positions = torch.arange(prompt_len, device=dev)[None].expand(b, prompt_len)
     logits, _, caches = llm(inputs_embeds=input_embeds, positions=positions,
                             caches=caches, cache_index=0)

@@ -72,6 +72,51 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi], dim=-1)
 
 
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """``pack_int4_host`` on a tensor, on its device: [in, F] nibbles in
+    [-8, 7] -> packed uint8 [in, F//2]."""
+    if q.shape[-1] % 2:
+        raise ValueError(f"pack_int4: an odd feature count {q.shape[-1]}")
+    q = q.to(torch.int32)
+    half = q.shape[-1] // 2
+    return ((q[..., :half] + 8) & 0xF | (q[..., half:] & 0xF) << 4).to(torch.uint8)
+
+
+def shard_int4_columns(packed: torch.Tensor, scale: torch.Tensor, start: int, stop: int,
+                       group: int = 128) -> tuple:
+    """Output columns ``[start, stop)`` of a packed layer as a layer of
+    their own: ``(packed [in, F_s'/2], scale [in/g, F_s'])`` with ``F_s' =
+    padded_features(stop - start, in, group)``, on the tensors' device.
+
+    In the split-half layout byte column ``j`` holds outputs ``j`` and
+    ``F'/2 + j``, so a run of outputs is not a run of bytes: the cut
+    unpacks, slices, pads (nibbles 0, scales 1, as ``quantize_kernel_int4``
+    pads) and repacks. The result is the bytes of quantizing those columns
+    of the float weight alone."""
+    in_f = packed.shape[0]
+    width = stop - start
+    padded = padded_features(width, in_f, group)
+    q = unpack_int4(packed)[:, start:stop]
+    s = scale[:, start:stop]
+    if padded != width:
+        q = torch.cat([q, q.new_zeros((in_f, padded - width))], dim=1)
+        s = torch.cat([s, s.new_ones((s.shape[0], padded - width))], dim=1)
+    return pack_int4(q), s.contiguous()
+
+
+def shard_int4_rows(packed: torch.Tensor, scale: torch.Tensor, start: int,
+                    stop: int) -> tuple:
+    """Input rows ``[start, stop)`` of a packed layer: a slice of the packed
+    rows and of the scale's group rows. The cut must fall on a group
+    boundary (a scale covers ``g`` consecutive rows), else ValueError."""
+    in_f = packed.shape[0]
+    g = in_f // scale.shape[0]
+    if start % g or stop % g:
+        raise ValueError(f"rows [{start}, {stop}) of an int4 layer of {in_f} inputs cut a "
+                         f"scale group of {g}")
+    return packed[start:stop].contiguous(), scale[start // g:stop // g].contiguous()
+
+
 def dequantize(packed: torch.Tensor, scale: torch.Tensor,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Full dequant -> [in, F] in ``dtype`` (the prefill path), in fp32 first."""

@@ -1,26 +1,29 @@
-"""Process groups, the ``(data, model)`` device mesh, FSDP sharding specs
-and the per-rank rows of a batch (port of ``diffsensei_tpu/parallel/mesh.py``,
-its data axis).
+"""Process groups, the ``(data, model)`` device mesh, the LLaMA's tensor-
+parallel rules, FSDP sharding specs and the per-rank rows of a batch (port
+of ``diffsensei_tpu/parallel/mesh.py``).
 
 The JAX package lays a ``jax.sharding.Mesh`` over the devices it sees and
 lets XLA insert the collectives. The port runs one process a rank under
 ``python -m torch.distributed.run`` (or alone, as a world of one) and makes
 them itself: DDP's gradient all-reduce, FSDP2's all-gathers and
-reduce-scatters, the ring's sends (``ops/ring_attention.py``) and the
-batch-sharded serving's all-gather (``pipelines/pipeline.py``).
+reduce-scatters, the ring's sends (``ops/ring_attention.py``), the
+batch-sharded serving's all-gather (``pipelines/pipeline.py``) and the
+model axis's all-reduces (``parallel/tensor.py``).
 
 The backend is NCCL where each rank has its own card and gloo on the CPU.
 NCCL refuses two ranks on one card; where the launcher puts more ranks on a
 host than it has cards, the ranks share them over gloo, which takes CUDA
-tensors for broadcast and all-reduce only: enough for DDP, not for FSDP or
-the ring. The model axis (tensor parallelism for the LLaMA agent) is not
-ported: ``MeshSpec(model > 1)`` raises.
+tensors for broadcast and all-reduce only: enough for DDP and the model
+axis, whose collectives are all all-reduces, not for FSDP or the ring. The
+mesh puts ``model`` innermost, as the JAX one does: the ranks
+``d * model + m`` for ``m < model`` share data rank ``d``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import re
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -28,25 +31,20 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-# the ROADMAP item that ports the model axis
-MODEL_AXIS_ITEM = "A13"
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """Ranks along each mesh axis; ``model`` must be 1 (no tensor
-    parallelism yet)."""
+    """Ranks along each mesh axis: ``data`` (batch rows) and ``model``
+    (tensor parallelism for the LLaMA agent, ``parallel/tensor.py``)."""
 
     data: int
     model: int = 1
 
     def __post_init__(self):
-        if self.model != 1:
-            raise NotImplementedError(
-                f"a model axis of {self.model} (tensor parallelism) is not ported yet "
-                f"(ROADMAP {MODEL_AXIS_ITEM})")
-        if self.data < 1:
-            raise ValueError(f"the data axis needs at least one rank, got {self.data}")
+        if self.data < 1 or self.model < 1:
+            raise ValueError(f"each mesh axis needs at least one rank, got data={self.data}, "
+                             f"model={self.model}")
 
     @property
     def num_devices(self) -> int:
@@ -141,8 +139,15 @@ def make_mesh(spec: Optional[MeshSpec] = None, device=None):
 
 
 def data_group(mesh) -> dist.ProcessGroup:
-    """The process group along the mesh's data axis."""
+    """The process group along the mesh's data axis: the ranks that hold
+    the same model shard and different rows."""
     return mesh.get_group(DATA_AXIS)
+
+
+def model_group(mesh) -> dist.ProcessGroup:
+    """The process group along the mesh's model axis: the ranks that hold
+    the same rows and different shards of the LLaMA."""
+    return mesh.get_group(MODEL_AXIS)
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +157,65 @@ def unet_param_sharding_rules() -> Sequence[Tuple[str, Optional[int]]]:
     """The diffusion stack replicates every parameter (DDP); the batch
     carries the data axis. ``(pattern, dim)`` with ``dim`` None: replicated."""
     return ((".*", None),)
+
+
+_COLUMN = r"(q_proj|k_proj|v_proj|gate_proj|up_proj)"
+_ROW = r"(o_proj|down_proj)"
+
+
+def llm_param_sharding_rules() -> Sequence[Tuple[str, Optional[int]]]:
+    """Megatron tensor parallelism of the LLaMA over the model axis, as
+    ``(pattern, dim)`` over the port's state-dict names (first match wins;
+    ``dim`` None: replicated).
+
+    Column-parallel q/k/v and gate/up shard their output features,
+    row-parallel o and down their input features; the embeddings and
+    ``lm_head`` shard the vocabulary. A dense ``weight`` is torch's
+    ``[out, in]`` (column: dim 0, row: dim 1); int8's ``kernel_q`` keeps
+    JAX's ``[in, out]``, int4's packed ``[in, F'/2]`` (its column cut is a
+    repack, ``ops/int4_matmul.py::shard_int4_columns``). A scale shards on
+    its feature axis (-1) in a column layer and on the rows of int4's
+    ``[in/g, F']`` (-2) in a row layer; int8's 1-D per-channel scale has no
+    dim -2, so a row layer replicates it. LoRA follows its base: A
+    replicated and B on the output in a column layer, A on the input and B
+    replicated in a row layer.
+
+    The JAX rules (``diffsensei_tpu/parallel/mesh.py:76``) intend the same
+    but match only the int8 kernels: their ``(q_proj|...)\\.kernel`` never
+    meets the real ``q_proj.base.kernel``, so they replicate every bf16
+    projection and adapter, and their 1-D ``kernel_scale`` rule puts the
+    model axis on int4's group rows. A placement does not change JAX's
+    values; the port computes each rank's part, so its table must be right
+    on its own (``tests/test_torch_port_tensor_parallel.py`` lists the names
+    where the two differ)."""
+    return (
+        (rf".*{_COLUMN}\.base\.weight", 0),
+        (rf".*{_COLUMN}\.base\.kernel_q", 1),
+        (rf".*{_COLUMN}\.base\.kernel_scale", -1),
+        (rf".*{_COLUMN}\.lora_B\.weight", 0),
+        (rf".*{_ROW}\.base\.weight", 1),
+        (rf".*{_ROW}\.base\.kernel_q", 0),
+        (rf".*{_ROW}\.base\.kernel_scale", -2),
+        (rf".*{_ROW}\.lora_A\.weight", 1),
+        (r"embed_tokens\.weight", 0),
+        (r"lm_head\.weight", 0),
+        (r"lm_head\.kernel_q", 1),
+        (r"lm_head\.kernel_scale", -1),
+        (r".*", None),
+    )
+
+
+def sharded_dim(name: str, ndim: int,
+                rules: Sequence[Tuple[str, Optional[int]]]) -> Optional[int]:
+    """The dimension of an ``ndim``-dimensional tensor ``name`` that the
+    first matching rule shards (negative dims counted from the end), or
+    None: replicated, also where the rule's dim does not exist."""
+    for pattern, dim in rules:
+        if re.fullmatch(pattern, name):
+            if dim is None or not -ndim <= dim < ndim:
+                return None
+            return dim % ndim
+    return None
 
 
 # Leaves smaller than this replicate: sharding norm scales and biases buys

@@ -3,9 +3,14 @@
 collectives XLA inserts into its sharded step).
 
 * ``dp``: the trainables sit in ``DistributedDataParallel``
-  (``wrap_ddp``), which averages their gradients over the ranks.
+  (``wrap_ddp``), which averages their gradients over the data axis's
+  ranks (all ranks, or on a ``(data, model)`` mesh the ranks of this
+  rank's model shard, ``mesh.data_group``; the model axis's collectives
+  are the LLaMA's own, ``parallel/tensor.py``).
 * ``fsdp``: FSDP2 ``fully_shard`` over the trainable modules and the frozen
-  stack (``fsdp_train``): each parameter of at least ``fsdp_min_size``
+  stack (``fsdp_train``; for stage 3 the agent's LLaMA and resamplers
+  trained, the UNet and the Resampler with the frozen stack): each
+  parameter of at least ``fsdp_min_size``
   elements sharded on the dimension ``mesh.fsdp_spec`` picks, its gradient
   reduce-scattered and its AdamW moments sharded with it; the smaller ones
   stay whole on every rank, outside the FSDP groups, their gradients
@@ -116,10 +121,12 @@ class _LossModule(nn.Module):
         return self.loss_fn(*args, **kwargs)
 
 
-def wrap_ddp(step: Callable, modules: Dict[str, nn.Module], env: Distributed) -> nn.Module:
+def wrap_ddp(step: Callable, modules: Dict[str, nn.Module], env: Distributed,
+             group: Optional[dist.ProcessGroup] = None) -> nn.Module:
     """Run ``step``'s forward through DDP over the parameters of
-    ``modules`` that require a gradient; frozen parameters and buffers are
-    left out of its broadcasts and buckets. Unused trainables (stage 1's IP
+    ``modules`` that require a gradient, averaged over ``group`` (the data
+    axis; all ranks by default); frozen parameters and buffers are left out
+    of its broadcasts and buckets. Unused trainables (stage 1's IP
     projections) are allowed."""
     from torch.nn.parallel import DistributedDataParallel as DDP
 
@@ -128,7 +135,8 @@ def wrap_ddp(step: Callable, modules: Dict[str, nn.Module], env: Distributed) ->
     ignored += [n for n, _ in holder.named_buffers()]
     DDP._set_params_and_buffers_to_ignore_for_model(holder, ignored)
     ddp = DDP(holder, device_ids=[env.device.index] if env.device.type == "cuda" else None,
-              process_group=env.group, find_unused_parameters=True)
+              process_group=env.group if group is None else group,
+              find_unused_parameters=True)
     step.forward = ddp
     return ddp
 
@@ -142,14 +150,17 @@ FROZEN_STACK = ("vae", "text_encoder", "text_encoder_2", "image_encoder", "magi_
 
 def fsdp_train(step: Callable, trained: Dict[str, nn.Module], frozen,
                params: Dict[str, nn.Parameter], env: Distributed,
-               min_size: int = FSDP_MIN_SIZE) -> Dict[str, nn.Parameter]:
+               min_size: int = FSDP_MIN_SIZE,
+               frozen_modules: Optional[Dict[str, nn.Module]] = None) -> Dict[str, nn.Parameter]:
     """Shard a step's modules with FSDP2 over the data axis, as the JAX CLI
     shards its trainables and frozen stack (``cli.py:313-334``): each
     parameter on the dimension ``fsdp_spec`` picks; those it replicates are
-    left out of FSDP, whole on every rank. Every resnet block and
-    transformer stack of a trainable module (the UNet) is a unit; each
-    trainable module and each module of the frozen stack a root, the frozen
-    ones resharded after their forward (no backward comes to free them).
+    left out of FSDP, whole on every rank. Every resnet block, transformer
+    stack and LLaMA layer is a unit; each trainable module, each module of
+    the frozen stack and each of ``frozen_modules`` (stage 3's UNet and
+    Resampler, which its backward runs through) a root, the frozen stack's
+    resharded after their forward (no backward comes to free them). The
+    LLaMA's ``embed_tokens_only`` is a forward method of its root.
     Returns the trainables ``params`` (named ``"<module>.<name>"``) as the
     sharded parameters now are, and sets ``step.sync_grads`` to average the
     gradients of those kept whole."""
@@ -157,14 +168,16 @@ def fsdp_train(step: Callable, trained: Dict[str, nn.Module], frozen,
     from torch.distributed.tensor import Shard
 
     from diffsensei_tpu_torch.models.layers import ResnetBlock2D
+    from diffsensei_tpu_torch.models.mllm.llama import LlamaForCausalLM, LlamaLayer
     from diffsensei_tpu_torch.models.unet import Transformer2D
     from diffsensei_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh(device=env.device)["data"]
     placement = lambda p: Shard(fsdp_spec(tuple(p.shape), env.world, min_size))
     stack = {n: getattr(frozen, n) for n in FROZEN_STACK if getattr(frozen, n) is not None}
+    units = {**trained, **(frozen_modules or {})}
     whole: Set[nn.Parameter] = set()
-    for name, root in {**trained, **stack}.items():
+    for name, root in {**units, **stack}.items():
         # FSDP takes contiguous parameters only (the sdxl preset lays its conv
         # weights out channels-last); its unsharded copies are contiguous anyway
         for p in root.parameters():
@@ -173,13 +186,15 @@ def fsdp_train(step: Callable, trained: Dict[str, nn.Module], frozen,
         kept = {p for p in root.parameters()
                 if fsdp_spec(tuple(p.shape), env.world, min_size) is None}
         whole |= kept
-        if name in trained:
+        if name in units:
             for unit in root.modules():
-                if isinstance(unit, (ResnetBlock2D, Transformer2D)):
+                if isinstance(unit, (ResnetBlock2D, Transformer2D, LlamaLayer)):
                     fully_shard(unit, mesh=mesh, shard_placement_fn=placement,
                                 ignored_params={p for p in unit.parameters() if p in kept})
         fully_shard(root, mesh=mesh, shard_placement_fn=placement, ignored_params=kept,
                     reshard_after_forward=True if name in stack else None)
+        if isinstance(root, LlamaForCausalLM):
+            register_fsdp_forward_method(root, "embed_tokens_only")
     register_fsdp_forward_method(stack["vae"], "encode")
     live = {f"{prefix}.{n}": p for prefix, mod in trained.items()
             for n, p in mod.named_parameters()}

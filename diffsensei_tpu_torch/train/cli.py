@@ -30,9 +30,13 @@ is the per-rank size times the world and each rank loads its rows
 (``data_parallel``, ``host_id``, ``num_hosts`` of the bucket dataset).
 ``trainer.parallel: dp`` (the default) puts the trainables in DDP;
 ``fsdp`` shards them, their optimizer state and the frozen stack with FSDP2
-(``trainer.fsdp_min_size``; stages 1 and 2: stage 3's sharding goes with
-the model axis, ROADMAP A13); another value raises ``ValueError``. Rank 0
-alone writes ``metrics.jsonl`` and the checkpoints, whose tensors are whole.
+(``trainer.fsdp_min_size``; for stage 3 the agent's LLaMA and resamplers,
+the frozen stack, UNet and Resampler); another value raises
+``ValueError``. Both spread the batch over the ranks; the model axis
+(tensor parallelism of the agent's LLaMA) has no flag here, as in the JAX
+CLI: it is reached through ``parallel.tensor`` and ``models.mllm.seed_x.
+shard_agent``. Rank 0 alone writes ``metrics.jsonl`` and the checkpoints,
+whose tensors are whole.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from diffsensei_tpu_torch.data.mllm_dataset import MangaTrainMLLMDataset, MLLMTo
 from diffsensei_tpu_torch.models.lora import ensure_lora_init
 from diffsensei_tpu_torch.models.mllm.seed_x import ContinuousLVLM
 from diffsensei_tpu_torch.models.schedulers import DDPMSchedule
-from diffsensei_tpu_torch.parallel.mesh import FSDP_MIN_SIZE, MODEL_AXIS_ITEM, init_distributed
+from diffsensei_tpu_torch.parallel.mesh import FSDP_MIN_SIZE, init_distributed
 from diffsensei_tpu_torch.parallel.train import PARALLEL_MODES, fsdp_train, wrap_ddp
 from diffsensei_tpu_torch.pipelines.pipeline import PipelineModules
 from diffsensei_tpu_torch.train.diffusion import (
@@ -188,9 +192,6 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> Tr
     parallel = trainer.get("parallel", "dp")
     if parallel not in PARALLEL_MODES:
         raise ValueError(f"unknown trainer.parallel: {parallel!r} (expected 'dp' or 'fsdp')")
-    if parallel == "fsdp" and stage == "mllm":
-        raise NotImplementedError("trainer.parallel: fsdp for stage mllm is not ported yet "
-                                  f"(ROADMAP {MODEL_AXIS_ITEM})")
     if args.max_train_steps is not None:
         trainer["max_train_steps"] = args.max_train_steps
     if args.log_dir is not None:
@@ -265,7 +266,9 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> Tr
         params = agent_trainables(agent)
         trained = {"llm": agent.llm, "input_resampler": agent.input_resampler,
                    "output_resampler": agent.output_resampler}
+        frozen_modules = {"unet": modules.unet, "resampler": modules.resampler}
     else:
+        frozen_modules = None
         if stage == "t2i":
             step_fn = make_stage1_step(modules.unet, schedule, env.group)
             mode = mcfg.get("unet_trained_parameters", "full")
@@ -291,7 +294,7 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None) -> Tr
         wrap_ddp(step_fn, trained, env)
     else:
         params = fsdp_train(step_fn, trained, frozen, params, env,
-                            int(trainer.get("fsdp_min_size", FSDP_MIN_SIZE)))
+                            int(trainer.get("fsdp_min_size", FSDP_MIN_SIZE)), frozen_modules)
 
     opt_cfg = dict(cfg.get("optimizer", {}))
     lr_cfg = dict(cfg.get("lr_scheduler", {}))

@@ -14,7 +14,11 @@
   schedule per update, with ``optax.MultiSteps`` gradient accumulation. Under
   FSDP the parameters, gradients and moments are shards (DTensors): the
   global norm sums the shards' squares over the ranks, and AdamW steps each
-  tensor alone (its fused loops do not mix shards and whole tensors).
+  tensor alone (its fused loops do not mix shards and whole tensors). Under
+  tensor parallelism a LLaMA parameter cut over the model axis is a plain
+  tensor marked with it (``model_axis``, set by ``parallel.tensor.shard_llm``):
+  the global norm sums its squares over the model ranks and counts the
+  replicated ones once, so every model rank clips by the same factor.
 """
 
 from __future__ import annotations
@@ -175,26 +179,36 @@ class Optimizer:
                                        foreach=False if sharded else None)
 
     @staticmethod
-    def _global_norm(grads) -> torch.Tensor:
-        """optax's ``global_norm``; a sharded gradient's squares are summed
-        over the ranks that hold its shards."""
-        shards = [g for g in grads if is_sharded(g)]
-        if not shards:
-            return torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(g.float()) for g in grads]))
-        sq = torch.stack([torch.linalg.vector_norm(local_part(g).float())
-                          for g in shards]).square().sum()
-        dist.all_reduce(sq, group=shards[0].device_mesh.get_group())
-        whole = [g for g in grads if not is_sharded(g)]
+    def _global_norm(grads, params) -> torch.Tensor:
+        """optax's ``global_norm``: the squares of a gradient sharded under
+        FSDP (a DTensor) are summed over the ranks that hold its shards,
+        those of one cut over the model axis (its parameter's
+        ``model_axis``) over the model ranks; whole gradients count once."""
+        sums, whole = {}, []
+        for g, p in zip(grads, params):
+            axis = getattr(p, "model_axis", None)
+            if is_sharded(g):
+                sums.setdefault(g.device_mesh.get_group(), []).append(local_part(g))
+            elif axis is not None:
+                sums.setdefault(axis.group, []).append(g)
+            else:
+                whole.append(g)
+        norm = lambda ts: torch.stack([torch.linalg.vector_norm(t.float()) for t in ts])
+        if not sums:
+            return torch.linalg.vector_norm(norm(whole))
+        total = None
+        for group, shards in sums.items():
+            sq = norm(shards).square().sum()
+            dist.all_reduce(sq, group=group)
+            total = sq if total is None else total + sq.to(total.device)
         if whole:
-            sq = sq + torch.stack([torch.linalg.vector_norm(g.float().to(sq.device))
-                                   for g in whole]).square().sum()
-        return sq.sqrt()
+            total = total + norm([g.to(total.device) for g in whole]).square().sum()
+        return total.sqrt()
 
     def _clip(self, grads) -> None:
         if self.max_grad_norm is None:
             return
-        norm = self._global_norm(grads)
+        norm = self._global_norm(grads, self.params)
         # optax.clip_by_global_norm: scale by max / norm where norm >= max
         factor = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
                              self.max_grad_norm / norm)

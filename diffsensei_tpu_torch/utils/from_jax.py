@@ -317,6 +317,19 @@ def llama(params: Dict) -> StateDict:
     return sd
 
 
+def llama_shard(params: Dict, config, rank: int, size: int) -> StateDict:
+    """A JAX ``LlamaForCausalLM`` tree (any layout ``llama`` takes) -> rank
+    ``rank``'s shards over ``size`` model ranks under the port's names
+    (``llama``, then ``parallel.tensor.shard_llama_state``), for the
+    ``LlamaForCausalLM(..., tp_group=g)`` of that rank."""
+    import torch
+
+    from diffsensei_tpu_torch.parallel.tensor import shard_llama_state
+
+    whole = {k: torch.from_numpy(np.array(v, order="C")) for k, v in llama(params).items()}
+    return {k: v.numpy() for k, v in shard_llama_state(whole, config, rank, size).items()}
+
+
 def qwen_resampler(params: Dict) -> StateDict:
     """``QwenResampler`` tree -> the reference ``QwenResampler`` names (the
     ``nn.MultiheadAttention`` in-projection packed as ``[3E, E]``)."""
@@ -330,6 +343,39 @@ def qwen_resampler(params: Dict) -> StateDict:
     sd["attn.in_proj_weight"] = np.concatenate([_a(p[n]["kernel"]).T for n in names])
     sd["attn.in_proj_bias"] = np.concatenate([_a(p[n]["bias"]) for n in names])
     _lin(sd, "attn.out_proj", p["out_proj"])
+    return sd
+
+
+def qwen_visual(params: Dict, num_heads: int) -> StateDict:
+    """``QwenVisionTransformer`` / ``VisionTransformerWithAttnPool`` tree ->
+    the reference Qwen-VL names (the inverse of the JAX
+    ``port_qwen_visual``): q/k/v packed into ``attn.in_proj`` with the rows
+    interleaved by head, ``proj`` kept ``[in, out]``."""
+    p = params["params"]
+    sd: StateDict = {"conv1.weight": _a(p["patch_embedding"]["kernel"]).transpose(3, 2, 0, 1),
+                     "positional_embedding": _a(p["position_embedding"])}
+    _norm(sd, "ln_pre", p["ln_pre"])
+    i = 0
+    while f"layers_{i}" in p:
+        lp, base = p[f"layers_{i}"], f"transformer.resblocks.{i}."
+        qkv = [lp[n] for n in ("q_proj", "k_proj", "v_proj")]
+        e = _a(qkv[0]["kernel"]).shape[0]
+        hn = e // num_heads
+        sd[base + "attn.in_proj.weight"] = np.stack(
+            [_a(n["kernel"]).T.reshape(num_heads, hn, e) for n in qkv], axis=1).reshape(3 * e, e)
+        sd[base + "attn.in_proj.bias"] = np.stack(
+            [_a(n["bias"]).reshape(num_heads, hn) for n in qkv], axis=1).reshape(3 * e)
+        _lin(sd, base + "attn.out_proj", lp["out_proj"])
+        _norm(sd, base + "ln_1", lp["layer_norm1"])
+        _norm(sd, base + "ln_2", lp["layer_norm2"])
+        _lin(sd, base + "mlp.c_fc", lp["fc1"])
+        _lin(sd, base + "mlp.c_proj", lp["fc2"])
+        i += 1
+    if "attn_pool" in p:
+        sd.update({f"attn_pool.{k}": v
+                   for k, v in qwen_resampler({"params": p["attn_pool"]}).items()})
+        _norm(sd, "ln_post", p["ln_post"])
+        sd["proj"] = _a(p["proj"]["kernel"])
     return sd
 
 

@@ -8,14 +8,18 @@
   reference's tqdm postfix (``train.py:333-335,461-462``).
 * ``device_memory_stats`` reads the CUDA caching allocator: in use, peak
   (``torch.cuda.max_memory_allocated``) and the card's total.
+* ``profile_trace(dir)`` is the JAX ``jax.profiler`` trace context as a
+  ``torch.profiler`` trace (host and, with a card, CUDA activity) written
+  to ``dir`` as a Chrome trace JSON.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, Optional
 
 import torch
 
@@ -65,3 +69,23 @@ def device_memory_stats(device: Optional[torch.device] = None) -> Dict[str, floa
     return {"mem/in_use_gib": torch.cuda.memory_allocated(device) / gib,
             "mem/peak_gib": torch.cuda.max_memory_allocated(device) / gib,
             "mem/limit_gib": torch.cuda.get_device_properties(device).total_memory / gib}
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str]) -> Iterator[Optional[Any]]:
+    """``with profile_trace(dir) as prof:`` profiles the block and writes
+    ``dir/trace_<pid>.json`` (``chrome://tracing``, Perfetto) when it ends;
+    ``prof`` is the ``torch.profiler.profile`` (``key_averages()``). With
+    no directory it does nothing and yields None."""
+    if not log_dir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}.json"))

@@ -510,6 +510,29 @@ def test_int4_kernel_matches_plain_on_card(cuda, tokens, in_f, features):
     _int4_agrees(y, x, packed, scale)
 
 
+# the SEED-X LLaMA's per-rank layers under tensor parallelism: column shards
+# (q/k/v/o out 5120/tp, gate/up 13824/tp, lm_head's ceil(32330/tp) rows,
+# each padded on its own) and row shards (o's and down's inputs over tp)
+TP_SHARD_SHAPES = [(5120, 2560), (5120, 6912), (6912, 5120), (2560, 5120), (5120, 16165),
+                   (5120, 1280), (5120, 3456), (3456, 5120), (1280, 5120), (5120, 8083)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("in_f,features", TP_SHARD_SHAPES)
+def test_int4_kernel_at_tensor_parallel_shard_shapes_on_card(cuda, in_f, features):
+    """B6 at T = 1 with fp32 x, as the sharded decode calls it: within 2e-2
+    of the twin, two calls bit-equal, one launch each."""
+    packed, scale, x = _int4_operands(cuda, 1, in_f, features, seed=in_f + features)
+    assert ti4.kernel_eligible(in_f, 128)
+    before = ti4.launches
+    y = ti4.int4_decode_matmul(x, packed, scale)
+    y2 = ti4.int4_decode_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert ti4.launches == before + 2
+    assert torch.equal(y, y2)
+    _int4_agrees(y, x, packed, scale)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("tokens", range(1, 17))
 def test_int4_kernel_every_token_count_on_card(cuda, tokens):

@@ -93,9 +93,13 @@ def test_fsdp_spec_matches_jax(shape, shards, min_size):
 
 
 def test_mesh_spec_refuses_a_model_axis():
+    """A model axis of 2 builds a (data, model) spec; an axis of no rank
+    is refused."""
     assert tmesh.MeshSpec(data=4).num_devices == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        tmesh.MeshSpec(data=2, model=2)
+    assert tmesh.MeshSpec(data=2, model=2).num_devices == 4
+    for data, model in ((2, 0), (0, 2), (1, -1)):
+        with pytest.raises(ValueError, match="at least one rank"):
+            tmesh.MeshSpec(data=data, model=model)
 
 
 def test_rows_of_a_rank():
@@ -351,36 +355,15 @@ def test_stage2_step_under_dp_and_fsdp_matches_jax(tmp_path, stacks):
             assert torch.equal(p, outs[1][mode]["params"][name]), (mode, name)
 
 
-def test_stage3_step_under_dp_matches_jax(tmp_path, stacks):
-    """Two SGD-with-momentum steps of stage 3 (the tiny agent, LoRA rank 4)
-    under DDP on 2 gloo ranks, each with rows ``[rank::2]`` of a batch of 4
-    whose ranks hold different counts of panels, supervised tokens and
-    generation images, against the JAX single-device step on the global
-    batch: the global loss and its parts, the first step's synced
-    gradients, the trainables after the second, 5e-4."""
-    from diffsensei_tpu.core.config import (
-        AgentConfig, LlamaConfig, LoRAConfig, QwenResamplerConfig)
-    from diffsensei_tpu.models.mllm import peft as jpeft
-    from diffsensei_tpu.train import mllm_step as jstep3
+def _stage3_batch_fields(batch, manga, vocab):
+    """``batch`` (4 rows) with stage 3's fields: token streams whose rows
+    ``[0::2]`` and ``[1::2]`` hold different counts of supervised tokens and
+    generation images, and target crops; the image ladder at the top of a
+    vocabulary of ``vocab``."""
     from diffsensei_tpu_torch.data import mllm_dataset as tdata
-    from tests.torch_port_util import agents
 
-    jpipe, tpipe = stacks
-    jm = jpipe.m
-    manga = jm.manga
-    llm = LlamaConfig(vocab_size=96, hidden_size=32, intermediate_size=48, num_layers=2,
-                      num_heads=4, num_kv_heads=2, max_position_embeddings=64)
-    iv, kv = manga.num_ip_tokens, jm.unet.config.cross_attention_dim
-    cfg = AgentConfig(
-        llm=llm, lora=LoRAConfig(rank=4),
-        input_resampler=QwenResamplerConfig(grid_size=2, num_queries_override=iv,
-                                            embed_dim=llm.hidden_size, num_heads=4, kv_dim=kv),
-        output_resampler=QwenResamplerConfig(grid_size=2, num_queries_override=iv,
-                                             embed_dim=kv, num_heads=4, kv_dim=llm.hidden_size))
-    jagent, tagent = agents(cfg, seed=9)
-
-    batch = _global_batch(manga, sources=1)
-    b, ladder = 4, list(range(96 - iv - 2, 96))
+    b, iv = 4, manga.num_ip_tokens
+    ladder = list(range(vocab - iv - 2, vocab))
     spec = tdata.MLLMTokenSpec(bos_id=1, eos_id=2, pad_id=0, boi_id=ladder[0],
                                eoi_id=ladder[-1], img_ids=ladder[1:-1],
                                encode_text=lambda t: [(ord(c) % 40) + 3 for c in t if c != " "])
@@ -399,6 +382,38 @@ def test_stage3_step_under_dp_matches_jax(tmp_path, stacks):
         0, 1, (b, manga.max_num_ips, 224, 224, 3)).astype(np.float32)
     tokens = (streams["mllm_labels"][:, 1:] != -100).sum(axis=1)
     assert tokens[0::2].sum() != tokens[1::2].sum()
+    return batch
+
+
+def test_stage3_step_under_dp_matches_jax(tmp_path, stacks):
+    """Two SGD-with-momentum steps of stage 3 (the tiny agent, LoRA rank 4)
+    under DDP on 2 gloo ranks, each with rows ``[rank::2]`` of a batch of 4
+    whose ranks hold different counts of panels, supervised tokens and
+    generation images, against the JAX single-device step on the global
+    batch: the global loss and its parts, the first step's synced
+    gradients, the trainables after the second, 5e-4."""
+    from diffsensei_tpu.core.config import (
+        AgentConfig, LlamaConfig, LoRAConfig, QwenResamplerConfig)
+    from diffsensei_tpu.models.mllm import peft as jpeft
+    from diffsensei_tpu.train import mllm_step as jstep3
+    from tests.torch_port_util import agents
+
+    jpipe, tpipe = stacks
+    jm = jpipe.m
+    manga = jm.manga
+    llm = LlamaConfig(vocab_size=96, hidden_size=32, intermediate_size=48, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_position_embeddings=64)
+    iv, kv = manga.num_ip_tokens, jm.unet.config.cross_attention_dim
+    cfg = AgentConfig(
+        llm=llm, lora=LoRAConfig(rank=4),
+        input_resampler=QwenResamplerConfig(grid_size=2, num_queries_override=iv,
+                                            embed_dim=llm.hidden_size, num_heads=4, kv_dim=kv),
+        output_resampler=QwenResamplerConfig(grid_size=2, num_queries_override=iv,
+                                             embed_dim=kv, num_heads=4, kv_dim=llm.hidden_size))
+    jagent, tagent = agents(cfg, seed=9)
+
+    b = 4
+    batch = _stage3_batch_fields(_global_batch(manga, sources=1), manga, 96)
 
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     rng = jax.random.key(2)
