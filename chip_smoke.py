@@ -29,10 +29,11 @@ Run from the root of the repository. Phases, one JSON line each:
    the twin and ``torch.matmul`` on the weight dequantized to bf16;
    int4_layout: its registers, spills, clusters, grid, blocks an SM and
    waves; per_token: a decode token's B6 time and bound;
-6. reference: a cut-down SDXL-width UNet (bf16, kernels on), the SDXL VAE
-   decoder (fp32) whole and tiled, and a cut-down SEED-X-width int4 LLaMA
-   (prefill and 8 decode steps) on the card against the same weights on the
-   CPU in fp32;
+6. reference (in the ``references`` process beside the main path, after
+   the lane's waves; its lines carry their own ``process_at_s``): a
+   cut-down SDXL-width UNet (bf16, kernels on), the SDXL VAE decoder (fp32)
+   whole and tiled, and a cut-down SEED-X-width int4 LLaMA (prefill and 8
+   decode steps) on the card against the same weights on the CPU in fp32;
 7. serve: ``DiffSenseiServer.generate`` at full SDXL width with random
    weights: 1024² with 20 Euler steps and CFG, two characters and a dialog
    box; the 768x1344 bucket (its 96x168 latent decoded in two tiles); an
@@ -49,8 +50,10 @@ Run from the root of the repository. Phases, one JSON line each:
    request on the same modules
    through six legs (DDIM 4 steps unconditioned, DPM-Solver++ 12, Euler 20
    with DeepCache N = 2 and N = 3 at split 2, DPM++ 12 with DeepCache N = 2,
-   Euler 20 on the int8 UNet), each leg's launches checked exactly and its
-   latent and image PSNR against R1's exact panel reported;
+   Euler 20 on the int8 UNet, made on the card and held byte for byte to
+   the host numpy quantization at every 40th projection), each leg's
+   launches checked exactly and its latent and image PSNR against R1's
+   exact panel reported;
    deep_cache_exact: a full-width 1024² UNet forward with ``return_deep`` and
    one with its feature bit-equal (splits 2 and 1), and the interval-1 loop
    bit-equal to the uncached loop over 2 steps; eval_pages: two frames of
@@ -58,7 +61,8 @@ Run from the root of the repository. Phases, one JSON line each:
    server at their bucket, 4 Euler steps, exact launches;
 8. serve_agent: the same server with the SEED-X agent (int4 LLaMA-13B at
    full width, random weights) beside the SDXL stack on the one card: the
-   1024² request again, its characters adapted by 500 greedy decode steps;
+   1024² request again (warmed by the 65-token ladder at 2 steps), its
+   characters adapted by 500 greedy decode steps;
    agent_weights: a 2-layer SEED-X-width agent (LoRA r 64) written as a
    ``pytorch_model.bin`` with peft names and ``module.`` prefixes, loaded by
    the serve CLI's ``--quantize-llm --quantize-llm-bits 4`` path (built on
@@ -66,7 +70,14 @@ Run from the root of the repository. Phases, one JSON line each:
    ``quantize_agent`` of the agent in memory, 8 greedy ids equal, B6 15
    launches a token, the load's device peak below the bf16 LLM's bytes;
    eval_mllm_item: one ``MangaEvalMLLMDataset`` item's prompt ids with the
-   agent's token spec.
+   agent's token spec; agent_cli: the serve CLI's agent panel from files
+   (``--weights``, the CLIP vocabulary, ``--agent-weights`` of agent_weights
+   with ``--quantize-llm --quantize-llm-bits 4`` and ``--mllm-tokenizer``
+   of a LLaMA-2-layout tokenizer the smoke writes: 32,000 pieces and
+   SEED-X's 330 added tokens), R4's prompt, characters and boxes at 1024²,
+   4 Euler steps: the prompt ids that reach ``generate`` those of
+   ``build_inference_prompt`` over the tokenizer's ids, exact launches (B6
+   15 a token for 500 tokens), a finite panel.
 9. profile_decode: ``torch.profiler`` over 16 of the agent's decode steps,
    through ``utils.observability.profile_trace`` (the trace file's bytes):
    device time and kernels a token, the device's busy share, the top kernels;
@@ -74,8 +85,9 @@ Run from the root of the repository. Phases, one JSON line each:
    their plain twin at the training shapes and the edge cases, with times
    beside the twin and the backward of ``F.scaled_dot_product_attention``,
    and the pair (B2 then B4) beside that backward and its own bound;
-11. reference_train (after phase 6): one stage-2 loss and backward on a
-   cut-down SDXL-width stack, bf16 on the card against fp32 on the CPU;
+11. reference_train (in the references process, after phase 6): one
+   stage-2 loss and backward on a cut-down SDXL-width stack, bf16 on the
+   card against fp32 on the CPU;
 12. train: 6 stage-2 steps through the port's train CLI on
    ``configs/train/condition.yaml`` at full SDXL width (its ``weights:``
    group pointed at serve_weights' files, ``init: zeros``; synthetic
@@ -96,9 +108,9 @@ Run from the root of the repository. Phases, one JSON line each:
    UNet's cross-attention shapes, with times beside the twin and two
    ``F.scaled_dot_product_attention`` calls, each row's bound and occupancy;
    dual_layout: its registers and spills;
-14. reference_train_mllm (after phase 11): one stage-3 loss and backward on a
-   cut-down stack with a 2-layer SEED-X-width LLaMA, bf16 on the card against
-   fp32 on the CPU;
+14. reference_train_mllm (in the references process, after phase 11): one
+   stage-3 loss and backward on a cut-down stack with a 2-layer
+   SEED-X-width LLaMA, bf16 on the card against fp32 on the CPU;
 15. train_mllm: 4 stage-3 steps through the train CLI on
    ``configs/train/mllm.yaml`` at full SDXL and SEED-X width and depth (the
    13B LLaMA in bf16 with fp32 LoRA, embeddings, norms and resamplers), one
@@ -117,10 +129,10 @@ Run from the root of the repository. Phases, one JSON line each:
    characters and dialog box, through ``DiffSenseiPipeline(...,
    PipelineConfig(context_parallel=True), mesh=make_mesh())`` (its 10
    level-1 self-attentions a forward through the ring) and without the
-   mesh: exact launches, the panels bit-equal; serve_cp_cli: the serve
-   CLI with ``--context-parallel`` under ``torch.distributed.run`` on
-   serve_weights' directory (its bucket snap keeps the ring out of reach);
-18. train_dp (after train_proj): T1's config through the train CLI under
+   mesh: exact launches, the panels bit-equal; serve_cp_cli (in the lane):
+   the serve CLI with ``--context-parallel`` under ``torch.distributed.run``
+   on serve_weights' directory (its bucket snap keeps the ring out of reach);
+18. train_dp (in the lane): T1's config through the train CLI under
    ``torch.distributed.run`` (one NCCL rank; this script's ``train-rank``
    mode wraps ``train.cli.main`` to record each step), 2 steps with
    ``trainer.parallel: dp`` (losses bit-equal to T1's) and 2 with ``fsdp``
@@ -135,21 +147,36 @@ Run from the root of the repository. Phases, one JSON line each:
    ``parallel.tensor.model_axis_schedule`` (83-token prefill, 16 decode
    steps fed the unsharded ids): logits within 2e-2 of the unsharded, B6
    281 x tp a token, each rank's device ms a token beside its bound;
-   serve_agent_tp (after train_mllm): ``generate`` of an 8-layer
+   serve_agent_tp (in the lane): ``generate`` of an 8-layer
    SEED-X-width int4 agent cut over two gloo ranks sharing the card under
    ``torch.distributed.run`` (an 83-token prompt ending with ``<img>``: the
    forced ladder to ``</img>``, then 32 free tokens): ids and
    ``img_gen_feat`` against the unsharded agent on each rank, B6 57 a token,
-   half the KV cache; while it runs, train_mllm_tp: two stage-3 SGD steps
-   on a ``(data=1, model=2)`` mesh of two more gloo ranks (full SDXL, a
-   4-layer SEED-X-width bf16 LLaMA with fp32 LoRA r 64) against the
+   half the KV cache; train_mllm_tp (after the lane's waves): two stage-3
+   SGD steps on a ``(data=1, model=2)`` mesh of two more gloo ranks (full
+   SDXL, a 4-layer SEED-X-width bf16 LLaMA with fp32 LoRA r 64) against the
    one-process step (losses, first gradients, the trainables' move),
    replicated trainables bit-equal across the ranks (the seconds of both
-   are host round trips, contended as the two run at once); train_mllm_fsdp: T3's config with
-   ``trainer.parallel: fsdp`` through the train CLI as one NCCL rank, 2
-   steps at T3's depth against T3's losses, a whole-tensor checkpoint;
+   are host round trips, contended by what runs beside them);
+   train_mllm_fsdp: T3's config with ``trainer.parallel: fsdp`` through the
+   train CLI in this process as one NCCL rank, 2 steps at T3's depth
+   against T3's losses, a whole-tensor checkpoint;
 20. qwen_visual: the Qwen-VL tower with attention pooling at Qwen-VL's
    visual widths, 2 layers, bf16 on the card against fp32 on the CPU.
+
+The kernels' checks (phases 2-5, 10, 13, 16 and int4_matmul_tp) run first,
+alone on the card, and give the kernels' times. From serve_weights on, the
+paths that run as processes of their own (torchrun ranks) run in a lane
+beside the main path (``beside``), in waves that hold 36 GiB of the card
+or less at their peaks while the main path holds 25 or less: train_dp's DP
+and FSDP runs; the FSDP resume with serve_agent_tp; serve_cp_cli;
+train_dp2; each started once the card has its peak and 10 GiB more free
+(phase ``beside``: each wave's wait, its end and the card's least free
+memory while it ran). The main path checks their records after train_lora
+(T1's losses known), then runs train_mllm_tp (46 GiB at its ranks' peaks)
+and T3; the references process runs once the waves are done, beside them.
+The main path's seconds from serve_weights on are therefore shared with
+the lane's (the host's cores and the card).
 
 The kernels' launch counts are set to 0 before each served or trained path
 and checked after it (every kernel, every path), and B3's calls by shape
@@ -159,21 +186,25 @@ kernels line, the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line. Needs one CUDA device; imports nothing of JAX.
 ``python3 chip_smoke.py train-rank OUT ARGS...`` is the rank of a train CLI
-run that train_dp, train_dp2 and train_mllm_fsdp start under
+run that train_dp and train_dp2 start under
 ``torch.distributed.run``; ``agent-tp-rank OUT`` and ``train-tp-rank OUT LR``
-the ranks of serve_agent_tp and train_mllm_tp.
+the ranks of serve_agent_tp and train_mllm_tp; ``references`` phases 6, 11
+and 14.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import pathlib
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -449,22 +480,26 @@ def check_flash(device) -> dict:
                 **{k: main[k] for k in ("bound_ms", "bound_by")})
 
 
-def kernels_per_call(fn) -> int | None:
-    """Device kernels one call of ``fn`` runs, from ``torch.profiler``; None
-    where three profiles see no device activity (one has missed every
-    kernel of a B3 call on the card's machine, a run of the 52 shapes)."""
+def kernels_per_call(fn) -> float | None:
+    """Device kernels a call of ``fn`` runs, from ``torch.profiler`` over 4
+    calls; None where 6 profiles see no device activity (on the card's
+    machine a profile has missed every kernel of a B3 call, and once three
+    in a row)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    calls = 4
+    for attempt in range(6):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         if kernels:
-            return sum(e.count for e in kernels)
+            return sum(e.count for e in kernels) / calls
+        time.sleep(0.5 * (attempt + 1))
     return None
 
 
@@ -1512,10 +1547,16 @@ def serve_extras(device, mods, r1) -> dict:
                 t0 = time.perf_counter()
                 int8_unet = quantize_unet(mods.unet)
                 torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
                 bf16_bytes, int8_bytes = tree_bytes(mods.unet), tree_bytes(int8_unet)
-                emit({"phase": "serve_extras_quantize", "seconds": time.perf_counter() - t0,
+                host_equal = int8_matches_host(mods.unet, int8_unet)
+                emit({"phase": "serve_extras_quantize", "seconds": seconds,
                       "unet_bytes_bf16": bf16_bytes[0], "unet_bytes_int8": int8_bytes[0],
-                      "unet_int8_weight_bytes": int8_bytes[1]})
+                      "unet_int8_weight_bytes": int8_bytes[1],
+                      "bytes_equal_to_host_quantize": host_equal})
+                if not all(host_equal.values()):
+                    raise AssertionError(f"the int8 UNet made on the card differs from the "
+                                         f"host's quantize_kernel: {host_equal}")
                 mods.unet.to("cpu")
                 gc.collect()
                 torch.cuda.empty_cache()
@@ -1558,6 +1599,25 @@ def serve_extras(device, mods, r1) -> dict:
                 raise AssertionError(f"serve_extras {name}: launch counts {got} != {want}")
     del panels
     return {k: v - warmed[k] for k, v in launch_counts().items()}
+
+
+def int8_matches_host(unet, int8_unet, every: int = 40) -> dict:
+    """Whether ``quantize_unet``'s bytes, made on the card, equal the host
+    numpy ``quantize_kernel`` (the JAX arithmetic) of the same weights, for
+    every ``every``-th quantized projection: ``{module: equal}``."""
+    from diffsensei_tpu_torch.models.mllm.quant import quantize_kernel
+
+    weights = dict(unet.named_parameters())
+    quantized = dict(int8_unet.named_parameters())
+    modules = sorted(k[: -len(".kernel_q")] for k in quantized if k.endswith(".kernel_q"))
+    out = {}
+    for module in modules[::every] + modules[-1:]:
+        q, s = quantize_kernel(np.ascontiguousarray(
+            weights[f"{module}.weight"].detach().float().cpu().numpy().T))
+        out[module] = bool(np.array_equal(quantized[f"{module}.kernel_q"].cpu().numpy(), q)
+                           and np.array_equal(quantized[f"{module}.kernel_scale"].cpu().numpy(),
+                                              s))
+    return out
 
 
 def deep_cache_exact(device, mods, r1_req) -> None:
@@ -1685,9 +1745,11 @@ def eval_pages(device, mods) -> dict:
 
 def serve_agent(device, mods, ids, max_new_tokens: int = 500) -> dict:
     """R1 with the SEED-X agent attached: ``ContinuousLVLM`` at ``AgentConfig()``
-    width, int4, random weights from seed 0, beside ``mods`` on the card. One
-    warm request, then one timed with every launch count checked: B6 runs 281
-    times a decode step (40 layers x 7 projections + lm_head), B1 and B3 as R1."""
+    width, int4, random weights from seed 0, beside ``mods`` on the card. A
+    shorter warm request (the 65-token ladder, 2 steps), then R4 timed with
+    every launch count checked: B6 runs 281 times a decode step (40 layers x
+    7 projections + lm_head), B1 and B3 as R1."""
+    import dataclasses
     import torch
     from PIL import Image
     from diffsensei_tpu_torch.core.config import AgentConfig
@@ -1748,7 +1810,11 @@ def serve_agent(device, mods, ids, max_new_tokens: int = 500) -> dict:
         prompt_ids=ids(), character_images=chars,
         ip_bbox=[[0.05, 0.1, 0.5, 0.95], [0.5, 0.2, 0.95, 0.9]],
         dialog_bbox=[[0.1, 0.02, 0.6, 0.2]])
-    server.generate(req)                    # warm: cuDNN plans, the caching allocator
+    # warm (cuDNN plans, the caching allocator) on a shorter request: the ladder
+    # (65 tokens, so that the panel is adapted) and 2 steps
+    warm = DiffSenseiServer(server.pipeline, agent=agent, mllm_spec=spec,
+                            mllm_max_new_tokens=n_img + 1)
+    warm.generate(dataclasses.replace(req, num_inference_steps=2))
     torch.cuda.synchronize()
 
     calls.clear()
@@ -2506,9 +2572,9 @@ def train_lora(device) -> dict:
     with torch.inference_mode():
         adapted = mods.unet(*args, ip_hidden_states=ip).float()
     rel = {}
-    for name, rank0 in (("merged", merge_lora), ("adapters_dropped", drop_lora)):
-        unet = rank0(mods.unet)
-        with torch.inference_mode():
+    for name, model in (("merged", lambda: contextlib.nullcontext(merge_lora(mods.unet))),
+                        ("adapters_dropped", lambda: adapters_dropped(mods.unet))):
+        with model() as unet, torch.inference_mode():
             out = unet(*args, ip_hidden_states=ip).float()
         rel[name] = ((out - adapted).abs().max() / adapted.abs().max()).item()
         del unet, out
@@ -2541,20 +2607,22 @@ def train_lora(device) -> dict:
     return totals
 
 
-def drop_lora(unet):
-    """A rank-0 copy of ``unet`` without its adapters: the merge check's
-    planted fault."""
+@contextlib.contextmanager
+def adapters_dropped(unet):
+    """``unet`` with every adapter's B zeroed while the block runs, so that it
+    computes its base weights alone: the merge check's planted fault (a
+    merge that lost the adapters)."""
     import torch
-    from diffsensei_tpu_torch.models.quant_unet import merge_lora
 
     with torch.no_grad():
         saved = [(m.lora_B.weight, m.lora_B.weight.clone()) for m in unet.modules()
                  if getattr(m, "lora_rank", 0)]
         for w, _ in saved:
             w.zero_()
-        try:
-            return merge_lora(unet)
-        finally:
+    try:
+        yield unet
+    finally:
+        with torch.no_grad():
             for w, b in saved:
                 w.copy_(b)
 
@@ -2990,7 +3058,212 @@ def check_ring(device) -> list:
 CP_SIDE, CP_STEPS = 2048, 4
 
 
-def serve_cp(device, mods, ids, weights_root) -> dict:
+def _pb_varint(value: int) -> bytes:
+    value &= (1 << 64) - 1              # a negative int32 as protobuf writes it
+    out = bytearray()
+    while True:
+        byte, value = value & 0x7F, value >> 7
+        out.append(byte | (0x80 if value else 0))
+        if not value:
+            return bytes(out)
+
+
+def _pb_field(number: int, wire: int, value) -> bytes:
+    """One protobuf field: a varint (wire 0), a float (5) or bytes (2)."""
+    key = _pb_varint(number << 3 | wire)
+    if wire == 0:
+        return key + _pb_varint(int(value))
+    if wire == 5:
+        return key + struct.pack("<f", value)
+    return key + _pb_varint(len(value)) + value
+
+
+# SEED-X's 330 added tokens in their order (ids 32000-32329)
+SEED_X_ADDED = (["<img>", "</img>"] + [f"<img_{k:05d}>" for k in range(100)]
+                + ["<patch>", "</patch>"] + [f"<loc-{k}>" for k in range(224)]
+                + ["<box_start>", "<box_end>"])
+LLAMA_ALPHABET = ("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"
+                  ".,!?'\"-:;()")
+
+
+def llama_pieces(words=PROMPT_WORDS, size: int = 32000, seed: int = 15) -> list:
+    """A LLaMA-2-layout piece list of ``size`` (or of the words' pieces where
+    they are more) from a numpy seed: ``<unk>``,
+    ``<s>``, ``</s>``, the 256 byte pieces, then NORMAL pieces with falling
+    scores: each of ``words`` with a ``▁`` in front and its prefixes (the
+    highest scores, so that BPE joins each word whole), ``▁▁`` and
+    ``▁▁▁▁``, random joins of two pieces without ``▁`` (never across a word),
+    and last the single characters. Returns ``(piece, score, type)``
+    triples."""
+    rng = np.random.default_rng(seed)
+    alphabet = ["▁", *LLAMA_ALPHABET]
+    normal = []
+    for word in words:
+        normal += [p for p in ("▁" + word[:k] for k in range(1, len(word) + 1))
+                   if p not in normal and len(p) > 1]
+    normal += ["▁▁", "▁▁▁▁"]
+    seen, pool = set(normal) | set(alphabet), list(alphabet[1:])
+    while 3 + 256 + len(normal) + len(alphabet) < size:
+        short = [p for p in pool if len(p) <= 4]       # joins of at most 8 characters
+        for i, j in rng.integers(0, len(short), (4096, 2)):
+            piece = short[i] + short[j]
+            if piece not in seen and 3 + 256 + len(normal) + len(alphabet) < size:
+                seen.add(piece)
+                pool.append(piece)
+                normal.append(piece)
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+    pieces += [(f"<0x{b:02X}>", 0.0, 6) for b in range(256)]
+    pieces += [(p, -float(i), 1) for i, p in enumerate(normal + alphabet)]
+    return pieces
+
+
+def write_llama_tokenizer(root, pieces, added=SEED_X_ADDED) -> pathlib.Path:
+    """A LLaMA tokenizer directory as SEED-X's is laid out: ``tokenizer.model``
+    (a sentencepiece BPE ``ModelProto``, protobuf's wire format written by
+    hand: the identity normalizer with the dummy prefix, spaces kept, byte
+    fallback), ``added_tokens.json`` (``added`` from id ``len(pieces)`` on),
+    ``special_tokens_map.json`` and ``tokenizer_config.json`` (``legacy:
+    false``, no pad token), as LLaMA-2's released files have them."""
+    root = pathlib.Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    proto = b"".join(_pb_field(1, 2, _pb_field(1, 2, p.encode()) + _pb_field(2, 5, score)
+                               + _pb_field(3, 0, kind)) for p, score, kind in pieces)
+    trainer = (_pb_field(3, 0, 2) + _pb_field(35, 0, 1) + _pb_field(40, 0, 0)
+               + _pb_field(41, 0, 1) + _pb_field(42, 0, 2) + _pb_field(43, 0, -1))
+    normalizer = (_pb_field(1, 2, b"identity") + _pb_field(3, 0, 1) + _pb_field(4, 0, 0)
+                  + _pb_field(5, 0, 1))
+    (root / "tokenizer.model").write_bytes(proto + _pb_field(2, 2, trainer)
+                                           + _pb_field(3, 2, normalizer))
+    (root / "added_tokens.json").write_text(json.dumps(
+        {t: len(pieces) + i for i, t in enumerate(added)}))
+    special = dict(bos_token="<s>", eos_token="</s>", unk_token="<unk>")
+    (root / "special_tokens_map.json").write_text(json.dumps(special))
+    (root / "tokenizer_config.json").write_text(json.dumps(
+        dict(special, legacy=False, pad_token=None, add_bos_token=True, add_eos_token=False)))
+    return root
+
+
+AGENT_CLI_STEPS = 4
+AGENT_CLI_PROMPT = "two girls talk on a rainy street, one holds an umbrella, speech bubble"
+
+
+def agent_cli(device, root, num_layers: int = 2, max_new_tokens: int = 500) -> dict:
+    """The serve CLI's agent panel from files: ``--preset sdxl --weights
+    <root>`` (serve_weights' artifact directory and CLIP vocabulary as
+    ``--tokenizer`` and ``--tokenizer-2``), ``--agent-weights`` of
+    agent_weights' ``num_layers``-layer checkpoint with ``--quantize-llm
+    --quantize-llm-bits 4`` (``AgentConfig()`` cut to that depth for the
+    call) and ``--mllm-tokenizer`` of ``write_llama_tokenizer`` (32,000
+    pieces, SEED-X's 330 added tokens); R4's prompt, characters and boxes at
+    1024², ``AGENT_CLI_STEPS`` Euler steps. Checks: the spec's ids where
+    SEED-X's layout puts them, the caption's ids the whole words' pieces, the
+    ``input_ids`` that reach ``generate`` equal to ``build_inference_prompt``
+    over them, exact launches (B6 7 x layers + 1 a decode token; the prefill
+    is longer than B6's 16 rows), a finite panel in [0, 1]."""
+    import dataclasses
+    import torch
+    from PIL import Image
+    from diffsensei_tpu_torch.core import config as core_config
+    from diffsensei_tpu_torch.data.mllm_dataset import build_inference_prompt
+    from diffsensei_tpu_torch.models.mllm.seed_x import ContinuousLVLM
+    from diffsensei_tpu_torch.serve import cli
+    from diffsensei_tpu_torch.serve.api import DiffSenseiServer
+
+    tmp = root / "agent_cli"
+    t0 = time.perf_counter()
+    pieces = llama_pieces()
+    tok_dir = write_llama_tokenizer(tmp / "mllm_tokenizer", pieces)
+    spec = cli.mllm_spec_from_tokenizer(str(tok_dir))
+    write_s = time.perf_counter() - t0
+    piece_ids = {p: i for i, (p, _, _) in enumerate(pieces)}
+    words = AGENT_CLI_PROMPT.replace(",", " ,").split()
+    caption = spec.encode_text(AGENT_CLI_PROMPT)
+    layout = (spec.bos_id == 1 and spec.eos_id == 2 and spec.pad_id == 0
+              and spec.boi_id == 32000 and spec.eoi_id == 32001
+              and list(spec.img_ids) == list(range(32002, 32066))
+              and caption == [piece_ids[w if w == "," else "▁" + w] for w in words])
+    want = build_inference_prompt(caption, spec, spec.encode_text("\n"))
+    rng = np.random.default_rng(4)
+    chars = []
+    for k in range(2):
+        chars.append(tmp / f"char_{k}.png")
+        Image.fromarray((rng.random((300, 200, 3)) * 255).astype(np.uint8)).save(chars[-1])
+    out = tmp / "panel.png"
+    argv = ["--preset", "sdxl", "--weights", str(root), "--tokenizer", str(root / "tokenizer"),
+            "--tokenizer-2", str(root / "tokenizer"),
+            "--agent-weights", str(root / "agent" / "pytorch_model.bin"), "--quantize-llm",
+            "--quantize-llm-bits", "4", "--mllm-tokenizer", str(tok_dir),
+            "--prompt", AGENT_CLI_PROMPT, "--height", "1024", "--width", "1024",
+            "--steps", str(AGENT_CLI_STEPS), "--char-image", str(chars[0]),
+            "--char-image", str(chars[1]), "--ip-bbox", "0.05,0.1,0.5,0.95",
+            "--ip-bbox", "0.5,0.2,0.95,0.9", "--dialog-bbox", "0.1,0.02,0.6,0.2",
+            "--out", str(out)]
+
+    # record what reaches the agent and when the request starts; the CLI's
+    # AgentConfig() cut to the checkpoint's depth
+    seen, generate, serve = {}, ContinuousLVLM.generate, DiffSenseiServer.generate
+    full = core_config.AgentConfig
+
+    def cut_config():
+        acfg = full()
+        return dataclasses.replace(acfg, llm=dataclasses.replace(acfg.llm, num_layers=num_layers))
+
+    def timed_generate(agent, input_ids, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = generate(agent, input_ids, *args, **kwargs)
+        torch.cuda.synchronize()
+        seen.update(input_ids=np.asarray(input_ids), agent_s=time.perf_counter() - t,
+                    decode_steps=int(result["output_ids"].shape[1]),
+                    num_gen_imgs=result["num_gen_imgs"])
+        return result
+
+    def timed_serve(server, req):
+        seen["request_at"] = time.perf_counter()
+        return serve(server, req)
+
+    ContinuousLVLM.generate, DiffSenseiServer.generate = timed_generate, timed_serve
+    core_config.AgentConfig = cut_config
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        paths = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        ContinuousLVLM.generate, DiffSenseiServer.generate = generate, serve
+        core_config.AgentConfig = full
+    check_gn_calls(gn_calls(), "agent_cli")
+    img = np.asarray(Image.open(out)).astype(np.float32)[None] / 255.0
+    got_ids = seen.get("input_ids")
+    load_s = seen["request_at"] - t0
+    row = dict(layers=num_layers, steps=AGENT_CLI_STEPS, pieces=len(pieces),
+               added=len(SEED_X_ADDED), tokenizer_write_and_read_s=write_s,
+               spec_layout_ok=layout, prompt_tokens=int(want["input_ids"].shape[1]),
+               ids_reach_generate=got_ids is not None
+               and np.array_equal(got_ids, want["input_ids"]),
+               num_gen_imgs=seen.get("num_gen_imgs"), decode_steps=seen.get("decode_steps"),
+               seconds=seconds, load_s=load_s, agent_s=seen.get("agent_s"),
+               panel_s=seconds - load_s - seen.get("agent_s", 0.0), paths=paths,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches, **panel_row(img, 1024, 1024))
+    emit({"phase": "agent_cli", **row})
+    want_counts = expect(flash_fwd=AGENT_CLI_STEPS * 70, groupnorm=AGENT_CLI_STEPS * 34 + 28,
+                         dual=AGENT_CLI_STEPS * 70,
+                         int4=max_new_tokens * (7 * num_layers + 1))
+    if not (layout and row["ids_reach_generate"] and row["decode_steps"] == max_new_tokens
+            and launches == want_counts):
+        raise AssertionError(f"the serve CLI's agent panel is wrong (launches expected "
+                             f"{want_counts}): {row}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_cp(device, mods, ids) -> dict:
     """Context-parallel serving in a NCCL world of one in this process:
     ``DiffSenseiPipeline(mods, PipelineConfig(context_parallel=True),
     mesh=make_mesh())`` at 2048² with ``snap_to_buckets=False``, 4 Euler
@@ -2999,10 +3272,8 @@ def serve_cp(device, mods, ids, weights_root) -> dict:
     B1 calls a forward (one chunk: B1 over the whole sequence). Checks: B1
     4 x 70, B5 4 x 70 and B3 4 x 34 plus 28 for each of the decode's 16
     tiles, exactly; the panel bit-equal to the same request without the
-    mesh. Then the serve CLI with ``--context-parallel`` under
-    ``torch.distributed.run`` (one rank) on serve_weights' artifact
-    directory: it snaps 2048² to 1024², so the ring is wired there but not
-    reached."""
+    mesh. The serve CLI's ``--context-parallel`` runs beside the main path
+    (``serve_cp_cli``)."""
     import torch
     from PIL import Image
     from diffsensei_tpu_torch.core.config import PipelineConfig
@@ -3058,30 +3329,41 @@ def serve_cp(device, mods, ids, weights_root) -> dict:
     del panels, img
     gc.collect()
     torch.cuda.empty_cache()
+    return counts
+
+
+def serve_cp_cli(weights_root):
+    """Start the serve CLI with ``--context-parallel`` under
+    ``torch.distributed.run`` (one rank) on serve_weights' artifact
+    directory, at serve_cp's side and steps: it snaps 2048² to 1024², so the
+    ring is wired there but not reached. Returns a function that waits for it
+    and gives its row (``serve_cp_cli_check`` emits and checks it)."""
+    from PIL import Image
 
     out = weights_root / "cp_panel.png"
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
+    wait = started(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
          "-m", "diffsensei_tpu_torch.serve.cli", "--preset", "sdxl", "--weights",
          str(weights_root), "--tokenizer", str(weights_root / "tokenizer"),
          "--context-parallel", "--prompt", "two girls talk on a rainy street",
          "--height", str(CP_SIDE), "--width", str(CP_SIDE), "--steps", str(CP_STEPS),
-         "--out", str(out)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    try:
-        log = proc.communicate(timeout=600)[0]
-    finally:
-        stop(proc)
-    panel = np.asarray(Image.open(out)) if out.exists() else None
-    cli_row = dict(seconds=time.perf_counter() - t0, rc=proc.returncode,
-                   shape=None if panel is None else list(panel.shape),
-                   note="the server snaps 2048x2048 to its 1024x1024 bucket: the ring is "
-                        "wired through the CLI but not taken (min_seq 16384 > 4096 tokens)",
-                   log_tail=log[-600:])
+         "--out", str(out)], timeout=600)
+
+    def row() -> dict:
+        rc, log, seconds = wait()
+        panel = np.asarray(Image.open(out)) if out.exists() else None
+        return dict(seconds=seconds, rc=rc, shape=None if panel is None else list(panel.shape),
+                    note="the server snaps 2048x2048 to its 1024x1024 bucket: the ring is "
+                         "wired through the CLI but not taken (min_seq 16384 > 4096 tokens)",
+                    log_tail=log[-600:])
+    row.stop = wait.stop
+    return row
+
+
+def serve_cp_cli_check(cli_row) -> None:
     emit({"phase": "serve_cp_cli", **cli_row})
-    if proc.returncode != 0 or cli_row["shape"] != [1024, 1024, 3]:
+    if cli_row["rc"] != 0 or cli_row["shape"] != [1024, 1024, 3]:
         raise AssertionError(f"the serve CLI under --context-parallel failed: {cli_row}")
-    return counts
 
 
 def bits_digest(tensors) -> list:
@@ -3099,20 +3381,15 @@ def bits_digest(tensors) -> list:
     return [s1, s2]
 
 
-def train_rank(argv) -> int:
-    """One rank of a train CLI run under ``torch.distributed.run`` (the
-    ``train-rank OUT CLI-ARGS...`` mode of this script): ``train.cli.main``
-    with an ``on_step`` that records each step's loss, host seconds, peak
-    memory, kernel launches and a digest of the trainables' bits, and after
-    the run a digest of the frozen UNet weights; written as JSON to
-    ``OUT.rank<r>.json``."""
+def recorded_train(args) -> dict:
+    """``train.cli.main(args)`` with an ``on_step`` that records each step's
+    loss, host seconds, peak memory, kernel launches and a digest of the
+    trainables' bits, and after the run a digest of the frozen UNet
+    weights."""
     import torch
     import torch.distributed as dist
     from diffsensei_tpu_torch.train import cli
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    out, args = argv[0], argv[1:]
     held, rows = {}, []
     build_models, run_training = cli.build_models, cli.run_training
 
@@ -3137,16 +3414,32 @@ def train_rank(argv) -> int:
         clock.update(last=time.perf_counter(), counts=launch_counts())
 
     cli.build_models, cli.run_training = capture_models, capture_run
-    reset_counts()
-    t0 = clock["last"] = time.perf_counter()
-    clock["counts"] = launch_counts()
-    cli.main(args, on_step=on_step)
-    unet = held["mods"].unet
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = clock["last"] = time.perf_counter()
+        clock["counts"] = launch_counts()
+        cli.main(args, on_step=on_step)
+    finally:
+        cli.build_models, cli.run_training = build_models, run_training
+    unet = held.pop("mods").unet
     frozen = bits_digest(p for p in unet.parameters() if not p.requires_grad)
-    rank, world = dist.get_rank(), dist.get_world_size()
-    pathlib.Path(f"{out}.rank{rank}.json").write_text(json.dumps(dict(
-        rank=rank, world=world, backend=dist.get_backend(), seconds=time.perf_counter() - t0,
-        steps=rows, frozen_unet=frozen)))
+    return dict(rank=dist.get_rank(), world=dist.get_world_size(), backend=dist.get_backend(),
+                wall_s=time.perf_counter() - t0, steps=rows, frozen_unet=frozen)
+
+
+def train_rank(argv) -> int:
+    """One rank of a train CLI run under ``torch.distributed.run`` (the
+    ``train-rank OUT CLI-ARGS...`` mode of this script): ``recorded_train``,
+    its record written as JSON to ``OUT.rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, args = argv[0], argv[1:]
+    rec = recorded_train(args)
+    pathlib.Path(f"{out}.rank{rec['rank']}.json").write_text(json.dumps(rec))
     dist.destroy_process_group()
     return 0
 
@@ -3161,6 +3454,51 @@ def stop(proc) -> None:
             proc.kill()
 
 
+LIVE: list = []               # every process this script started, for stop_all
+LIVE_LOCK = threading.Lock()
+STOPPING = threading.Event()
+
+
+def started(cmd, timeout: float = 900):
+    """Start ``cmd`` with its output to a pipe; returns a function that waits
+    for it and gives ``(returncode, output, seconds)``, with ``.stop``."""
+    with LIVE_LOCK:
+        if STOPPING.is_set():
+            raise RuntimeError(f"not started, the run is stopping: {cmd}")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        LIVE.append(proc)
+
+    def wait():
+        try:
+            log = proc.communicate(timeout=timeout)[0]
+        finally:
+            stop(proc)
+        return proc.returncode, log, time.perf_counter() - t0
+    wait.stop = lambda: stop(proc)
+    return wait
+
+
+def stop_all() -> None:
+    """End every process this script started, and start no more."""
+    with LIVE_LOCK:
+        STOPPING.set()
+        procs = list(LIVE)
+    for proc in procs:
+        stop(proc)
+
+
+def wave(recs: dict, **waiting) -> None:
+    """Wait for processes started together (``name=waiter``), each result
+    into ``recs[name]``; if one fails, the others are ended."""
+    try:
+        for name, wait in waiting.items():
+            recs[name] = wait()
+    finally:
+        for wait in waiting.values():
+            wait.stop()
+
+
 def torchrun_train(out, nproc: int, config, *extra, timeout: float = 900):
     """Start the train CLI on ``config`` under ``torch.distributed.run`` with
     ``nproc`` ranks on this card, each through ``train_rank``; returns a
@@ -3173,27 +3511,22 @@ def torchrun_ranks(mode: str, out, nproc: int, *args, timeout: float = 900):
     """Start ``nproc`` ranks of this script's ``mode`` (``RANK_MODES``) under
     ``torch.distributed.run`` on this card, each writing
     ``OUT.rank<r>.json``; returns a function that waits for them and gives
-    every rank's record."""
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
+    every rank's record (``wall_s``: the launcher's seconds)."""
+    wait = started(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
          str(nproc), str(pathlib.Path(__file__).resolve()), mode, str(out), *args],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        timeout=timeout)
 
     def records() -> list:
-        try:
-            log = proc.communicate(timeout=timeout)[0]
-        finally:
-            stop(proc)
-        if proc.returncode != 0:
-            raise AssertionError(f"torchrun of {mode} failed ({proc.returncode}):\n"
-                                 f"{log[-3000:]}")
+        rc, log, seconds = wait()
+        if rc != 0:
+            raise AssertionError(f"torchrun of {mode} failed ({rc}):\n{log[-3000:]}")
         recs = [json.loads(pathlib.Path(f"{out}.rank{r}.json").read_text())
                 for r in range(nproc)]
         for rec in recs:
-            rec["wall_s"] = time.perf_counter() - t0
+            rec["wall_s"] = seconds
         return recs
-    records.stop = lambda: stop(proc)
+    records.stop = wait.stop
     return records
 
 
@@ -3202,59 +3535,74 @@ def path_counts(records) -> dict:
     return {k: sum(r["launches"][k] for rec in records for r in rec["steps"]) for k in KERNELS}
 
 
-def train_dp(device, weights_root) -> dict:
-    """T1's config through the train CLI under ``torch.distributed.run``, one
-    NCCL rank: 2 steps with ``trainer.parallel: dp`` (DDP) and, at the same
-    time in another process, 2 with ``fsdp`` (FSDP2, every parameter of 64
-    Ki elements or more a shard of the world of one; each run's peak is its
-    own process's), then the FSDP run's checkpoint resumed for a third.
-    Checks: T1's launches every step; the DP losses bit-equal to T1's first
-    two, the FSDP ones within 1e-3 relative of them; the checkpoints of both
-    layouts under the same names and shapes; the resumed step finite."""
+def train_dp_start(weights_root, tmp, mode: str):
+    """Start T1's config through the train CLI under ``torch.distributed.run``,
+    one NCCL rank, 2 steps with ``trainer.parallel: mode`` (``dp``: DDP;
+    ``fsdp``: FSDP2, every parameter of 64 Ki elements or more a shard of the
+    world of one), a checkpoint at step 2, under ``tmp/mode``."""
+    (tmp / mode).mkdir()
+    write_mangazero(tmp / mode)
+    config = condition_config(tmp / mode, weights_root, trainer=dict(
+        parallel=mode, max_train_steps=2, log_every=1, checkpoint_every=2))
+    return torchrun_train(tmp / mode / "out", 1, config)
+
+
+def train_dp_resume_start(tmp):
+    """Start the FSDP run's step-2 checkpoint resumed for a third step."""
+    return torchrun_train(tmp / "fsdp" / "resumed", 1, tmp / "fsdp" / "config.yaml",
+                          "--resume", "--max_train_steps", "3")
+
+
+def train_dp_layouts(tmp) -> bool:
+    """Whether the DP and FSDP step-2 checkpoints hold the same trainables
+    (names and shapes) and the same optimizer state names."""
     import torch
 
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = pathlib.Path(tmp)
-        records, rows, running = {}, {}, {}
-        for mode in ("dp", "fsdp"):
-            (tmp / mode).mkdir()
-            write_mangazero(tmp / mode)
-            config = condition_config(tmp / mode, weights_root, trainer=dict(
-                parallel=mode, max_train_steps=2, log_every=1, checkpoint_every=2))
-            running[mode] = torchrun_train(tmp / mode / "out", 1, config)
-        try:
-            for mode in ("dp", "fsdp"):
-                records[mode] = running[mode]()
-        finally:
-            for wait in running.values():
-                wait.stop()
-        for mode in ("dp", "fsdp"):
-            (rec,) = records[mode]
-            steps = rec["steps"]
-            rows[mode] = dict(
-                backend=rec["backend"], world=rec["world"], wall_s=rec["wall_s"],
-                losses=[r["loss"] for r in steps], t1_losses=T1_LOSSES[:2],
-                rel_diff_to_t1=[abs(r["loss"] - w) / abs(w) for r, w in zip(steps, T1_LOSSES)],
-                step_host_s=[r["host_s"] for r in steps],
-                peak_gib=[r["peak_gib"] for r in steps], launches=[r["launches"] for r in steps])
-            emit({"phase": "train_dp", "parallel": mode, **rows[mode]})
-        resumed = torchrun_train(tmp / "fsdp" / "resumed", 1, tmp / "fsdp" / "config.yaml",
-                                 "--resume", "--max_train_steps", "3")()
-        ckpt = {mode: torch.load(tmp / mode / "logs" / "step-2" / "ckpt.pt", mmap=True,
-                                 map_location="cpu", weights_only=False)["state"]
-                for mode in ("dp", "fsdp")}
-        same_layout = (
-            {k: tuple(v.shape) for k, v in ckpt["dp"]["params"].items()}
+    ckpt = {mode: torch.load(tmp / mode / "logs" / "step-2" / "ckpt.pt", mmap=True,
+                             map_location="cpu", weights_only=False)["state"]
+            for mode in ("dp", "fsdp")}
+    return ({k: tuple(v.shape) for k, v in ckpt["dp"]["params"].items()}
             == {k: tuple(v.shape) for k, v in ckpt["fsdp"]["params"].items()}
             and ckpt["dp"]["optimizer"]["adamw"]["state"].keys()
             == ckpt["fsdp"]["optimizer"]["adamw"]["state"].keys())
-        del ckpt
-    (res,) = resumed
+
+
+def train_dp(device, weights_root) -> dict:
+    """T1's config through the train CLI under ``torch.distributed.run``, one
+    NCCL rank: 2 steps with ``trainer.parallel: dp`` and, at the same time in
+    another process, 2 with ``fsdp`` (each run's peak is its own process's),
+    then the FSDP run's checkpoint resumed for a third (``train_dp_check``)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp, recs = pathlib.Path(tmp), {}
+        wave(recs, dp=train_dp_start(weights_root, tmp, "dp"),
+             fsdp=train_dp_start(weights_root, tmp, "fsdp"))
+        wave(recs, resume=train_dp_resume_start(tmp))
+        recs["same_layout"] = train_dp_layouts(tmp)
+    return train_dp_check(recs)
+
+
+def train_dp_check(recs) -> dict:
+    """train_dp's rows and checks: T1's launches every step; the DP losses
+    bit-equal to T1's first two, the FSDP ones within 1e-3 relative of them;
+    the checkpoints of both layouts under the same names and shapes; the
+    resumed step finite."""
+    rows = {}
+    for mode in ("dp", "fsdp"):
+        (rec,) = recs[mode]
+        steps = rec["steps"]
+        rows[mode] = dict(
+            backend=rec["backend"], world=rec["world"], wall_s=rec["wall_s"],
+            losses=[r["loss"] for r in steps], t1_losses=T1_LOSSES[:2],
+            rel_diff_to_t1=[abs(r["loss"] - w) / abs(w) for r, w in zip(steps, T1_LOSSES)],
+            step_host_s=[r["host_s"] for r in steps],
+            peak_gib=[r["peak_gib"] for r in steps], launches=[r["launches"] for r in steps])
+        emit({"phase": "train_dp", "parallel": mode, **rows[mode]})
+    (res,) = recs["resume"]
     row = dict(parallel="fsdp", resumed_from=2, steps=[r["step"] for r in res["steps"]],
                losses=[r["loss"] for r in res["steps"]], t1_loss_3=T1_LOSSES[2],
                peak_gib=[r["peak_gib"] for r in res["steps"]],
                launches=[r["launches"] for r in res["steps"]],
-               checkpoint_layouts_equal=same_layout, wall_s=res["wall_s"])
+               checkpoint_layouts_equal=recs["same_layout"], wall_s=res["wall_s"])
     emit({"phase": "train_dp_resume", **row})
     want = expect(**T1_STEP)
     dp, fsdp = rows["dp"], rows["fsdp"]
@@ -3262,24 +3610,35 @@ def train_dp(device, weights_root) -> dict:
         raise AssertionError(f"DP or FSDP steps differ from T1's: {dp}, {fsdp}")
     if any(c != want for r in (dp, fsdp, row) for c in r["launches"]):
         raise AssertionError(f"launches a step differ from T1's {want}: {rows}, {row}")
-    if row["steps"] != [3] or not all(np.isfinite(row["losses"])) or not same_layout:
+    if row["steps"] != [3] or not all(np.isfinite(row["losses"])) or not recs["same_layout"]:
         raise AssertionError(f"the FSDP resume or the checkpoint layout is wrong: {row}")
-    return path_counts(records["dp"] + records["fsdp"] + resumed)
+    return path_counts(recs["dp"] + recs["fsdp"] + recs["resume"])
+
+
+def train_dp2_start(weights_root, tmp):
+    """Start two ranks on the one card (gloo: NCCL refuses two ranks on one
+    card) with ``trainer.parallel: dp``, a bucket batch of 2 (T1's per-rank
+    batch of 1 at the 1024² bucket, one row a rank), 2 steps, under
+    ``tmp/dp2``."""
+    (tmp / "dp2").mkdir()
+    write_mangazero(tmp / "dp2")
+    cfg = condition_config(tmp / "dp2", weights_root, trainer=dict(
+        parallel="dp", max_train_steps=2, log_every=1, checkpoint_every=2))
+    return torchrun_train(tmp / "dp2" / "out", 2, cfg)
 
 
 def train_dp2(device, weights_root) -> dict:
-    """Two ranks on the one card (gloo: NCCL refuses two ranks on one card)
-    with ``trainer.parallel: dp``, a bucket batch of 2 (T1's per-rank batch
-    of 1 at the 1024² bucket, one row a rank), 2 steps. Checks: T1's launches every step on each rank, finite losses, the
-    trainables' bits equal on both ranks after each step, the frozen UNet
-    weights equal. Its seconds a step are a gloo all-reduce through the
-    host, not an NCCL number."""
+    """``train_dp2_start`` waited for, then ``train_dp2_check``."""
     with tempfile.TemporaryDirectory() as tmp:
-        tmp = pathlib.Path(tmp)
-        write_mangazero(tmp)
-        cfg = condition_config(tmp, weights_root, trainer=dict(
-            parallel="dp", max_train_steps=2, log_every=1, checkpoint_every=2))
-        records = torchrun_train(tmp / "out", 2, cfg)()
+        records = train_dp2_start(weights_root, pathlib.Path(tmp))()
+    return train_dp2_check(records)
+
+
+def train_dp2_check(records) -> dict:
+    """train_dp2's row and checks: T1's launches every step on each rank,
+    finite losses, the trainables' bits equal on both ranks after each step,
+    the frozen UNet weights equal. Its seconds a step are a gloo all-reduce
+    through the host, not an NCCL number."""
     want = expect(**T1_STEP)
     row = dict(backend=records[0]["backend"], world=records[0]["world"],
                wall_s=records[0]["wall_s"],
@@ -3562,7 +3921,7 @@ def agent_tp_rank(argv) -> int:
     return 0
 
 
-def serve_agent_tp(device, beside=None):
+def serve_agent_tp(device) -> dict:
     """The agent's decode under tensor parallelism on two gloo ranks that
     share the card (``agent_tp_rank`` under ``torch.distributed.run``): at
     SEED-X width, 8 layers (a depth cut: every token's all-reduces go
@@ -3570,16 +3929,15 @@ def serve_agent_tp(device, beside=None):
     agent's and the other rank's; ``img_gen_feat`` within 2e-2 (relative
     Frobenius) of the unsharded one and bit-equal across the ranks; B6 57 a
     token (8 x 7 + lm_head) and no other kernel; a KV cache of half the
-    unsharded bytes. Returns the path's launch counts; with ``beside``, a
-    phase run while the ranks run (for the smoke's time), also its
-    result."""
+    unsharded bytes. Returns the path's launch counts."""
     with tempfile.TemporaryDirectory() as tmp:
-        ranks = torchrun_ranks("agent-tp-rank", pathlib.Path(tmp) / "out", 2)
-        try:
-            other = beside(device) if beside else None
-            records = ranks()
-        finally:
-            ranks.stop()
+        records = torchrun_ranks("agent-tp-rank", pathlib.Path(tmp) / "out", 2)()
+    return serve_agent_tp_check(records)
+
+
+def serve_agent_tp_check(records) -> dict:
+    """serve_agent_tp's row and checks (its docstring); returns the path's
+    launch counts."""
     per_token = 7 * AGENT_TP_LAYERS + 1
     r0 = records[0]
     row = dict(backend=r0["backend"], world=r0["world"], layers=r0["layers"],
@@ -3614,8 +3972,7 @@ def serve_agent_tp(device, beside=None):
             or any(r["sharded"]["launches"] != want for r in records)):
         raise AssertionError(f"the agent on two model ranks disagrees (launches expected "
                              f"{want}): {row}")
-    counts = {k: sum(r["sharded"]["launches"][k] for r in records) for k in KERNELS}
-    return (counts, other) if beside else counts
+    return {k: sum(r["sharded"]["launches"][k] for r in records) for k in KERNELS}
 
 
 # an SGD rate at which the first step moves the loss by 2% (22.61 -> 22.16 on an
@@ -3780,6 +4137,12 @@ def train_mllm_tp(device, lr: float = TRAIN_TP_LR) -> dict:
     rank."""
     with tempfile.TemporaryDirectory() as tmp:
         records = torchrun_ranks("train-tp-rank", pathlib.Path(tmp) / "out", 2, str(lr))()
+    return train_mllm_tp_check(records, lr)
+
+
+def train_mllm_tp_check(records, lr: float = TRAIN_TP_LR) -> dict:
+    """train_mllm_tp's row and checks (its docstring); returns the path's
+    launch counts."""
     ref = next(r["reference"] for r in records if r["reference"])
     keys = ("loss", "loss_diffusion", "loss_lm", "loss_rec")
     rel = {r["rank"]: [max(abs(s[k] - w[k]) / max(abs(w[k]), 1e-30) for k in keys)
@@ -3823,16 +4186,18 @@ def train_mllm_fsdp(device) -> dict:
     """T3 under ``trainer.parallel: fsdp``: the train CLI on
     ``configs/train/mllm.yaml`` with train_mllm's changes (random init,
     synthetic pages, logs beside them) and ``parallel: fsdp``,
-    ``max_train_steps: 2``, a checkpoint at step 2, as one NCCL rank under
-    ``torch.distributed.run`` (``train_rank``), at T3's depth: the agent's
-    LLaMA (one FSDP unit a layer, ``embed_tokens_only`` a forward method)
-    and resamplers, the frozen stack, UNet and Resampler sharded over a
-    data axis of one. Checks: T3's launches a step; losses within 1e-3
-    (relative) of T3's first two; the checkpoint's trainables whole, under
-    the names and shapes of T3's."""
+    ``max_train_steps: 2``, a checkpoint at step 2, in this process as one
+    NCCL rank (``recorded_train``; the launcher's rendezvous is train_dp's),
+    at T3's depth: the agent's LLaMA (one FSDP unit a layer,
+    ``embed_tokens_only`` a forward method) and resamplers, the frozen stack,
+    UNet and Resampler sharded over a data axis of one. Checks: T3's launches
+    a step; losses within 1e-3 (relative) of T3's first two; the
+    checkpoint's trainables whole, under the names and shapes of T3's."""
     import torch
     import yaml
 
+    gc.collect()
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         write_mangazero(tmp)
@@ -3843,7 +4208,9 @@ def train_mllm_fsdp(device) -> dict:
         cfg["trainer"].update(parallel="fsdp", max_train_steps=2, log_every=1,
                               checkpoint_every=2, log_dir=str(tmp / "logs"))
         (tmp / "config.yaml").write_text(yaml.safe_dump(cfg))
-        (rec,) = torchrun_train(tmp / "out", 1, tmp / "config.yaml")()
+        rec = recorded_train(["--config", str(tmp / "config.yaml")])
+        gc.collect()
+        torch.cuda.empty_cache()
         params = torch.load(tmp / "logs" / "step-2" / "ckpt.pt", mmap=True, map_location="cpu",
                             weights_only=False)["state"]["params"]
         whole = all(type(v) is torch.Tensor for v in params.values())
@@ -3859,7 +4226,7 @@ def train_mllm_fsdp(device) -> dict:
     emit({"phase": "train_mllm_fsdp", **row})
     want = expect(**T3_STEP)
     if (len(steps) != 2 or max(row["rel_diff_to_t3"]) > 1e-3 or not whole or not layout
-            or any(c != want for c in row["launches"])):
+            or row["backend"] != "nccl" or any(c != want for c in row["launches"])):
         raise AssertionError(f"T3 under FSDP differs from T3 (launches expected {want}): {row}")
     return path_counts([rec])
 
@@ -3910,6 +4277,135 @@ def check_qwen_visual(device) -> dict:
     return launches
 
 
+REFERENCE_THREADS = 4     # the references' CPU threads, beside the main path's host
+
+
+def references(argv) -> int:
+    """The modules on the card against the CPU in fp32 (this script's
+    ``references`` mode, a process of its own beside the main path):
+    ``check_reference``, ``check_llama_reference``, ``check_reference_train``
+    and ``check_reference_train_mllm``, each phase line on stdout; any
+    disagreement raises. The CPU side takes ``REFERENCE_THREADS`` threads."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(REFERENCE_THREADS)
+    device = torch.device("cuda", 0)
+    check_reference(device)
+    check_llama_reference(device)
+    check_reference_train(device)
+    check_reference_train_mllm(device)
+    return 0
+
+
+def references_start():
+    """Start the ``references`` mode; returns a function that waits for it,
+    emits its phase lines (its own ``at_s`` as ``process_at_s``) and raises
+    if it failed."""
+    wait = started([sys.executable, str(pathlib.Path(__file__).resolve()), "references"],
+                   timeout=900)
+
+    def finish() -> None:
+        rc, log, seconds = wait()
+        for line in log.splitlines():
+            if line.startswith('{"phase"'):
+                row = json.loads(line)
+                emit({**row, "process_at_s": row.pop("at_s")})
+        emit({"phase": "references", "seconds": seconds, "rc": rc})
+        if rc != 0:
+            raise AssertionError(f"the references failed ({rc}):\n{log[-3000:]}")
+    finish.stop = wait.stop
+    return finish
+
+
+def beside(weights_root, tmp) -> dict:
+    """The paths that run as processes of their own, in waves beside the main
+    path (each wave's ranks together on the card, 36 GiB or less at their
+    peaks, beside the main path's 25 or less), once serve_weights has
+    written its files: train_dp's DP and FSDP runs; the FSDP resume with
+    serve_agent_tp's two ranks; serve_cp_cli; train_dp2. train_mllm_tp
+    (46 GiB at its ranks' peaks) runs in the main path's turn. Returns each
+    one's records and the waves' ends; the main path checks them once T1's
+    losses are known."""
+    recs, ends = {}, []
+    done = lambda waited, *names: ends.append(dict(
+        wave=list(names), waited_s=waited, end_at_s=time.perf_counter() - STARTED))
+    waited = room(35)
+    wave(recs, dp=train_dp_start(weights_root, tmp, "dp"),
+         fsdp=train_dp_start(weights_root, tmp, "fsdp"))
+    done(waited, "train_dp dp", "train_dp fsdp")
+    waited = room(22)
+    wave(recs, resume=train_dp_resume_start(tmp),
+         agent_tp=torchrun_ranks("agent-tp-rank", tmp / "agent_tp", 2))
+    recs["same_layout"] = train_dp_layouts(tmp)
+    for mode in ("dp", "fsdp"):
+        shutil.rmtree(tmp / mode, ignore_errors=True)
+    done(waited, "train_dp_resume", "serve_agent_tp")
+    waited = room(22)
+    wave(recs, serve_cp_cli=serve_cp_cli(weights_root))
+    done(waited, "serve_cp_cli")
+    waited = room(36)
+    wave(recs, dp2=train_dp2_start(weights_root, tmp))
+    done(waited, "train_dp2")
+    recs["waves"] = ends
+    return recs
+
+
+def room(peak_gib: float, most_s: float = 120) -> float:
+    """Wait, up to ``most_s``, until the card has a wave's ``peak_gib`` (its
+    ranks' peaks, from the smoke's own runs) and 10 GiB more free: a wave
+    starts where the main path's phase leaves it room, and the 10 GiB are
+    the wave's contexts and cache plus the main path's next rise. Returns
+    the seconds waited."""
+    import torch
+
+    t0 = time.perf_counter()
+    while (torch.cuda.mem_get_info(0)[0] / 2**30 < peak_gib + 10
+           and time.perf_counter() - t0 < most_s and not STOPPING.is_set()):
+        time.sleep(0.5)
+    return time.perf_counter() - t0
+
+
+class FreeMemory:
+    """The card's free memory over every process on it
+    (``torch.cuda.mem_get_info``), sampled every 0.5 s on a thread between
+    ``start`` and ``least``."""
+
+    def __init__(self):
+        self.samples, self.done = [], threading.Event()
+        self.thread = threading.Thread(target=self._sample, daemon=True)
+
+    def _sample(self):
+        import torch
+
+        while not self.done.wait(0.5):
+            self.samples.append((time.perf_counter() - STARTED,
+                                 torch.cuda.mem_get_info(0)[0] / 2**30))
+
+    def start(self):
+        self.started_at = time.perf_counter() - STARTED
+        self.thread.start()
+        return self
+
+    def least(self, waves) -> list:
+        """Stop; the least free GiB while each wave ran, then after the last."""
+        self.done.set()
+        self.thread.join()
+        edges = [self.started_at] + [w["end_at_s"] for w in waves] + [float("inf")]
+        return [min((f for t, f in self.samples if a <= t < b), default=None)
+                for a, b in zip(edges, edges[1:])]
+
+
+def settle() -> None:
+    """Free what this process no longer holds and give its cached blocks
+    back to the card, for the processes beside it."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -3928,7 +4424,8 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
-          "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
+          "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32,
+          "tmp_free_gb": shutil.disk_usage(tempfile.gettempdir()).free / 1e9})
 
     def timed(fn):
         t = time.perf_counter()
@@ -3951,6 +4448,7 @@ def main() -> int:
           "ptxas": ptxas})
     emit({"phase": "flash_layout", **flash_layout()})
 
+    # the kernels alone on the card first: their times are taken here
     flash = check_flash(device)
     gnorm = check_groupnorm(device)
     int4 = check_int4(device)
@@ -3958,49 +4456,73 @@ def main() -> int:
     flash_dq, flash_dkv = check_flash_bwd(device)
     dual = check_dual(device)
     ring = check_ring(device)
-    check_reference(device)
-    check_llama_reference(device)
-    check_reference_train(device)
-    check_reference_train_mllm(device)
     paths = {}
     paths["serve"], mods, ids, r1 = serve(device)
     # R1's weights as checkpoint files, for serve_weights and the train phases
     weights_root = pathlib.Path(tempfile.mkdtemp(prefix="diffsensei_weights_"))
+    beside_root = pathlib.Path(tempfile.mkdtemp(prefix="diffsensei_beside_"))
+    lane = ThreadPoolExecutor(1)    # the processes beside the main path, one job at a time
+    refs = None
     try:
-        paths["serve_weights"] = serve_weights(device, mods, r1, weights_root)
-        paths["serve_extras"] = serve_extras(device, mods, r1)
-        deep_cache_exact(device, mods, r1[0])
-        paths["eval_pages"] = eval_pages(device, mods)
-        paths["serve_agent"], llm = serve_agent(device, mods, ids)
-        paths["model_axis"] = model_axis(device, llm)
-        del llm
-        paths["agent_weights"] = agent_weights(device, weights_root)
-        paths["serve_cp"] = serve_cp(device, mods, ids, weights_root)
-        del mods
-        torch.cuda.empty_cache()
-        paths["train"] = train(device, weights_root)
-        paths["train_bf16"] = train_bf16(device, weights_root)
-        remat_root = pathlib.Path(tempfile.mkdtemp(prefix="diffsensei_remat_"))
         try:
-            paths["train_remat"], t1 = train_remat(device, weights_root, remat_root)
-            paths["train_proj"] = train_proj(device, t1)
-            del t1
+            paths["serve_weights"] = serve_weights(device, mods, r1, weights_root)
+            settle()        # from here the lane shares the card: hold no cached memory
+            waves = lane.submit(beside, weights_root, beside_root)
+            refs = lane.submit(references_start)
+            free = FreeMemory().start()
+            paths["serve_extras"] = serve_extras(device, mods, r1)
+            deep_cache_exact(device, mods, r1[0])
+            paths["eval_pages"] = eval_pages(device, mods)
+            settle()
+            paths["serve_agent"], llm = serve_agent(device, mods, ids)
+            paths["model_axis"] = model_axis(device, llm)
+            del llm
+            settle()
+            paths["agent_weights"] = agent_weights(device, weights_root)
+            settle()
+            paths["agent_cli"] = agent_cli(device, weights_root)
+            settle()
+            paths["serve_cp"] = serve_cp(device, mods, ids)
+            del mods
+            settle()
+            paths["train"] = train(device, weights_root)
+            settle()
+            paths["train_bf16"] = train_bf16(device, weights_root)
+            remat_root = pathlib.Path(tempfile.mkdtemp(prefix="diffsensei_remat_"))
+            try:
+                paths["train_remat"], t1 = train_remat(device, weights_root, remat_root)
+                paths["train_proj"] = train_proj(device, t1)
+                del t1
+            finally:
+                shutil.rmtree(remat_root, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+            paths["train_lora"] = train_lora(device)
+            gc.collect()
+            torch.cuda.empty_cache()
+            recs = waves.result()       # T3T and T3 below need the card's memory
         finally:
-            shutil.rmtree(remat_root, ignore_errors=True)
-        gc.collect()
-        torch.cuda.empty_cache()
-        paths["train_dp"] = train_dp(device, weights_root)
-        paths["train_dp2"] = train_dp2(device, weights_root)
+            shutil.rmtree(weights_root, ignore_errors=True)
+            shutil.rmtree(beside_root, ignore_errors=True)
+        least = free.least(recs["waves"])
+        for w, gib in zip(recs["waves"], least):
+            w["device_free_gib_least"] = gib
+        emit({"phase": "beside", "waves": recs["waves"],
+              "device_free_gib_least_after": least[-1]})
+        serve_cp_cli_check(recs["serve_cp_cli"])
+        paths["train_dp"] = train_dp_check(recs)
+        paths["train_dp2"] = train_dp2_check(recs["dp2"])
+        paths["serve_agent_tp"] = serve_agent_tp_check(recs["agent_tp"])
+        paths["train_mllm_tp"] = train_mllm_tp(device)
+        paths["train_mllm"] = train_mllm(device)
+        paths["train_mllm_fsdp"] = train_mllm_fsdp(device)
+        paths["qwen_visual"] = check_qwen_visual(device)
+        refs.result()()
+    except BaseException:
+        stop_all()
+        raise
     finally:
-        shutil.rmtree(weights_root, ignore_errors=True)
-    paths["train_lora"] = train_lora(device)
-    paths["train_mllm"] = train_mllm(device)
-    gc.collect()
-    torch.cuda.empty_cache()
-    # the two gloo runs on the card at once: both time host round trips
-    paths["serve_agent_tp"], paths["train_mllm_tp"] = serve_agent_tp(device, train_mllm_tp)
-    paths["train_mllm_fsdp"] = train_mllm_fsdp(device)
-    paths["qwen_visual"] = check_qwen_visual(device)
+        lane.shutdown(wait=True, cancel_futures=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -4052,7 +4574,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     RANK_MODES = {"train-rank": train_rank, "agent-tp-rank": agent_tp_rank,
-                  "train-tp-rank": train_tp_rank}
+                  "train-tp-rank": train_tp_rank, "references": references}
     if sys.argv[1:2] and sys.argv[1] in RANK_MODES:
         sys.exit(RANK_MODES[sys.argv[1]](sys.argv[2:]))
     sys.exit(main())

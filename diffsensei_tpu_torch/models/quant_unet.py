@@ -5,8 +5,10 @@ Every projection named in ``UNET_QUANT_TARGETS`` (the attention projections,
 the IP pair among them, ``Transformer2D``'s ``proj_in``/``proj_out`` and the
 GEGLU's two projections) goes from ``weight`` ``[out, in]`` to ``kernel_q``
 int8 ``[in, out]`` plus ``kernel_scale`` fp32 ``[out]``, per output channel
-and symmetric, through the LLaMA's ``quantize_kernel``: the bytes of the JAX
-``quantize_unet_params``. LoRA adapters are merged first; convolutions,
+and symmetric: the arithmetic of the LLaMA's ``quantize_kernel`` (the JAX
+``quantize_unet_params``' numpy) done on the weight's own device, which gives
+the same bytes (fp32 division and round-half-to-even are exact on the CPU and
+the card alike). LoRA adapters are merged first; convolutions,
 norms, biases and the time embeddings stay as they are. The int8 UNet is
 ``UNetMangaModel(..., quantized=True)`` (its ``Int8Linear`` layers compute
 ``(x @ q) * s`` in x's dtype).
@@ -17,12 +19,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from diffsensei_tpu_torch.models.lora import merge_lora_state_dict
-from diffsensei_tpu_torch.models.mllm.quant import quantize_kernel
 from diffsensei_tpu_torch.models.unet import UNetMangaModel
 
 # the JAX targets under the port's module names: its ``proj_in``/``proj_out``
@@ -38,18 +38,33 @@ def _is_target(module_name: str) -> bool:
 
 def quantize_unet_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A UNet state dict -> the ``quantized=True`` layout: adapters merged,
-    then every target's 2-D ``weight`` quantized on the host in numpy (one
-    weight at a time) and put back on its device."""
+    then every target's 2-D ``weight`` quantized on its own device, one weight
+    at a time."""
     out = {}
     for name, t in merge_lora_state_dict(sd).items():
         module = name.rsplit(".", 1)[0]
         if name.endswith(".weight") and t.dim() == 2 and _is_target(module):
-            q, s = quantize_kernel(np.ascontiguousarray(t.float().cpu().numpy().T))
-            out[f"{module}.kernel_q"] = torch.from_numpy(q).to(t.device)
-            out[f"{module}.kernel_scale"] = torch.from_numpy(s).to(t.device)
+            q, s = quantize_rows(t)
+            out[f"{module}.kernel_q"], out[f"{module}.kernel_scale"] = q, s
         else:
             out[name] = t
     return out
+
+
+@torch.no_grad()
+def quantize_rows(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_kernel(weight.T)`` on ``weight``'s device: a ``[out, in]``
+    weight -> (``kernel_q`` int8 ``[in, out]``, ``kernel_scale`` fp32
+    ``[out]``), symmetric per output channel, ``scale = max|w| / 127`` (1
+    where the row is 0)."""
+    w = weight.detach().float()
+    absmax = w.abs().amax(dim=1)
+    # a 0-dim tensor, not a Python number: CUDA's division by a host scalar
+    # multiplies by its reciprocal, which can differ from numpy in the last bit
+    scale = torch.where(absmax > 0, absmax / absmax.new_full((), 127.0),
+                        torch.ones_like(absmax))
+    q = torch.round(w / scale[:, None]).clamp_(-127, 127).to(torch.int8)
+    return q.T.contiguous(), scale
 
 
 def _rebuilt(unet: UNetMangaModel, sd: Dict[str, torch.Tensor],

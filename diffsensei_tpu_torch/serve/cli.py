@@ -17,8 +17,13 @@ are CLIP tokenizer directories (``vocab.json``, ``merges.txt``); without
 them prompts become ids by the train CLI's CRC-32 word hashing.
 ``--agent-weights`` loads the SEED-X agent; with ``--quantize-llm`` its
 checkpoint is quantized on the host (``--quantize-llm-bits`` 8 or 4) and only
-the quantized LLM and the resamplers reach the card. ``--mllm-tokenizer``
-(ROADMAP A5: it needs sentencepiece) raises ``NotImplementedError``.
+the quantized LLM and the resamplers reach the card. ``--mllm-tokenizer`` is
+the agent's LLaMA tokenizer directory (``tokenizer.model``, the sentencepiece
+BPE model, and the ``<img>``, ``</img>`` and ``<img_00000>``... tokens in
+``added_tokens.json`` or ``tokenizer_config.json``); with ``--agent-weights``
+it gives the server the token spec (``mllm_spec_from_tokenizer``, 64 image
+ids), so that the agent adapts the characters to the prompt. Without it the
+agent stays idle, as in the JAX CLI.
 
 ``--context-parallel`` runs the UNet's long self-attentions as ring attention
 over every rank of the process group, under a launcher,
@@ -40,10 +45,33 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-from typing import List, Sequence
+from typing import TYPE_CHECKING, List, Sequence
 
-# flag -> the ROADMAP item (queue A) that ports what it needs
-NOT_PORTED = {"mllm_tokenizer": "A5"}
+if TYPE_CHECKING:
+    from diffsensei_tpu_torch.data.mllm_dataset import MLLMTokenSpec
+
+
+def mllm_spec_from_tokenizer(path: str, num_img_tokens: int = 64) -> MLLMTokenSpec:
+    """The agent's token spec from its LLaMA tokenizer directory (the JAX
+    ``mllm_spec_from_tokenizer``; reference ``seed_x.py:10-12``,
+    ``gradio.py:40-47``). A token's id is ``encode(text)[1]`` where the
+    encoding has a word-start piece in front of it, else ``[0]``."""
+    from diffsensei_tpu_torch.data.mllm_dataset import MLLMTokenSpec
+    from diffsensei_tpu_torch.utils.tokenizer import LlamaTokenizer
+
+    tok = LlamaTokenizer.from_pretrained(path)
+
+    def tid(text):
+        ids = tok.encode(text, add_special_tokens=False)
+        return ids[1] if len(ids) > 1 else ids[0]
+
+    return MLLMTokenSpec(
+        bos_id=tok.bos_token_id, eos_id=tok.eos_token_id,
+        pad_id=tok.pad_token_id or 0,
+        boi_id=tid("<img>"), eoi_id=tid("</img>"),
+        img_ids=[tid(f"<img_{k:05d}>") for k in range(num_img_tokens)],
+        encode_text=lambda s: tok.encode(s, add_special_tokens=False),
+    )
 
 
 def parse_bbox(values: Sequence[str]) -> List[List[float]]:
@@ -72,7 +100,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="the second text encoder's tokenizer (default --tokenizer)")
     parser.add_argument("--agent-weights", default=None,
                         help="ContinuousLVLM checkpoint (mllm/agent/pytorch_model.bin layout)")
-    parser.add_argument("--mllm-tokenizer", default=None, help="not ported yet")
+    parser.add_argument("--mllm-tokenizer", default=None,
+                        help="the agent's LLaMA tokenizer directory (tokenizer.model with the "
+                             "<img>, </img> and <img_k> tokens added): with --agent-weights "
+                             "the agent adapts the characters to the prompt")
     parser.add_argument("--quantize-llm", action="store_true",
                         help="quantize the agent's LLM on the host (weight-only)")
     parser.add_argument("--quantize-llm-bits", type=int, default=8, choices=[4, 8],
@@ -138,10 +169,7 @@ def main(argv=None) -> List[str]:
     """Generate the request of ``argv``; returns the paths written (none on
     a rank other than 0)."""
     args = build_parser().parse_args(argv)
-    for name, item in NOT_PORTED.items():
-        if getattr(args, name) not in (None, False):
-            raise NotImplementedError(f"--{name.replace('_', '-')} is not ported yet "
-                                      f"(ROADMAP {item})")
+    mllm_spec = mllm_spec_from_tokenizer(args.mllm_tokenizer) if args.mllm_tokenizer else None
 
     import torch
     from PIL import Image
@@ -184,9 +212,8 @@ def main(argv=None) -> List[str]:
     pcfg = PipelineConfig(context_parallel=args.context_parallel)
     if args.scheduler:
         pcfg = dataclasses.replace(pcfg, scheduler=args.scheduler)
-    # without --mllm-tokenizer there is no token spec: the server leaves the agent
-    # idle, as the JAX CLI's does
-    server = DiffSenseiServer(DiffSenseiPipeline(modules, pcfg, mesh=mesh), agent=agent)
+    server = DiffSenseiServer(DiffSenseiPipeline(modules, pcfg, mesh=mesh), agent=agent,
+                              mllm_spec=mllm_spec)
 
     if args.warmup:
         sizes = [tuple(int(v) for v in hw.split("x")) for hw in args.warmup.split(",")]

@@ -40,7 +40,8 @@ from diffsensei_tpu_torch.utils import load as tload
 from diffsensei_tpu_torch.utils.tokenizer import CLIPTokenizer
 
 from tests.test_torch_port_tokenizer import write_clip_vocab
-from tests.torch_port_util import agents, tiny_pipelines
+from tests.torch_port_util import (agents, llama_tokenizer_dir, record_servers, spec_fields,
+                                   tiny_pipelines)
 
 torch.set_num_threads(1)
 safetensors_numpy = pytest.importorskip("safetensors.numpy")
@@ -733,10 +734,12 @@ def test_train_cli_param_dtype(std, tmp_path):
 # ---------------------------------------------------------------------------
 # the serve CLI
 # ---------------------------------------------------------------------------
-def test_serve_cli_serves_loaded_weights_with_tokenizer_files(std, agent_pair, tmp_path):
+def test_serve_cli_serves_loaded_weights_with_tokenizer_files(std, agent_pair, tmp_path,
+                                                             monkeypatch):
     """``--weights`` and ``--tokenizer`` write the panel the port's server
     gives for the same loaded modules; the agent flags load (int4 on the
-    host) and ``--mllm-tokenizer`` still raises."""
+    host), and with ``--mllm-tokenizer`` the server is built with the
+    directory's token spec."""
     jagent, _ = agent_pair
     agent_path = os.fspath(tmp_path / "agent.bin")
     torch.save(_tensors(jexport.export_agent_ckpt(
@@ -766,5 +769,9 @@ def test_serve_cli_serves_loaded_weights_with_tokenizer_files(std, agent_pair, t
         character_images=[Image.open(char).convert("RGB")], ip_bbox=[[0, 0, 0.5, 1]],
         dialog_bbox=[[0.1, 0, 0.5, 0.2]]))[0]
     assert np.array_equal(np.asarray(Image.open(out)), np.asarray(want))
-    with pytest.raises(NotImplementedError, match="A5"):
-        tcli.main(args + ["--mllm-tokenizer", str(tok1)])
+    llama = llama_tokenizer_dir(tmp_path / "llama")
+    built = record_servers(monkeypatch)
+    assert tcli.main(args + ["--mllm-tokenizer", str(llama)]) == []
+    assert len(built) == 1 and built[0]["agent"] is not None
+    assert spec_fields(built[0]["mllm_spec"]) == spec_fields(
+        tcli.mllm_spec_from_tokenizer(str(llama)))

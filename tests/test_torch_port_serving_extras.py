@@ -34,7 +34,8 @@ from diffsensei_tpu_torch.pipelines import pipeline as tpipeline
 from diffsensei_tpu_torch.serve import api as tapi, cli as tcli
 from diffsensei_tpu_torch.utils import from_jax
 
-from tests.torch_port_util import random_tree, tiny_pipelines
+from tests.torch_port_util import (llama_tokenizer_dir, random_tree, record_servers,
+                                   spec_fields, tiny_pipelines)
 
 torch.set_num_threads(1)
 
@@ -320,11 +321,42 @@ def test_cli_writes_a_panel_with_the_serving_extras(tmp_path):
                                    "--mllm-tokenizer", "tok"],
                                   ["--agent-weights", "a.bin", "--quantize-llm",
                                    "--mllm-tokenizer", "tok"]])
-def test_cli_refuses_what_is_not_ported(tmp_path, flag):
-    """``--mllm-tokenizer`` (A5) raises, alone or beside the ported flags
-    (``--context-parallel`` among them), before any file is read."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        tcli.main(["--device", "cpu", "--out", str(tmp_path / "p.png"), *flag])
+def test_cli_takes_the_mllm_tokenizer(tmp_path, monkeypatch, flag):
+    """``--mllm-tokenizer`` with real files, alone or beside the other flags:
+    the server is built with ``mllm_spec_from_tokenizer`` of the directory
+    (64 image ids, as the JAX CLI's), and with the agent where one is
+    loaded. The server is a recorder: the tiny agent cannot take 64 image
+    ids, so the panel is ``tests/test_torch_port_llama_tokenizer.py``'s."""
+    import torch.distributed as dist
+    from diffsensei_tpu_torch.core.config import AgentConfig
+    from diffsensei_tpu_torch.models.mllm.seed_x import ContinuousLVLM
+
+    import chip_smoke
+
+    llama = llama_tokenizer_dir(tmp_path / "llama")
+    mods = tpipeline.PipelineModules.tiny(device="cpu", seed=1)
+    torch.save(mods.resampler.state_dict(), tmp_path / "resampler.pt")
+    (tmp_path / "w.yaml").write_text("resampler: resampler.pt\n")
+    agent = ContinuousLVLM.build(AgentConfig.tiny(), device="cpu", seed=3)
+    torch.save({f"{name}.{k}": v for name in ("llm", "input_resampler", "output_resampler")
+                for k, v in getattr(agent, name).state_dict().items()}, tmp_path / "a.bin")
+    files = {"--mllm-tokenizer": llama, "--weights": tmp_path / "w.yaml",
+             "--tokenizer": chip_smoke.write_clip_vocab(tmp_path / "clip",
+                                                       chip_smoke.prompt_merges()),
+             "--agent-weights": tmp_path / "a.bin"}
+    argv = [str(files[flag[i - 1]]) if i and flag[i - 1] in files else a
+            for i, a in enumerate(flag)]
+    built = record_servers(monkeypatch)
+    grouped = dist.is_initialized()
+    try:
+        assert tcli.main(["--device", "cpu", "--out", str(tmp_path / "p.png"), *argv]) == []
+    finally:
+        if dist.is_initialized() and not grouped:
+            dist.destroy_process_group()
+    want = tcli.mllm_spec_from_tokenizer(str(llama))
+    assert len(built) == 1 and spec_fields(built[0]["mllm_spec"]) == spec_fields(want)
+    assert list(want.img_ids) == list(range(want.boi_id + 2, want.boi_id + 66))
+    assert (built[0]["agent"] is not None) == ("--agent-weights" in flag)
 
 
 def test_cli_parses_boxes():

@@ -169,3 +169,37 @@ def tiny_pipelines(lora_rank=0, text_vocab=None, magi_vitmae=False):
     tm.vae.load_decoder_state_dict(from_jax.to_tensors(from_jax.vae(jm.vae_params,
                                                                     cfgs["vae"])))
     return jpipeline.DiffSenseiPipeline(jm), tpipeline.DiffSenseiPipeline(tm)
+
+
+def llama_tokenizer_dir(root, size=400):
+    """A SEED-X-layout LLaMA tokenizer directory of ``size`` pieces and the
+    330 added tokens (``chip_smoke.write_llama_tokenizer``)."""
+    import chip_smoke
+
+    return chip_smoke.write_llama_tokenizer(root, chip_smoke.llama_pieces(size=size))
+
+
+def spec_fields(spec, texts=("two girls talk", "a rainy street, one umbrella", "\n")):
+    """An ``MLLMTokenSpec``'s ids, and its ``encode_text`` of ``texts``, for
+    comparing two specs (their encoders are different functions)."""
+    return dict(bos=spec.bos_id, eos=spec.eos_id, pad=spec.pad_id, boi=spec.boi_id,
+                eoi=spec.eoi_id, img=[int(i) for i in spec.img_ids],
+                text={t: list(spec.encode_text(t)) for t in texts})
+
+
+def record_servers(monkeypatch):
+    """Replace the port's ``DiffSenseiServer`` with one that records the
+    keywords it is built with and generates no panel; returns the records."""
+    from diffsensei_tpu_torch.serve import api
+
+    built = []
+
+    class Recorder:
+        def __init__(self, pipeline, **kwargs):
+            built.append(kwargs)
+
+        def generate_pil(self, req):
+            return []
+
+    monkeypatch.setattr(api, "DiffSenseiServer", Recorder)
+    return built

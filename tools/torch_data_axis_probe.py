@@ -50,7 +50,8 @@ def main() -> int:
     root = pathlib.Path(tempfile.mkdtemp(prefix="diffsensei_weights_"))
     try:
         smoke.serve_weights(device, mods, r1, root)
-        smoke.serve_cp(device, mods, ids, root)
+        smoke.serve_cp(device, mods, ids)
+        smoke.serve_cp_cli_check(smoke.serve_cp_cli(root)())
         del mods
         torch.cuda.empty_cache()
         smoke.train(device, root)
