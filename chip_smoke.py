@@ -6,8 +6,8 @@
 Run from the root of the repository. Phases, one JSON line each:
 
 1. device: the card, its power limit, the TF32 switches (both off);
-2. build: kernels B1, B2 and B4 (one CUDA C++ source), B5, B3 and B6 (CUDA
-   C++) from ``diffsensei_tpu_torch/csrc``, one nvcc each, started together,
+2. build: kernels B1, B2 and B4 (one CUDA C++ source), B5, B3, B6, B7 and
+   B8 (CUDA C++) from ``diffsensei_tpu_torch/csrc``, one nvcc each, started together,
    with each kernel's ptxas lines; flash_layout: the head_dim-64 B1 (64- and
    128-key tiles), B2 and B4 kernels' registers, spills, blocks per SM, grid
    and waves at the UNet's shapes;
@@ -162,9 +162,18 @@ Run from the root of the repository. Phases, one JSON line each:
    train CLI in this process as one NCCL rank, 2 steps at T3's depth
    against T3's losses, a whole-tensor checkpoint;
 20. qwen_visual: the Qwen-VL tower with attention pooling at Qwen-VL's
-   visual widths, 2 layers, bf16 on the card against fp32 on the CPU.
+   visual widths, 2 layers, bf16 on the card against fp32 on the CPU;
+21. attention_chunked and attention_single (after phase 16, before serve):
+   the attention experiments of ``tools/`` (B7, ``chunked_attention``, at
+   chunks 64, 128, 256 and 512; B8, ``single_pass_attention``, at block_q
+   512) at (2, 20, 1024, 64) and (2, 10, 4096, 64), and B7 at chunk 512 at
+   (2, 10, 16384, 64), where B8 must refuse, q, k and v apart: each entry
+   once a shape with the counts from 0 (the path), then each kernel against
+   its plain twin and against B1 (max abs 4e-3,
+   relative Frobenius 5e-3, max|twin| printed beside; two calls bit-equal),
+   with times beside the twin, B1, SDPA and the bound.
 
-The kernels' checks (phases 2-5, 10, 13, 16 and int4_matmul_tp) run first,
+The kernels' checks (phases 2-5, 10, 13, 16, 21 and int4_matmul_tp) run first,
 alone on the card, and give the kernels' times. From serve_weights on, the
 paths that run as processes of their own (torchrun ranks) run in a lane
 beside the main path (``beside``), in waves that hold 36 GiB of the card
@@ -234,27 +243,32 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "groupnorm", "dual", "int4")
+KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "groupnorm", "dual", "int4", "chunked",
+           "single")
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count (B1, B2, B4, B3, B5, B6)."""
+    """Every kernel wrapper's launch count (B1, B2, B4, B3, B5, B6, B7, B8)."""
+    from diffsensei_tpu_torch.ops import chunked_attention as ca
     from diffsensei_tpu_torch.ops import dual_cross_attention as dca
     from diffsensei_tpu_torch.ops import flash_attention as fa, groupnorm as gn
     from diffsensei_tpu_torch.ops import int4_matmul as i4
+    from diffsensei_tpu_torch.ops import single_pass_attention as sp
 
     return dict(flash_fwd=fa.launches, flash_dq=fa.bwd_dq_launches,
                 flash_dkv=fa.bwd_dkv_launches, groupnorm=gn.launches, dual=dca.launches,
-                int4=i4.launches)
+                int4=i4.launches, chunked=ca.launches, single=sp.launches)
 
 
 def reset_counts() -> None:
+    from diffsensei_tpu_torch.ops import chunked_attention as ca
     from diffsensei_tpu_torch.ops import dual_cross_attention as dca
     from diffsensei_tpu_torch.ops import flash_attention as fa, groupnorm as gn
     from diffsensei_tpu_torch.ops import int4_matmul as i4
+    from diffsensei_tpu_torch.ops import single_pass_attention as sp
 
     fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
-    gn.launches = dca.launches = i4.launches = 0
+    gn.launches = dca.launches = i4.launches = ca.launches = sp.launches = 0
     gn.calls.clear()
 
 
@@ -3055,6 +3069,109 @@ def check_ring(device) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the attention experiments of tools/: B7 and B8
+# ---------------------------------------------------------------------------
+EXPERIMENT_SHAPES = [(2, 20, 1024, 64), (2, 10, 4096, 64)]   # UNet levels 2 and 1 at 1024²
+EXPERIMENT_LONG = (2, 10, 16384, 64)   # the tools' third shape: B7 at chunk 512, B8 refuses it
+EXPERIMENT_ABS = 4e-3                  # max abs error, against the twin and against B1
+
+
+def check_attention_experiment(device, kind: str) -> tuple:
+    """B7 (``kind`` "chunked": ``chunked_attention`` at every chunk it takes
+    at EXPERIMENT_SHAPES, and at chunk 512 at EXPERIMENT_LONG) or B8
+    ("single": ``single_pass_attention`` at block_q 512 at EXPERIMENT_SHAPES,
+    and its refusal of EXPERIMENT_LONG), q, k and v drawn apart, as in
+    FLASH_CASES; the tools keep the JAX scripts' q = k = v. The path: each
+    entry once a shape and variant with the counts from 0, read just after.
+    Then each output against the plain twin on the same inputs (B7's holds
+    one chunk's scores, B8's one block_q's rows: neither builds the
+    [B, H, Sq, Sk] tensor, 21.5 GB at 16384 keys) and against B1: max abs
+    error within EXPERIMENT_ABS and relative Frobenius error within
+    FLASH_O_REL, a second call bit-equal; each row prints max|twin| beside
+    its errors. Times beside the twin, B1
+    and ``F.scaled_dot_product_attention``; the bound counts q, k and v read
+    once, o written once and 2 products a (query, key) pair. Returns the
+    path's launches and the numbers of the kernels line (its main row:
+    (2, 10, 4096, 64) at the JAX default, chunk 512 or block_q 512)."""
+    import torch
+    import torch.nn.functional as F
+    from diffsensei_tpu_torch.ops import chunked_attention as ca
+    from diffsensei_tpu_torch.ops import flash_attention as fa
+    from diffsensei_tpu_torch.ops import single_pass_attention as sp
+
+    if kind == "chunked":
+        cases = [(s, dict(chunk=c)) for s in EXPERIMENT_SHAPES for c in ca.CHUNKS]
+        cases.append((EXPERIMENT_LONG, dict(chunk=512)))
+        call, twin = ca.chunked_attention, ca.chunked_attention_ref
+    else:
+        cases = [(s, dict(block_q=512)) for s in EXPERIMENT_SHAPES]
+        call, twin = sp.single_pass_attention, sp.single_pass_attention_ref
+    gen = torch.Generator(device=device).manual_seed(16)
+    qkvs = {shape: [torch.randn(shape, generator=gen, device=device).bfloat16()
+                    for _ in range(3)] for shape in dict.fromkeys(s for s, _ in cases)}
+    reset_counts()
+    outs = [(qkvs[shape], kw, call(*qkvs[shape], **kw)) for shape, kw in cases]
+    torch.cuda.synchronize()
+    path = launch_counts()
+    if path != expect(**{kind: len(outs)}):
+        raise AssertionError(f"attention_{kind}: launches {path}, expected {len(outs)} of {kind}")
+
+    def errors(o, ref):
+        diff = o.float() - ref.float()
+        return diff.abs().max().item(), (diff.norm() / ref.float().norm()).item()
+
+    yardsticks = {}
+    rows = []
+    for qkv, kw, o in outs:
+        b, h, s, d = qkv[0].shape
+        if s not in yardsticks:
+            yardsticks[s] = dict(b1=fa.flash_attention(*qkv)[0],
+                                 b1_ms=cuda_ms(lambda: fa.flash_attention(*qkv)),
+                                 sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(*qkv)))
+        ys = yardsticks[s]
+        again = call(*qkv, **kw)
+        ref = twin(*qkv, **kw)
+        torch.cuda.synchronize()
+        err, rel = errors(o, ref)
+        err_b1, rel_b1 = errors(o, ys["b1"])
+        row = dict(shape=[b, h, s, d], **kw, max_abs_err=err, rel_frobenius=rel,
+                   max_ref=ref.float().abs().max().item(), bit_equal=torch.equal(o, again),
+                   max_abs_err_vs_b1=err_b1, rel_frobenius_vs_b1=rel_b1,
+                   ms=cuda_ms(lambda: call(*qkv, **kw)),
+                   plain_ms=cuda_ms(lambda: twin(*qkv, **kw), reps=3, warmup=1),
+                   b1_ms=ys["b1_ms"], sdpa_ms=ys["sdpa_ms"],
+                   **bound(2 * b * h * d * 4 * s, 4 * b * h * s * s * d))
+        row["vs_b1"] = row["ms"] / row["b1_ms"]
+        rows.append(row)
+        emit({"phase": f"attention_{kind}", **row})
+        if not (max(err, err_b1) <= EXPERIMENT_ABS and max(rel, rel_b1) <= FLASH_O_REL
+                and row["bit_equal"]):
+            raise AssertionError(f"attention_{kind} disagrees with its plain twin or B1: {row}")
+        del again, ref
+    if kind == "single":     # beyond one cluster's shared memory: refused, naming the limit
+        long = [torch.zeros(EXPERIMENT_LONG, dtype=torch.bfloat16, device=device)] * 3
+        try:
+            sp.single_pass_attention(*long)
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError(f"attention_single took {EXPERIMENT_LONG}, beyond its limit")
+        if f"at most {sp.MAX_KEYS} keys" not in refused:
+            raise AssertionError(f"attention_single's refusal names no limit: {refused}")
+        emit({"phase": "attention_single", "shape": list(EXPERIMENT_LONG), "refused": refused})
+        del long
+    main = next(r for r in rows if r["shape"][2] == 4096 and r.get("chunk", 512) == 512)
+    del qkvs, outs, yardsticks
+    torch.cuda.empty_cache()
+    return path, dict(max_abs_err=max(r["max_abs_err"] for r in rows), ms=main["ms"],
+                      plain_ms=main["plain_ms"], library_ms=main["sdpa_ms"],
+                      **{k: main[k] for k in ("bound_ms", "bound_by")},
+                      rows=[{k: r[k] for k in ("shape", "ms", "plain_ms", "b1_ms", "sdpa_ms",
+                                                "bound_ms", "max_abs_err", "max_ref")}
+                            | ({"chunk": r["chunk"]} if "chunk" in r else {}) for r in rows])
+
+
 CP_SIDE, CP_STEPS = 2048, 4
 
 
@@ -4415,6 +4532,8 @@ def main() -> int:
     from diffsensei_tpu_torch.ops import dual_cross_attention as dca
     from diffsensei_tpu_torch.ops import flash_attention as fa, groupnorm as gn
     from diffsensei_tpu_torch.ops import int4_matmul as i4
+    from diffsensei_tpu_torch.ops import chunked_attention as ca
+    from diffsensei_tpu_torch.ops import single_pass_attention as sp
 
     device = torch.device("cuda", 0)
     smi = nvidia_smi_line()
@@ -4432,11 +4551,13 @@ def main() -> int:
         fn()
         return time.perf_counter() - t
 
-    with ThreadPoolExecutor(4) as pool:       # one nvcc for each CUDA source, together
+    with ThreadPoolExecutor(6) as pool:       # one nvcc for each CUDA source, together
         nvcc = {"flash_attention": pool.submit(timed, fa.build),
                 "dual_cross_attention": pool.submit(timed, dca.build),
                 "int4_matmul": pool.submit(timed, i4.build),
-                "groupnorm_silu": pool.submit(timed, gn.build)}
+                "groupnorm_silu": pool.submit(timed, gn.build),
+                "chunked_attention": pool.submit(timed, ca.build),
+                "single_pass_attention": pool.submit(timed, sp.build)}
         nvcc = {name: fut.result() for name, fut in nvcc.items()}
     from diffsensei_tpu_torch.ops import _build
     ptxas = {}
@@ -4457,6 +4578,8 @@ def main() -> int:
     dual = check_dual(device)
     ring = check_ring(device)
     paths = {}
+    paths["attention_chunked"], chunked = check_attention_experiment(device, "chunked")
+    paths["attention_single"], single = check_attention_experiment(device, "single")
     paths["serve"], mods, ids, r1 = serve(device)
     # R1's weights as checkpoint files, for serve_weights and the train phases
     weights_root = pathlib.Path(tempfile.mkdtemp(prefix="diffsensei_weights_"))
@@ -4565,6 +4688,14 @@ def main() -> int:
              source="diffsensei_tpu_torch/csrc/dual_cross_attention.cu",
              replaces="diffsensei_tpu/ops/dual_cross_attention.py:35",
              **on_paths("dual"), **dual),
+        dict(name="attention_chunked", route="cuda",
+             source="diffsensei_tpu_torch/csrc/chunked_attention.cu",
+             replaces="tools/bench_attention_chunked.py:40",
+             **on_paths("chunked"), **chunked),
+        dict(name="attention_single", route="cuda",
+             source="diffsensei_tpu_torch/csrc/single_pass_attention.cu",
+             replaces="tools/bench_attention_single.py:28",
+             **on_paths("single"), **single),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

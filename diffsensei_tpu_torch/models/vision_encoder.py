@@ -12,7 +12,7 @@ depend on the naming.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -72,14 +72,15 @@ class ViTLayer(nn.Module):
 
 
 class VisionTransformer(nn.Module):
-    """``forward(pixels [B, H, W, 3]) -> (penultimate [B, S, D], final_cls [B, D])``."""
+    """``forward(pixels [B, H, W, 3]) -> (penultimate [B, S, D], final_cls [B, D])``.
+
+    Without a CLS token (``use_class_embedding=False``) the sequence is the
+    patches alone and ``final_cls`` is the first patch's post-LN feature, as
+    in the JAX module."""
 
     def __init__(self, config: VisionEncoderConfig, dtype=torch.float32, device=None):
         super().__init__()
         cfg = self.config = config
-        if not cfg.use_class_embedding:
-            raise ValueError("VisionTransformer: configs without a CLS token are "
-                             "not ported yet")
         kw = dict(dtype=dtype, device=device)
         d = cfg.hidden_size
         patch = nn.Conv2d(3, d, cfg.patch_size, stride=cfg.patch_size,
@@ -89,7 +90,8 @@ class VisionTransformer(nn.Module):
         if cfg.use_pre_layernorm:          # HF CLIPVisionModel names
             emb = _attach(self, "vision_model.embeddings", nn.Module())
             emb.patch_embedding = patch
-            emb.class_embedding = nn.Parameter(torch.zeros(d, **kw))
+            if cfg.use_class_embedding:
+                emb.class_embedding = nn.Parameter(torch.zeros(d, **kw))
             emb.position_embedding = nn.Embedding(cfg.seq_len, d, **kw)
             pre_ln = _attach(self, "vision_model.pre_layrnorm",
                              nn.LayerNorm(d, eps=cfg.norm_eps, **kw))
@@ -99,7 +101,8 @@ class VisionTransformer(nn.Module):
         else:                              # HF ViTMAEModel names
             emb = _attach(self, "embeddings", nn.Module())
             _attach(emb, "patch_embeddings.projection", patch)
-            emb.cls_token = nn.Parameter(torch.zeros(1, 1, d, **kw))
+            if cfg.use_class_embedding:
+                emb.cls_token = nn.Parameter(torch.zeros(1, 1, d, **kw))
             emb.position_embeddings = nn.Parameter(torch.zeros(1, cfg.seq_len, d, **kw))
             pre_ln = None
             layers = _attach(self, "encoder.layer", nn.ModuleList(
@@ -112,12 +115,13 @@ class VisionTransformer(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.m["patch"].weight.dtype
 
-    def _cls_and_pos(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        # looked up per call: moving the module may replace the Parameters
+    def _cls_and_pos(self) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+        # looked up per call: moving the module may replace the Parameters;
+        # no CLS token where the config has none
         emb = self.m["emb"]
         if self.config.use_pre_layernorm:
-            return emb.class_embedding, emb.position_embedding.weight
-        return emb.cls_token, emb.position_embeddings
+            return getattr(emb, "class_embedding", None), emb.position_embedding.weight
+        return getattr(emb, "cls_token", None), emb.position_embeddings
 
     def forward(self, pixel_values: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         m = self.m
@@ -126,7 +130,8 @@ class VisionTransformer(nn.Module):
         b = x.shape[0]
         x = x.flatten(2).transpose(1, 2)                    # [B, P, D]
         cls, pos = self._cls_and_pos()
-        x = torch.cat([cls.reshape(1, 1, d).expand(b, 1, d), x], dim=1)
+        if cls is not None:
+            x = torch.cat([cls.reshape(1, 1, d).expand(b, 1, d), x], dim=1)
         x = x + pos.reshape(1, -1, d)
         if m["pre_ln"] is not None:
             x = m["pre_ln"](x)

@@ -3,14 +3,15 @@
 CUDA sources compile with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
 The library lands in ``build/kernels/`` at the root of the checkout, named by
-a hash of its source, so an edited source is rebuilt and a stale library is
-never loaded.
+a hash of its source and of the ``csrc`` headers it includes, so an edited
+source or header is rebuilt and a stale library is never loaded.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -30,12 +31,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _sources(src: Path) -> list:
+    """``src`` and every ``csrc`` header it includes by ``#include "..."``,
+    transitively, each once, in the order first met."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / name for name in
+                 re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M)]
+    return seen
+
+
 def cuda_library(source: str) -> Path:
     """Compile ``csrc/<source>`` for sm_90a (once per source hash); return the
     ``.so`` path. The compiler's output (``-Xptxas -v``: registers, shared
     memory, spills) is kept beside it as ``.log``."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in _sources(src))).hexdigest()[:16]
     out = BUILD_DIR / f"{src.stem}-{digest}.so"
     if out.exists():
         return out

@@ -345,6 +345,26 @@ def _device_rule(name: str, q: torch.Tensor) -> bool:
     return False
 
 
+def _check_operands(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless q, k and v are bf16 ``[B, H, S, 64]`` on
+    one CUDA device with matching batch, heads and key counts: the only
+    inputs the B7 and B8 kernels take."""
+    b, h, _, d = q.shape
+    for t in (q, k, v):
+        if t.device != q.device or t.dtype != torch.bfloat16 or t.dim() != 4:
+            raise ValueError(f"{name}: the kernel takes 4-d bfloat16 q, k, v on one "
+                             f"device, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if d != 64 or k.shape != v.shape or tuple(k.shape[:2]) != (b, h) or k.shape[3] != d:
+        raise ValueError(f"{name}: the kernel takes head_dim 64 and k, v [B, H, Sk, 64] "
+                         f"matching q {tuple(q.shape)}, got k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+
+
+def _launch_strides(q, k, v, o) -> ctypes.Array:
+    """The 12 element strides, (b, h, s) of q, k, v and o, of a launch."""
+    return (ctypes.c_longlong * 12)(*(s for t in (q, k, v, o) for s in t.stride()[:3]))
+
+
 def _forward(q, k, v, bias, causal, sm_scale):
     if _device_rule("flash_attention", q):
         return flash_attention_ref(q, k, v, bias, causal, sm_scale)

@@ -98,14 +98,16 @@ def vision_encoder(params: Dict, config) -> StateDict:
     if config.use_pre_layernorm:
         pre = "vision_model."
         _conv(sd, f"{pre}embeddings.patch_embedding", p["patch_embedding"])
-        sd[f"{pre}embeddings.class_embedding"] = _a(p["class_embedding"])
+        if config.use_class_embedding:
+            sd[f"{pre}embeddings.class_embedding"] = _a(p["class_embedding"])
         sd[f"{pre}embeddings.position_embedding.weight"] = _a(p["position_embedding"])
         _norm(sd, f"{pre}pre_layrnorm", p["pre_layernorm"])  # HF's spelling
         _layers(sd, p, config.num_layers, f"{pre}encoder.layers.", _CLIP_NAMES)
         _norm(sd, f"{pre}post_layernorm", p["post_layernorm"])
     else:
         _conv(sd, "embeddings.patch_embeddings.projection", p["patch_embedding"])
-        sd["embeddings.cls_token"] = _a(p["class_embedding"]).reshape(1, 1, -1)
+        if config.use_class_embedding:
+            sd["embeddings.cls_token"] = _a(p["class_embedding"]).reshape(1, 1, -1)
         sd["embeddings.position_embeddings"] = _a(p["position_embedding"])[None]
         _layers(sd, p, config.num_layers, "encoder.layer.", _MAE_NAMES)
         _norm(sd, "layernorm", p["post_layernorm"])

@@ -322,4 +322,5 @@ def test_port_imports_no_triton():
                  if re.search(r"^\s*(import|from)\s+triton\b", f.read_text(), re.M)]
     assert not importing
     assert sorted(f.name for f in (root / "csrc").iterdir() if f.suffix in (".cu", ".py")) == [
-        "dual_cross_attention.cu", "flash_attention.cu", "groupnorm_silu.cu", "int4_matmul.cu"]
+        "chunked_attention.cu", "dual_cross_attention.cu", "flash_attention.cu",
+        "groupnorm_silu.cu", "int4_matmul.cu", "single_pass_attention.cu"]

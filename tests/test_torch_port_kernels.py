@@ -11,10 +11,12 @@ import pytest
 import torch
 
 from diffsensei_tpu_torch.ops import attention as tatt
+from diffsensei_tpu_torch.ops import chunked_attention as tca
 from diffsensei_tpu_torch.ops import dual_cross_attention as tdca
 from diffsensei_tpu_torch.ops import flash_attention as tfa
 from diffsensei_tpu_torch.ops import groupnorm as tgn
 from diffsensei_tpu_torch.ops import int4_matmul as ti4
+from diffsensei_tpu_torch.ops import single_pass_attention as tsp
 
 
 @pytest.fixture
@@ -797,3 +799,70 @@ def test_ring_schedule_on_b1_matches_one_b1_call_on_card(cuda, b, h, s, n):
     # one rank of the ring is B1 itself: o cast through fp32 and back, exactly
     one, one_lse = tra.ring_schedule(q, k, v, 1, return_lse=True)
     assert torch.equal(one, want_o) and torch.equal(one_lse, want_lse)
+
+
+def _experiment_inputs(cuda, seed, b, h, sq, sk):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn((b, h, s, 64), generator=g, device=cuda).bfloat16()
+            for s in (sq, sk, sk)]
+
+
+def _held_to_twin(module, fn, twin, q, k, v, **kw):
+    """The kernel within 4e-3 (max abs) and 5e-3 (relative Frobenius) of its
+    plain twin on the same inputs, one launch a call, two calls bit-equal."""
+    before = module.launches
+    o, again = fn(q, k, v, **kw), fn(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert module.launches == before + 2
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape and torch.equal(o, again)
+    ref = twin(q, k, v, **kw).float()
+    diff = o.float() - ref
+    assert diff.abs().max().item() <= 4e-3
+    assert (diff.norm() / ref.norm()).item() <= 5e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", tca.CHUNKS)
+@pytest.mark.parametrize("b,h,sq,sk", [
+    (2, 20, 1024, 1024),    # UNet level 2 at 1024²
+    (2, 10, 4096, 4096),    # UNet level 1
+    (2, 10, 16384, 16384),  # the tools' longest shape, 32-256 chunks a row
+    (1, 2, 100, 1024),      # a partial q tile, sq != kv
+])
+def test_chunked_kernel_matches_plain_on_card(cuda, chunk, b, h, sq, sk):
+    q, k, v = _experiment_inputs(cuda, 16, b, h, sq, sk)
+    _held_to_twin(tca, tca.chunked_attention, tca.chunked_attention_ref, q, k, v, chunk=chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,sq,sk", [
+    (2, 20, 1024, 1024),    # a cluster of 2
+    (2, 10, 4096, 4096),    # a cluster of 8
+    (1, 2, 100, 37),        # one block, a ragged last key tile, a partial q tile
+    (1, 3, 130, 1100),      # a cluster of 3, 6 + 6 + 6 tiles, the last ragged
+    (2, 2, 64, 520),        # a cluster of 2 with 5 + 4 tiles
+])
+def test_single_pass_kernel_matches_plain_on_card(cuda, b, h, sq, sk):
+    q, k, v = _experiment_inputs(cuda, 17, b, h, sq, sk)
+    _held_to_twin(tsp, tsp.single_pass_attention, tsp.single_pass_attention_ref, q, k, v,
+                  block_q=sq)
+
+
+@pytest.mark.gpu
+def test_attention_experiments_refuse_what_they_do_not_take_on_card(cuda):
+    q, k, v = _experiment_inputs(cuda, 18, 1, 2, 128, 2048)
+    with pytest.raises(ValueError, match="227 KB of shared memory, 256 KB at 1024"):
+        tca.chunked_attention(q, k, v, chunk=1024)
+    with pytest.raises(ValueError, match="at most 4096 keys, got 16384"):
+        big = torch.zeros((1, 1, 16384, 64), dtype=torch.bfloat16, device=cuda)
+        tsp.single_pass_attention(big[:, :, :64], big, big)
+    for fn in (tca.chunked_attention, tsp.single_pass_attention):
+        with pytest.raises(ValueError, match="bfloat16"):
+            fn(q.float(), k.float(), v.float())
+        with pytest.raises(ValueError, match="head_dim 64"):
+            fn(*(torch.zeros((1, 2, 128, 128), dtype=torch.bfloat16, device=cuda)
+                 for _ in range(3)))
+    with pytest.raises(ValueError, match="must divide"):
+        tca.chunked_attention(q, k, v, block_k=1536)
+    with pytest.raises(ValueError, match="unwritten"):
+        tsp.single_pass_attention(q, k, v, block_q=96)

@@ -221,6 +221,31 @@ def test_vision_encoder_matches_jax(mae):
     _close(cls, jcls)
 
 
+@pytest.mark.parametrize("mae", [False, True])
+def test_vision_encoder_without_cls_matches_jax(mae):
+    """A config with no CLS token: the patches alone, num_patches positions,
+    no class-embedding parameter on either side, and the first patch's
+    post-LN feature as ``final_cls``."""
+    cfg = dataclasses.replace(VisionEncoderConfig.tiny(), use_class_embedding=False)
+    if mae:
+        cfg = dataclasses.replace(cfg, use_pre_layernorm=False, patch_bias=True,
+                                  norm_eps=1e-12)
+    px = np.random.default_rng(15).normal(size=(2, 224, 224, 3)).astype(np.float32)
+    jm = JViT(cfg)
+    params = _random_tree(jm, jnp.asarray(px), seed=15)
+    assert "class_embedding" not in params["params"]
+    jpen, jcls = _apply(jm, params, jnp.asarray(px))
+    sd = from_jax.vision_encoder(params, cfg)
+    tm = _load(TViT(cfg), sd)
+    assert set(tm.state_dict()) == set(sd)
+    assert not any("class_embedding" in k or "cls_token" in k for k in sd)
+    with torch.no_grad():
+        pen, cls = tm(_t(px))
+    assert pen.shape == (2, cfg.num_patches, cfg.hidden_size)
+    _close(pen, jpen)
+    _close(cls, jcls)
+
+
 def test_resampler_matches_jax():
     cfg = ResamplerConfig.tiny()
     rng = np.random.default_rng(6)

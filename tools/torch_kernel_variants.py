@@ -69,6 +69,8 @@ def build_variant(module, source: str, old: str, new: str, tmp: Path):
     csrc = tmp / "csrc"
     csrc.mkdir(parents=True)
     (csrc / source).write_text(text.replace(old, new))
+    for header in _build.CSRC.glob("*.cuh"):    # the headers it includes, as they are
+        shutil.copy(header, csrc)
     saved = _build.CSRC, _build.BUILD_DIR
     _build.CSRC, _build.BUILD_DIR = csrc, tmp / "build"
     try:
