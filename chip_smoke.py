@@ -3077,6 +3077,26 @@ EXPERIMENT_LONG = (2, 10, 16384, 64)   # the tools' third shape: B7 at chunk 512
 EXPERIMENT_ABS = 4e-3                  # max abs error, against the twin and against B1
 
 
+def experiment_readings(o, ref, b1) -> dict:
+    """An experiment's output against its plain twin and against B1: max
+    abs and relative Frobenius errors, and max|twin|."""
+    def errors(want):
+        diff = o.float() - want.float()
+        return diff.abs().max().item(), (diff.norm() / want.float().norm()).item()
+
+    err, rel = errors(ref)
+    err_b1, rel_b1 = errors(b1)
+    return dict(max_abs_err=err, rel_frobenius=rel, max_ref=ref.float().abs().max().item(),
+                max_abs_err_vs_b1=err_b1, rel_frobenius_vs_b1=rel_b1)
+
+
+def experiment_agrees(r: dict) -> bool:
+    """Within EXPERIMENT_ABS max abs and FLASH_O_REL relative Frobenius
+    error, of the twin and of B1."""
+    return (max(r["max_abs_err"], r["max_abs_err_vs_b1"]) <= EXPERIMENT_ABS
+            and max(r["rel_frobenius"], r["rel_frobenius_vs_b1"]) <= FLASH_O_REL)
+
+
 def check_attention_experiment(device, kind: str) -> tuple:
     """B7 (``kind`` "chunked": ``chunked_attention`` at every chunk it takes
     at EXPERIMENT_SHAPES, and at chunk 512 at EXPERIMENT_LONG) or B8
@@ -3117,10 +3137,6 @@ def check_attention_experiment(device, kind: str) -> tuple:
     if path != expect(**{kind: len(outs)}):
         raise AssertionError(f"attention_{kind}: launches {path}, expected {len(outs)} of {kind}")
 
-    def errors(o, ref):
-        diff = o.float() - ref.float()
-        return diff.abs().max().item(), (diff.norm() / ref.float().norm()).item()
-
     yardsticks = {}
     rows = []
     for qkv, kw, o in outs:
@@ -3133,23 +3149,18 @@ def check_attention_experiment(device, kind: str) -> tuple:
         again = call(*qkv, **kw)
         ref = twin(*qkv, **kw)
         torch.cuda.synchronize()
-        err, rel = errors(o, ref)
-        err_b1, rel_b1 = errors(o, ys["b1"])
-        row = dict(shape=[b, h, s, d], **kw, max_abs_err=err, rel_frobenius=rel,
-                   max_ref=ref.float().abs().max().item(), bit_equal=torch.equal(o, again),
-                   max_abs_err_vs_b1=err_b1, rel_frobenius_vs_b1=rel_b1,
-                   ms=cuda_ms(lambda: call(*qkv, **kw)),
+        row = dict(shape=[b, h, s, d], **kw, **experiment_readings(o, ref, ys["b1"]),
+                   bit_equal=torch.equal(o, again), ms=cuda_ms(lambda: call(*qkv, **kw)),
                    plain_ms=cuda_ms(lambda: twin(*qkv, **kw), reps=3, warmup=1),
                    b1_ms=ys["b1_ms"], sdpa_ms=ys["sdpa_ms"],
                    **bound(2 * b * h * d * 4 * s, 4 * b * h * s * s * d))
         row["vs_b1"] = row["ms"] / row["b1_ms"]
         rows.append(row)
         emit({"phase": f"attention_{kind}", **row})
-        if not (max(err, err_b1) <= EXPERIMENT_ABS and max(rel, rel_b1) <= FLASH_O_REL
-                and row["bit_equal"]):
+        if not (experiment_agrees(row) and row["bit_equal"]):
             raise AssertionError(f"attention_{kind} disagrees with its plain twin or B1: {row}")
         del again, ref
-    if kind == "single":     # beyond one cluster's shared memory: refused, naming the limit
+    if kind == "single":     # beyond one cluster's registers: refused, naming the limit
         long = [torch.zeros(EXPERIMENT_LONG, dtype=torch.bfloat16, device=device)] * 3
         try:
             sp.single_pass_attention(*long)

@@ -10,11 +10,13 @@ calls it: ``tools/torch_bench_attention_chunked.py`` runs it beside B1.
 ``chunked_attention`` keeps the JAX signature, its clamps and its asserts
 (``ValueError`` here): ``block_q`` and ``block_k`` only shape the TPU's grid,
 so the result depends on ``chunk`` alone, the keys of one update. On CUDA
-tensors it launches the kernel, which takes bf16 with head_dim 64 and a chunk
-of 64, 128, 256 or 512 keys (``CHUNKS``; a chunk of 1024 keys would park 256
-KB of fp32 scores, beyond a block's 227 KB of shared memory) and raises on
-anything else; on CPU tensors it runs the plain twin
-``chunked_attention_ref``. ``launches`` counts kernel launches.
+tensors it launches the kernel, which holds a 64-row q tile's fp32 scores
+in one warpgroup's registers (a chunk of up to 256 keys, 128 a thread at
+256; a chunk of 512 in two passes, its first half's scores computed twice)
+and takes bf16 with head_dim 64 and a chunk of 64, 128, 256 or 512 keys
+(``CHUNKS``; 1024 would take four passes) and raises on anything else; on
+CPU tensors it runs the plain twin ``chunked_attention_ref``. ``launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -90,8 +92,9 @@ def _chunked_cuda(q, k, v, chunk):
     _check_operands("chunked_attention", q, k, v)
     if chunk not in CHUNKS:
         raise ValueError(f"chunked_attention: the kernel takes a chunk of {CHUNKS} keys "
-                         f"(a chunk's 64 x chunk fp32 scores sit in one block's 227 KB of "
-                         f"shared memory, 256 KB at 1024), got {chunk}")
+                         f"(a warpgroup holds the fp32 scores of 256 keys, 128 registers "
+                         f"a thread: a chunk of 512 takes two passes, its first half's "
+                         f"Q K^T computed twice; 1024 would take four), got {chunk}")
     q, k, v = (_aligned(t) for t in (q, k, v))
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     b, h, sq, _ = q.shape

@@ -10,12 +10,14 @@ max) against B1's online softmax. No serving or training path calls it:
 ``single_pass_attention`` clamps ``block_q`` to the queries, as the JAX
 script's callers do, and raises ``ValueError`` where ``block_q`` does not
 divide them: there the JAX grid (``sq // block_q``) leaves the last rows of o
-unwritten. On CUDA tensors it launches the kernel, which holds a 64-row
-block's score row in the shared memory of one thread-block cluster: bf16 with
-head_dim 64 and at most ``MAX_KEYS`` keys (8 blocks of 512 keys); it raises on
-anything else. Its q tile is 64 rows whatever ``block_q`` is. On CPU tensors
-it runs the plain twin ``single_pass_attention_ref``, ``block_q`` rows at a
-time. ``launches`` counts kernel launches.
+unwritten. On CUDA tensors it launches the kernel, which holds a 64-row q
+tile's whole score row in the registers of one thread-block cluster (each
+block 512 keys, their K and V resident in its shared memory while the
+cluster walks a group of q tiles): bf16 with head_dim 64 and at most
+``MAX_KEYS`` keys (8 blocks of 512 keys); it raises on anything else. Its q
+tile is 64 rows whatever ``block_q`` is. On CPU tensors it runs the plain
+twin ``single_pass_attention_ref``, ``block_q`` rows at a time. ``launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from diffsensei_tpu_torch.ops import _build
 from diffsensei_tpu_torch.ops.flash_attention import (_aligned, _check_operands, _device_rule,
                                                       _launch_strides)
 
-KEYS_PER_BLOCK = 512    # fp32 scores of 64 rows x 512 keys: 128 KB of a block's 227 KB
+KEYS_PER_BLOCK = 512    # 64 rows x 512 keys of fp32 scores: 128 registers a thread of two warpgroups
 MAX_CLUSTER = 8         # the portable cluster size
 MAX_KEYS = KEYS_PER_BLOCK * MAX_CLUSTER
 
@@ -86,8 +88,8 @@ def _single_cuda(q, k, v):
     _check_operands("single_pass_attention", q, k, v)
     if not 1 <= k.shape[2] <= MAX_KEYS:
         raise ValueError(
-            f"single_pass_attention: the kernel holds a 64-row block's whole fp32 score row "
-            f"in one thread-block cluster's shared memory, {KEYS_PER_BLOCK} keys a block and "
+            f"single_pass_attention: the kernel holds a 64-row q tile's whole fp32 score row "
+            f"in one thread-block cluster's registers, {KEYS_PER_BLOCK} keys a block and "
             f"at most {MAX_CLUSTER} blocks: at most {MAX_KEYS} keys, got {k.shape[2]}")
     q, k, v = (_aligned(t) for t in (q, k, v))
     o = torch.empty_like(q, memory_format=torch.contiguous_format)

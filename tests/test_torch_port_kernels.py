@@ -821,6 +821,14 @@ def _held_to_twin(module, fn, twin, q, k, v, **kw):
     assert (diff.norm() / ref.norm()).item() <= 5e-3
 
 
+def _held_to_b1(o, q, k, v):
+    """An experiment's output within the same limits of B1's on the same inputs."""
+    ref = tfa.flash_attention(q, k, v)[0].float()
+    diff = o.float() - ref
+    assert diff.abs().max().item() <= 4e-3
+    assert (diff.norm() / ref.norm()).item() <= 5e-3
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("chunk", tca.CHUNKS)
 @pytest.mark.parametrize("b,h,sq,sk", [
@@ -828,10 +836,23 @@ def _held_to_twin(module, fn, twin, q, k, v, **kw):
     (2, 10, 4096, 4096),    # UNet level 1
     (2, 10, 16384, 16384),  # the tools' longest shape, 32-256 chunks a row
     (1, 2, 100, 1024),      # a partial q tile, sq != kv
+    (1, 2, 64, 2048),       # one q tile: at 256 and 512 a block's second warpgroup has no rows
 ])
 def test_chunked_kernel_matches_plain_on_card(cuda, chunk, b, h, sq, sk):
     q, k, v = _experiment_inputs(cuda, 16, b, h, sq, sk)
     _held_to_twin(tca, tca.chunked_attention, tca.chunked_attention_ref, q, k, v, chunk=chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", tca.CHUNKS)
+@pytest.mark.parametrize("chunks", [1, 2])
+def test_chunked_kernel_at_one_and_two_chunks_on_card(cuda, chunk, chunks):
+    """B7 where its pipeline has edges: one chunk (no next chunk's S in
+    flight, the ring's first fill only) and two (one hand-over), a partial q
+    tile; held to the twin and to B1, two calls bit-equal."""
+    q, k, v = _experiment_inputs(cuda, 21, 1, 3, 130, chunk * chunks)
+    _held_to_twin(tca, tca.chunked_attention, tca.chunked_attention_ref, q, k, v, chunk=chunk)
+    _held_to_b1(tca.chunked_attention(q, k, v, chunk=chunk), q, k, v)
 
 
 @pytest.mark.gpu
@@ -849,9 +870,49 @@ def test_single_pass_kernel_matches_plain_on_card(cuda, b, h, sq, sk):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,h,sq,sk", [
+    (1, 2, 64, 1),          # one key: a cluster of one block, all but one key masked
+    (1, 2, 100, 63),        # a ragged tile inside the first warpgroup's half
+    (1, 2, 130, 257),       # one key into the second warpgroup's half
+    (1, 3, 64, 511),        # one block, a ragged last tile
+    (2, 2, 190, 513),       # a cluster of 2, one key in the second block
+    (1, 4, 1000, 1000),     # a cluster of 2, Sq not a multiple of 64
+    (1, 2, 257, 4095),      # a cluster of 8, ragged, 1-row last q tile
+    (1, 2, 1, 4096),        # one query row, a cluster of 8
+    (4, 16, 2048, 4096),    # 64 clusters of 8, more than resident: each walks many q tiles
+])
+def test_single_pass_kernel_at_its_edges_on_card(cuda, b, h, sq, sk):
+    """B8 where its design has edges: the key split over a cluster of 1-8
+    blocks and two warpgroups a block, ragged key and query tiles, and the
+    loop over q tiles (double-buffered exchanges) at many tiles a cluster;
+    held to the twin and to B1 at the smoke's limits, two calls bit-equal."""
+    q, k, v = _experiment_inputs(cuda, 19, b, h, sq, sk)
+    _held_to_twin(tsp, tsp.single_pass_attention, tsp.single_pass_attention_ref, q, k, v,
+                  block_q=sq)
+    _held_to_b1(tsp.single_pass_attention(q, k, v, block_q=sq), q, k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["chunked", "single"])
+def test_attention_experiments_take_strided_inputs_on_card(cuda, kind):
+    """q, k and v as views of one packed [B, S, 3, H, 64] tensor (strides
+    that are not contiguous): the same bits as contiguous copies."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    qkv = torch.randn((2, 1024, 3, 4, 64), generator=g, device=cuda).bfloat16()
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    assert not q.is_contiguous()
+    fn = tca.chunked_attention if kind == "chunked" else tsp.single_pass_attention
+    kw = dict(chunk=256) if kind == "chunked" else dict(block_q=512)
+    o = fn(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, fn(*(t.contiguous() for t in (q, k, v)), **kw))
+    _held_to_b1(o, q, k, v)
+
+
+@pytest.mark.gpu
 def test_attention_experiments_refuse_what_they_do_not_take_on_card(cuda):
     q, k, v = _experiment_inputs(cuda, 18, 1, 2, 128, 2048)
-    with pytest.raises(ValueError, match="227 KB of shared memory, 256 KB at 1024"):
+    with pytest.raises(ValueError, match="1024 would take four"):
         tca.chunked_attention(q, k, v, chunk=1024)
     with pytest.raises(ValueError, match="at most 4096 keys, got 16384"):
         big = torch.zeros((1, 1, 16384, 64), dtype=torch.bfloat16, device=cuda)

@@ -13,7 +13,9 @@ within 2e-2 of the exact fp32 oracle. Then one line a shape: the JAX
 script's row (B1's time, then B7's at chunks 256, 512 and 1024, and at 64
 and 128, which the card takes and the TPU script did not try), with
 ``F.scaled_dot_product_attention``'s time on the same inputs and the bound.
-A chunk the kernel refuses prints ``ERR(...)`` with its reason. Times are
+Each B7 time has its ratio to B1's from the same run beside it
+(``chunk<C>_vs_b1``). A chunk the kernel refuses prints ``ERR(...)`` with
+its reason. Times are
 medians of CUDA-event passes (``chip_smoke.cuda_ms``). Then the card's
 ``nvidia-smi`` line and ``{"ok": true}`` (``{"ok": false}`` and exit code 1
 where a check fails). It needs a CUDA device.
@@ -71,6 +73,7 @@ def main() -> int:
             err = (out.float() - b1.float()).abs().max().item()
             ok &= err <= MAX_ERR
             row[f"chunk{chunk}_ms"] = cs.cuda_ms(lambda: ca.chunked_attention(q, q, q, chunk=chunk))
+            row[f"chunk{chunk}_vs_b1"] = row[f"chunk{chunk}_ms"] / row["b1_ms"]
             row[f"chunk{chunk}_maxerr_vs_b1"] = err
         b, h, s, d = shape
         row.update(cs.bound(2 * b * h * d * 4 * s, 4 * b * h * s * s * d))

@@ -10,7 +10,8 @@ as the JAX script has them, one line a shape: the JAX script's row
 (``single_pass_attention`` at block_q 512, 256 and 128, or ``ERR(...)`` with
 the reason where the kernel refuses the shape; its q tile is 64 rows at
 every block_q, which only shapes the TPU's grid and the twin's blocks), B1's
-time, ``F.scaled_dot_product_attention``'s on the same inputs, the bound,
+time (and each B8 time's ratio to it, ``single<block_q>_vs_b1``),
+``F.scaled_dot_product_attention``'s on the same inputs, the bound,
 then the max error against the exact fp32 oracle and against B1, each within
 2e-2. The oracle is built only where the kernel computes (at most 4096 keys,
 1.3 GB of fp32 scores), never at 16384. Times are medians of CUDA-event
@@ -63,6 +64,9 @@ def main() -> int:
             row[f"single{bq}_ms"] = cs.cuda_ms(lambda: sp.single_pass_attention(q, q, q, block_q=bq))
         row["b1_ms"] = cs.cuda_ms(lambda: fa.flash_attention(q, q, q))
         row["sdpa_ms"] = cs.cuda_ms(lambda: F.scaled_dot_product_attention(q, q, q))
+        for bq in BLOCK_QS:
+            if f"single{bq}_ms" in row:
+                row[f"single{bq}_vs_b1"] = row[f"single{bq}_ms"] / row["b1_ms"]
         b, h, s, d = shape
         row.update(cs.bound(2 * b * h * d * 4 * s, 4 * b * h * s * s * d))
         try:

@@ -21,6 +21,16 @@ kernel source, compiled with the port's nvcc flags into a temporary directory
   ``chip_smoke.FLASH_CASES`` with 64-key and with 128-key tiles
   (``FWD_WIDE_KEYS``, the wrapper's threshold, set past every row and then
   below it), alternated three times each.
+* ``single_peer_max`` (a planted fault): B8's first block leaves the last
+  block of its cluster out of the row max, so its exponentials stand on
+  another max than its peers';
+* ``chunked_half_corr`` (a planted fault): at chunk 512, B7's second
+  warpgroup (a block's second q tile) skips the rescale of its O at the
+  second chunk.
+  For both, the experiment's readings (``chip_smoke.experiment_readings``)
+  at both ``chip_smoke.EXPERIMENT_SHAPES`` beside the sound build's: the
+  limits of ``chip_smoke.experiment_agrees`` must pass the sound build and
+  refuse each fault at both shapes.
 * ``dual_nt16``: B5 keeps 16 key tiles of scores at every key count, where
   the sound build keeps 10 when both key sets fit in 80 keys. B5's time at
   every row of ``chip_smoke.DUAL_CASES``, sound and variant alternated three
@@ -30,6 +40,7 @@ kernel source, compiled with the port's nvcc flags into a temporary directory
 One JSON line each, then the card's ``nvidia-smi`` line, and last
 ``{"ok": true}`` when every sound reading passes, every fault is refused and
 the B5 variant agrees with its twin (else ``{"ok": false}`` and exit code 1).
+``--experiments`` runs the B7 and B8 faults alone.
 """
 
 from __future__ import annotations
@@ -56,6 +67,15 @@ FAULTS = {
         "for (int x = 0; x < 32; ++x) o_acc[x] *= i == 1 ? 1.f : corr[(x & 3) >> 1];"),
 }
 DUAL_NT16 = ("return plan.kt_pad <= 80 && plan.ki_pad <= 80 ? 10 : 16;", "return 16;")
+# name: (source, edit); B8 at block_q 512, B7 at chunk 512 (two passes a chunk, two q tiles a block)
+EXPERIMENT_FAULTS = {
+    "single_peer_max": ("single_pass_attention.cu", (
+        "    for (int src = 0; src < 2 * ranks; ++src) {",
+        "    for (int src = 0; src < 2 * ranks - (rank == 0 && ranks > 1 ? 2 : 0); ++src) {")),
+    "chunked_half_corr": ("chunked_attention.cu", (
+        "    if constexpr (SET == SETS / 2) rescale();",
+        "    if constexpr (SET == SETS / 2) { if (wg == 0 || c != 1) rescale(); }")),
+}
 
 
 def build_variant(module, source: str, old: str, new: str, tmp: Path):
@@ -180,6 +200,43 @@ def dual_tiles(device, lib, ptxas) -> bool:
     return ok
 
 
+def experiment_faults(device) -> bool:
+    """Each B7 / B8 fault against the sound build at both experiment
+    shapes, held to the smoke's limits (against the twin and against B1)."""
+    import torch
+    from diffsensei_tpu_torch.ops import chunked_attention as ca
+    from diffsensei_tpu_torch.ops import flash_attention as fa
+    from diffsensei_tpu_torch.ops import single_pass_attention as sp
+
+    ok = True
+    tmp = Path(tempfile.mkdtemp(prefix="experiment_variants_"))
+    try:
+        for name, (source, (old, new)) in EXPERIMENT_FAULTS.items():
+            module = sp if source.startswith("single") else ca
+            lib, ptxas = build_variant(module, source, old, new, tmp / name)
+            call, twin, kw = ((sp.single_pass_attention, sp.single_pass_attention_ref,
+                               dict(block_q=512)) if module is sp else
+                              (ca.chunked_attention, ca.chunked_attention_ref, dict(chunk=512)))
+            gen = torch.Generator(device=device).manual_seed(16)
+            for shape in cs.EXPERIMENT_SHAPES:
+                qkv = [torch.randn(shape, generator=gen, device=device).bfloat16()
+                       for _ in range(3)]
+                ref, b1 = twin(*qkv, **kw), fa.flash_attention(*qkv)[0]
+                for variant, use in (("sound", None), (name, lib)):
+                    with swapped(module, use):
+                        o = call(*qkv, **kw)
+                        torch.cuda.synchronize()
+                    r = cs.experiment_readings(o, ref, b1)
+                    agrees = cs.experiment_agrees(r)
+                    cs.emit({"phase": "experiment_variant", "variant": variant,
+                             "shape": list(shape), **kw, **r, "agrees": agrees})
+                    ok &= agrees if variant == "sound" else not agrees
+                del qkv, ref, b1, o
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ok
+
+
 def main() -> int:
     import torch
 
@@ -192,6 +249,11 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = cs.nvidia_smi_line()
+    if sys.argv[1:] == ["--experiments"]:
+        ok = experiment_faults(device)
+        print(smi, flush=True)
+        cs.emit({"ok": bool(ok)})
+        return 0 if ok else 1
     fa.build()
     dca.build()
     tmp = Path(tempfile.mkdtemp(prefix="kernel_variants_"))
@@ -203,6 +265,7 @@ def main() -> int:
         ok = flash_faults(device, libs)
         flash_tiles(device)
         ok &= dual_tiles(device, nt16, ptxas)
+        ok &= experiment_faults(device)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(smi, flush=True)
