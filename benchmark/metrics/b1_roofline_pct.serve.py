@@ -1,0 +1,13 @@
+"""B1 (csrc/flash_attention.cu forward): least time of every traced launch from its shape over its kernels' profiler time."""
+
+from benchmark import readers as R
+from benchmark import yardstick as Y
+
+LAYER = "Kernels"
+UNIT = "%"
+SOURCE = "device_trace"
+MOVES = "panels_per_s"
+
+
+def read(run):
+    return R.roofline(run, ["b1"], Y.flash_fwd_cost, "b1")
