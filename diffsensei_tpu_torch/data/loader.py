@@ -19,6 +19,8 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from diffsensei_tpu_torch.utils.observability import span
+
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
     """A numpy batch as tensors on ``device``: pinned, asynchronous copies to
@@ -65,7 +67,9 @@ class PrefetchLoader:
             try:
                 while self.num_epochs is None or epoch < self.first_epoch + self.num_epochs:
                     for batch in self.batch_factory(epoch):
-                        if not put(to_device(batch, self.device)):
+                        with span("data.put"):
+                            batch = to_device(batch, self.device)
+                        if not put(batch):
                             return
                     epoch += 1
                 put(end)
@@ -76,7 +80,8 @@ class PrefetchLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                with span("data.wait"):
+                    item = q.get()
                 if item is end:
                     return
                 if isinstance(item, BaseException):

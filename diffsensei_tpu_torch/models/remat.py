@@ -19,11 +19,13 @@ policy sees every dispatcher op of the block's forward:
   level, full recompute elsewhere.
 
 ``None`` is full recompute. An unknown name raises ``ValueError`` (the JAX
-factory falls back to full recompute).
+factory falls back to full recompute). Every policy's recompute runs inside
+the ``train.remat_replay`` span (``utils/observability.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, Optional
 
@@ -32,6 +34,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, create_selective_checkpoint_contexts, noop_context_fn)
 
 from diffsensei_tpu_torch.ops.attention import current_name
+from diffsensei_tpu_torch.utils.observability import span
 
 POLICIES = ("dots", "attn", "dots_attn", "dots_deepest")
 
@@ -62,12 +65,32 @@ def _policy(dots: bool, attn: bool):
     return policy
 
 
+@contextlib.contextmanager
+def _replaying(recompute):
+    with span("train.remat_replay"), recompute:
+        yield
+
+
+def _spanned(contexts: Callable) -> Callable:
+    """``contexts`` (a ``context_fn``) with its recompute side inside the
+    ``train.remat_replay`` span."""
+    def fn():
+        forward, recompute = contexts()
+        return forward, _replaying(recompute)
+    return fn
+
+
+FULL_RECOMPUTE = _spanned(noop_context_fn)
+
+
 def context_fn(policy: Optional[str], deepest: bool = False) -> Callable:
     """The ``torch.utils.checkpoint.checkpoint(..., context_fn=)`` of
     ``policy`` for a block (``deepest``: it sits at the UNet's deepest
-    level); full recompute is ``noop_context_fn``, checkpoint's default."""
+    level); full recompute is ``FULL_RECOMPUTE``, checkpoint's default
+    ``noop_context_fn`` with the replay span."""
     dots = policy in ("dots", "dots_attn") or (policy == "dots_deepest" and deepest)
     attn = policy in ("attn", "dots_attn")
     if not (dots or attn):
-        return noop_context_fn
-    return functools.partial(create_selective_checkpoint_contexts, _policy(dots, attn))
+        return FULL_RECOMPUTE
+    return _spanned(functools.partial(create_selective_checkpoint_contexts,
+                                      _policy(dots, attn)))

@@ -41,7 +41,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint, noop_context_fn
+from torch.utils.checkpoint import checkpoint
 
 from diffsensei_tpu_torch.core.config import UNetConfig
 from diffsensei_tpu_torch.models import remat
@@ -289,7 +289,7 @@ class UNetMangaModel(nn.Module):
             if isinstance(mod, SelfAttention):
                 mod.cp_group, mod.cp_min_seq = group, min_seq
 
-    def _block(self, block: nn.Module, *args, context=noop_context_fn):
+    def _block(self, block: nn.Module, *args, context=remat.FULL_RECOMPUTE):
         if self.remat and torch.is_grad_enabled():
             return checkpoint(block, *args, use_reentrant=False, context_fn=context)
         return block(*args)

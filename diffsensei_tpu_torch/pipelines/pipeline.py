@@ -45,11 +45,12 @@ from diffsensei_tpu_torch.models.schedulers import (
 from diffsensei_tpu_torch.models.text_encoder import CLIPTextEncoder
 from diffsensei_tpu_torch.models.unet import (
     UNetMangaModel, attention_levels, level_spatial_shape)
-from diffsensei_tpu_torch.models.vae import AutoencoderKL, tiled_decode
+from diffsensei_tpu_torch.models.vae import AutoencoderKL, tile_plan, tiled_decode
 from diffsensei_tpu_torch.models.vision_encoder import VisionTransformer
 from diffsensei_tpu_torch.ops.masked_ip import build_ip_attention_bias
 from diffsensei_tpu_torch.parallel.mesh import data_group, shard_batch
 from diffsensei_tpu_torch.utils.init import init_flax_like_
+from diffsensei_tpu_torch.utils.observability import span
 
 
 def tiny_configs() -> Dict[str, Any]:
@@ -224,22 +225,25 @@ def _denoise(unet: UNetMangaModel, sampler: SamplerState, latents: torch.Tensor,
     prev_x0 = torch.zeros_like(latents) if sampler.is_multistep else None
     lat = latents
     for i in range(sampler.num_steps):
-        lat_in = scale_model_input(sampler, torch.cat([lat, lat], dim=0), i)
-        t = sampler.timesteps[i].expand(lat_in.shape[0])
-        if cache_interval is None:
-            eps = unet_eps(lat_in, t)
-        elif i % cache_interval == 0:
-            eps, deep = unet_eps(lat_in, t, return_deep=True, cache_split=cache_split)
-        else:
-            eps = unet_eps(lat_in, t, deep_feature=deep, cache_split=cache_split)
-        eps_neg, eps_pos = eps.float().chunk(2, dim=0)
-        guided = eps_neg + guidance_scale * (eps_pos - eps_neg)
-        if sampler.is_multistep:
-            lat, prev_x0 = multistep_step(sampler, guided, i, lat, prev_x0)
-        else:
-            lat = scheduler_step(sampler, guided, i, lat)
-        if callback is not None:
-            callback(i, lat)
+        with span("denoise.step", i=i):
+            lat_in = scale_model_input(sampler, torch.cat([lat, lat], dim=0), i)
+            t = sampler.timesteps[i].expand(lat_in.shape[0])
+            with span("denoise.unet"):
+                if cache_interval is None:
+                    eps = unet_eps(lat_in, t)
+                elif i % cache_interval == 0:
+                    eps, deep = unet_eps(lat_in, t, return_deep=True, cache_split=cache_split)
+                else:
+                    eps = unet_eps(lat_in, t, deep_feature=deep, cache_split=cache_split)
+            with span("denoise.sampler"):
+                eps_neg, eps_pos = eps.float().chunk(2, dim=0)
+                guided = eps_neg + guidance_scale * (eps_pos - eps_neg)
+                if sampler.is_multistep:
+                    lat, prev_x0 = multistep_step(sampler, guided, i, lat, prev_x0)
+                else:
+                    lat = scheduler_step(sampler, guided, i, lat)
+            if callback is not None:
+                callback(i, lat)
     return lat
 
 
@@ -248,8 +252,11 @@ def _decode(vae: AutoencoderKL, latents: torch.Tensor, scaling_factor: float) ->
     ``tiled_decode`` (the JAX ``_decode_any``), else the latent is decoded
     whole."""
     z = latents.float() / scaling_factor
-    img = tiled_decode(vae, z) if max(z.shape[1:3]) > 128 else vae.decode(z)
-    return torch.clamp(img / 2 + 0.5, 0.0, 1.0)
+    tiled = max(z.shape[1:3]) > 128
+    with span("pipeline.decode", tiled=tiled,
+              tiles=len(tile_plan(*z.shape[1:3])) if tiled else 1):
+        img = tiled_decode(vae, z) if tiled else vae.decode(z)
+        return torch.clamp(img / 2 + 0.5, 0.0, 1.0)
 
 
 class DiffSenseiPipeline:
@@ -450,41 +457,48 @@ class DiffSenseiPipeline:
             height, width = snap_to_bucket(height, width)
         lh, lw = height // self.latent_scale, width // self.latent_scale
 
-        ctx, pooled = self.encode_prompt(prompt, neg, prompt_2=prompt_2,
-                                         negative_prompt_2=negative_prompt_2,
-                                         **(prompt_ids or {}))
+        with span("pipeline.conditioning"):
+            with span("pipeline.encode_prompt"):
+                ctx, pooled = self.encode_prompt(prompt, neg, prompt_2=prompt_2,
+                                                 negative_prompt_2=negative_prompt_2,
+                                                 **(prompt_ids or {}))
 
-        use_ip = ((ip_pixel_values is not None or ip_image_embeds is not None)
-                  and m.resampler is not None)
-        ip_tokens, ip_biases = None, None
-        ip_bbox_arr, dialog_arr = self._prepare_bboxes(ip_bbox, dialog_bbox, num_samples)
-        if use_ip:
-            pos, negt = self.prepare_ip_image_embeds(
-                ip_pixel_values, ip_image_embeds, None if ip_bbox is None else len(ip_bbox))
-            ip_tokens = torch.cat([negt.expand(num_samples, -1, -1),
-                                   pos.expand(num_samples, -1, -1)], dim=0)
-            ucfg = m.unet.config
-            ip_biases = {
-                level: build_ip_attention_bias(
-                    ip_bbox_arr, *level_spatial_shape(ucfg, lh, lw, level),
-                    manga.num_vision_tokens, manga.num_dummy_tokens)
-                for level in attention_levels(ucfg)}
+            use_ip = ((ip_pixel_values is not None or ip_image_embeds is not None)
+                      and m.resampler is not None)
+            ip_tokens, ip_biases = None, None
+            if use_ip:
+                with span("pipeline.ip_embeds"):
+                    pos, negt = self.prepare_ip_image_embeds(
+                        ip_pixel_values, ip_image_embeds,
+                        None if ip_bbox is None else len(ip_bbox))
+                    ip_tokens = torch.cat([negt.expand(num_samples, -1, -1),
+                                           pos.expand(num_samples, -1, -1)], dim=0)
+            with span("pipeline.ip_bias"):
+                ip_bbox_arr, dialog_arr = self._prepare_bboxes(ip_bbox, dialog_bbox,
+                                                               num_samples)
+                if use_ip:
+                    ucfg = m.unet.config
+                    ip_biases = {
+                        level: build_ip_attention_bias(
+                            ip_bbox_arr, *level_spatial_shape(ucfg, lh, lw, level),
+                            manga.num_vision_tokens, manga.num_dummy_tokens)
+                        for level in attention_levels(ucfg)}
 
-        orig = original_size or (height, width)
-        tgt = target_size or (height, width)
-        time_ids = torch.tensor([[orig[0], orig[1], crops_coords_top_left[0],
-                                  crops_coords_top_left[1], tgt[0], tgt[1]]],
-                                dtype=torch.float32, device=dev)
-        time_ids = time_ids.expand(2 * num_samples, -1)
+            orig = original_size or (height, width)
+            tgt = target_size or (height, width)
+            time_ids = torch.tensor([[orig[0], orig[1], crops_coords_top_left[0],
+                                      crops_coords_top_left[1], tgt[0], tgt[1]]],
+                                    dtype=torch.float32, device=dev)
+            time_ids = time_ids.expand(2 * num_samples, -1)
 
-        lat_shape = (num_samples, lh, lw, m.unet.config.in_channels)
-        if latents is None:
-            gen_dev = generator.device if generator is not None else dev
-            latents = torch.randn(lat_shape, generator=generator, device=gen_dev)
-        elif tuple(latents.shape) != lat_shape:
-            raise ValueError(f"latents must be {lat_shape}, got {tuple(latents.shape)}")
-        sampler = make_sampler(cfg.scheduler, steps).to(dev)
-        latents = latents.to(dev, torch.float32) * sampler.init_noise_sigma
+            lat_shape = (num_samples, lh, lw, m.unet.config.in_channels)
+            if latents is None:
+                gen_dev = generator.device if generator is not None else dev
+                latents = torch.randn(lat_shape, generator=generator, device=gen_dev)
+            elif tuple(latents.shape) != lat_shape:
+                raise ValueError(f"latents must be {lat_shape}, got {tuple(latents.shape)}")
+            sampler = make_sampler(cfg.scheduler, steps).to(dev)
+            latents = latents.to(dev, torch.float32) * sampler.init_noise_sigma
 
         # batched over the data axis where the CFG rows split evenly over it
         batch_group = None

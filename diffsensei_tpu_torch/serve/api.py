@@ -22,6 +22,7 @@ from diffsensei_tpu_torch.core.buckets import snap_to_bucket
 from diffsensei_tpu_torch.data import processors
 from diffsensei_tpu_torch.data.mllm_dataset import MLLMTokenSpec, build_inference_prompt
 from diffsensei_tpu_torch.pipelines.pipeline import DiffSenseiPipeline
+from diffsensei_tpu_torch.utils.observability import span
 
 
 @dataclasses.dataclass
@@ -65,6 +66,7 @@ class DiffSenseiServer:
         self.mllm_spec = mllm_spec
         self.mllm_max_new_tokens = mllm_max_new_tokens
         self.auto_batch_max_side = auto_batch_max_side
+        self.requests = 0        # generate calls so far: a request's number in its spans
 
     def _preprocess_characters(self, images: Sequence[Image.Image]) -> torch.Tensor:
         """Pad with black to ``max_num_ips``, grayscale to RGB; returns the CLIP
@@ -108,14 +110,25 @@ class DiffSenseiServer:
 
     def generate(self, req: GenerationRequest) -> np.ndarray:
         """Returns ``[num_samples, H, W, 3]`` float32 in [0, 1]."""
+        self.requests += 1
+        with span("serve.request", request=self.requests - 1, num_samples=req.num_samples,
+                  height=req.height, width=req.width):
+            return self._generate(req)
+
+    def _generate(self, req: GenerationRequest) -> np.ndarray:
         pipe = self.pipeline
         manga = pipe.m.manga
         clip_pixels, ip_image_embeds = None, None
-        if req.character_images:
-            clip_pixels = self._preprocess_characters(req.character_images)
-            if self.agent is not None and self.mllm_spec is not None:
-                n_valid = min(len(req.character_images), manga.max_num_ips)
-                ip_image_embeds = self._adapt_with_mllm(req, clip_pixels, n_valid)
+        with span("serve.prepare"):
+            if req.character_images:
+                clip_pixels = self._preprocess_characters(req.character_images)
+            height, width = snap_to_bucket(req.height, req.width)
+            lat = self.initial_latents(
+                req.seed, (req.num_samples, height // pipe.latent_scale,
+                           width // pipe.latent_scale, pipe.m.unet.config.in_channels))
+        if clip_pixels is not None and self.agent is not None and self.mllm_spec is not None:
+            n_valid = min(len(req.character_images), manga.max_num_ips)
+            ip_image_embeds = self._adapt_with_mllm(req, clip_pixels, n_valid)
         kwargs = dict(
             num_inference_steps=req.num_inference_steps,
             guidance_scale=req.guidance_scale,
@@ -129,20 +142,16 @@ class DiffSenseiServer:
             deep_cache_interval=req.deep_cache_interval,
             deep_cache_split=req.deep_cache_split,
         )
-        height, width = snap_to_bucket(req.height, req.width)
-        lat = self.initial_latents(
-            req.seed, (req.num_samples, height // pipe.latent_scale,
-                       width // pipe.latent_scale, pipe.m.unet.config.in_channels))
         batched = (req.num_samples == 1 or self.auto_batch_max_side is None
                    or max(height, width) <= self.auto_batch_max_side)
-        if batched:
-            images = pipe(req.prompt, height=height, width=width,
-                          num_samples=req.num_samples, latents=lat, **kwargs)
-            return images.cpu().numpy()
-        return np.concatenate(
-            [pipe(req.prompt, height=height, width=width, num_samples=1,
-                  latents=lat[i:i + 1], **kwargs).cpu().numpy()
-             for i in range(req.num_samples)], axis=0)
+        calls = [lat] if batched else [lat[i:i + 1] for i in range(req.num_samples)]
+        panels = []
+        for part in calls:
+            images = pipe(req.prompt, height=height, width=width, num_samples=part.shape[0],
+                          latents=part, **kwargs)
+            with span("serve.readback"):
+                panels.append(images.cpu().numpy())
+        return panels[0] if batched else np.concatenate(panels, axis=0)
 
     def generate_pil(self, req: GenerationRequest) -> List[Image.Image]:
         arr = (self.generate(req) * 255).round().astype(np.uint8)

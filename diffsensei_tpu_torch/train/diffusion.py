@@ -48,6 +48,7 @@ from diffsensei_tpu_torch.parallel.train import (
     full_state, gather_rows, is_sharded, local_like, rank_weight, reduce_metrics)
 from diffsensei_tpu_torch.train import losses
 from diffsensei_tpu_torch.train.optim import Optimizer
+from diffsensei_tpu_torch.utils.observability import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -133,7 +134,8 @@ def _draw(shape, like: torch.Tensor, generator: Optional[torch.Generator],
 
 
 def _encode_latents(frozen, pixel_values, generator, latent_noise, group=None):
-    mean, logvar = frozen.vae.encode(pixel_values)
+    with span("train.vae_encode"):
+        mean, logvar = frozen.vae.encode(pixel_values)
     eps = _draw(mean.shape, mean, generator, latent_noise, group)
     return sample_latent(mean, logvar, eps, frozen.vae_scaling)
 
@@ -173,13 +175,19 @@ def _time_ids(batch: Batch) -> torch.Tensor:
 def _make_step(loss_fn: Callable, group: Optional[dist.ProcessGroup] = None) -> Callable:
     def step(state: TrainState, frozen: FrozenDiffusionStack, batch: Batch,
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        loss, metrics = step.forward(frozen, batch, generator)
-        loss.backward()
-        if step.sync_grads is not None:
-            step.sync_grads()
-        state.apply_gradients()
-        return reduce_metrics({**{k: v.detach() for k, v in metrics.items()},
-                               "loss": loss.detach(), "panels": _panel_count(batch)}, group)
+        with span("train.step", step=state.step):
+            with span("train.forward"):
+                loss, metrics = step.forward(frozen, batch, generator)
+            with span("train.backward"):
+                loss.backward()
+                if step.sync_grads is not None:
+                    step.sync_grads()
+            with span("train.optimizer"):
+                state.apply_gradients()
+            with span("train.metrics"):
+                return reduce_metrics({**{k: v.detach() for k, v in metrics.items()},
+                                       "loss": loss.detach(), "panels": _panel_count(batch)},
+                                      group)
 
     step.loss_fn = loss_fn   # exposed for equivalence tests and diagnostics
     step.forward = loss_fn   # DDP's wrapper under trainer.parallel: dp
@@ -199,14 +207,15 @@ def make_stage1_step(unet: nn.Module, schedule: DDPMSchedule,
                 generator: Optional[torch.Generator] = None, *,
                 latent_noise=None, noise=None, timesteps=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        with torch.no_grad():
+        with torch.no_grad(), span("train.encode"):
             latents = _encode_latents(frozen, batch["pixel_values"], generator, latent_noise,
                                       group)
             noise, t, noisy = _noise_and_t(schedule, latents, generator, noise, timesteps,
                                            group)
             ctx, pooled = _encode_text(frozen, batch["text_input_ids"],
                                        batch["text_input_ids_2"])
-        pred = unet(noisy, t.float(), ctx, pooled, _time_ids(batch))
+        with span("train.unet_forward"):
+            pred = unet(noisy, t.float(), ctx, pooled, _time_ids(batch))
         loss = _diffusion_loss(pred, noise, batch, group)
         return loss, {"loss_diffusion": loss}
 
@@ -240,7 +249,7 @@ def make_stage2_step(unet: nn.Module, resampler: nn.Module, schedule: DDPMSchedu
                 latent_noise=None, noise=None, timesteps=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         b, i, s = batch["ip_exists"].shape
-        with torch.no_grad():
+        with torch.no_grad(), span("train.encode"):
             latents = _encode_latents(frozen, batch["pixel_values"], generator, latent_noise,
                                       group)
             noise, t, noisy = _noise_and_t(schedule, latents, generator, noise, timesteps,
@@ -296,9 +305,10 @@ def make_stage2_step(unet: nn.Module, resampler: nn.Module, schedule: DDPMSchedu
                 manga.num_vision_tokens, manga.num_dummy_tokens)
             for level in attention_levels(unet.config)}
 
-        pred = unet(noisy, t.float(), ctx, pooled, _time_ids(batch),
-                    ip_hidden_states=ip_tokens, ip_attn_bias=biases, ip_scale=1.0,
-                    dialog_bbox=batch["dialog_bbox"])
+        with span("train.unet_forward"):
+            pred = unet(noisy, t.float(), ctx, pooled, _time_ids(batch),
+                        ip_hidden_states=ip_tokens, ip_attn_bias=biases, ip_scale=1.0,
+                        dialog_bbox=batch["dialog_bbox"])
         loss_d = _diffusion_loss(pred, noise, batch, group)
         loss = loss_d + cfg.ip_contrastive_weight * loss_c
         return loss, {"loss_diffusion": loss_d, "loss_ip_contrastive": loss_c}

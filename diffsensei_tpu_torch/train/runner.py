@@ -67,7 +67,6 @@ def run_training(step_fn: Callable, state: TrainState,
             ckpt.save(step, payload, generator.get_state())
         if env is not None:
             dist.barrier(env.group)
-    timer = StepTimer()
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
 
     if cfg.resume:
@@ -95,6 +94,7 @@ def run_training(step_fn: Callable, state: TrainState,
 
     start_step = step = state.step
     batches = iter(batches_from(start_step))
+    timer = StepTimer()
     try:
         for batch in batches:
             if step >= cfg.max_train_steps or interrupted["flag"]:

@@ -44,7 +44,7 @@ from diffsensei_tpu_torch.ops import int4_matmul as ti4
 from diffsensei_tpu_torch.parallel import mesh as tmesh, tensor as ttensor
 from diffsensei_tpu_torch.train import cli as train_cli
 from diffsensei_tpu_torch.utils import from_jax
-from diffsensei_tpu_torch.utils.observability import profile_trace
+from diffsensei_tpu_torch.utils.observability import profile_trace, span
 
 from tests.torch_parallel_workers import REPO, run_ranks
 from tests.torch_port_util import agents, near_one_norms, port_names, random_tree
@@ -744,12 +744,15 @@ def test_qwen_visual_matches_jax(pooled, pixels):
 
 
 def test_profile_trace_writes_a_trace(tmp_path):
-    """``profile_trace(dir)`` writes one Chrome trace of the block;
-    without a directory it is a no-op."""
+    """``profile_trace(dir)`` writes one Chrome trace of the block, with
+    the program's spans opened in it; without a directory it is a no-op."""
     with profile_trace(os.fspath(tmp_path / "trace")) as prof:
-        torch.ones(64).sum()
+        with span("serve.request", request=0):
+            torch.ones(64).sum()
     files = list((tmp_path / "trace").iterdir())
-    assert len(files) == 1 and json.loads(files[0].read_text())["traceEvents"]
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert len(files) == 1 and events
+    assert any(e.get("name") == "serve.request" for e in events)
     assert any("aten::ones" in e.key for e in prof.key_averages())
     with profile_trace(None) as prof:
         assert prof is None
