@@ -6,8 +6,8 @@
 Run from the root of the repository. Phases, one JSON line each:
 
 1. device: the card, its power limit, the TF32 switches (both off);
-2. build: kernels B1, B2 and B4 (one CUDA C++ source), B5, B3, B6, B7 and
-   B8 (CUDA C++) from ``diffsensei_tpu_torch/csrc``, one nvcc each, started together,
+2. build: kernels B1, B2 and B4 (one CUDA C++ source), B5, B3, B6, B7, B8
+   and B9 (CUDA C++) from ``diffsensei_tpu_torch/csrc``, one nvcc each, started together,
    with each kernel's ptxas lines; flash_layout: the head_dim-64 B1 (64- and
    128-key tiles), B2 and B4 kernels' registers, spills, blocks per SM, grid
    and waves at the UNet's shapes;
@@ -20,7 +20,11 @@ Run from the root of the repository. Phases, one JSON line each:
    bit-equal, with its plan (route, slabs, blocks), the kernels a call
    (``torch.profiler``), its time cold and warm beside its bound, the twin
    and ``F.group_norm`` + ``F.silu``; per_request: R1's and T1's B3 time
-   (calls x ms) against their bounds;
+   (calls x ms) against their bounds; vae_conv: B9 at every VAE
+   convolution of the benchmark's cells at the cells' shapes, against fp64
+   beside cuDNN's fp32 convolution (its RMS error no larger, its largest at
+   most twice), its time beside its bound, cuDNN's and the old composition's;
+   vae_conv_per_pass: an encode's and a decode's B9 time against its bound;
 5. int4_matmul: B6 (one launch a call: a cluster of 2-16 blocks splits a
    strip's rows, TMA boxes through an mbarrier ring, mma.sync on nibbles
    turned bf16 in registers, the blocks' sums met through distributed shared
@@ -244,20 +248,25 @@ def emit(obj) -> None:
 
 
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "groupnorm", "dual", "int4", "chunked",
-           "single")
+           "single", "vae_conv")
+# B9 launches of the full SDXL VAE: a decoded tile's 14 resnets x 2 and 3
+# upsamplers; an encode's 10 resnets x 2 and 3 downsamplers
+VAE_DECODE_B9, VAE_ENCODE_B9 = 31, 23
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count (B1, B2, B4, B3, B5, B6, B7, B8)."""
+    """Every kernel wrapper's launch count (B1, B2, B4, B3, B5, B6, B7, B8, B9)."""
     from diffsensei_tpu_torch.ops import chunked_attention as ca
     from diffsensei_tpu_torch.ops import dual_cross_attention as dca
     from diffsensei_tpu_torch.ops import flash_attention as fa, groupnorm as gn
     from diffsensei_tpu_torch.ops import int4_matmul as i4
     from diffsensei_tpu_torch.ops import single_pass_attention as sp
+    from diffsensei_tpu_torch.ops import vae_conv as vc
 
     return dict(flash_fwd=fa.launches, flash_dq=fa.bwd_dq_launches,
                 flash_dkv=fa.bwd_dkv_launches, groupnorm=gn.launches, dual=dca.launches,
-                int4=i4.launches, chunked=ca.launches, single=sp.launches)
+                int4=i4.launches, chunked=ca.launches, single=sp.launches,
+                vae_conv=vc.launches)
 
 
 def reset_counts() -> None:
@@ -266,9 +275,10 @@ def reset_counts() -> None:
     from diffsensei_tpu_torch.ops import flash_attention as fa, groupnorm as gn
     from diffsensei_tpu_torch.ops import int4_matmul as i4
     from diffsensei_tpu_torch.ops import single_pass_attention as sp
+    from diffsensei_tpu_torch.ops import vae_conv as vc
 
     fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
-    gn.launches = dca.launches = i4.launches = ca.launches = sp.launches = 0
+    gn.launches = dca.launches = i4.launches = ca.launches = sp.launches = vc.launches = 0
     gn.calls.clear()
 
 
@@ -366,14 +376,16 @@ GN_CASES = [  # (shape, dtype name, eps, calls a request of R1, calls a step of 
     ((2, 32, 32, 1280), "bfloat16", 1e-5, 200, 0),
     ((2, 32, 32, 1920), "bfloat16", 1e-5, 20, 0),
     ((2, 32, 32, 2560), "bfloat16", 1e-5, 40, 0),
-    ((1, 128, 128, 512), "float32", 1e-6, 10, 8),      # VAE decoder / encoder
-    ((1, 256, 256, 512), "float32", 1e-6, 6, 3),
-    ((1, 256, 256, 256), "float32", 1e-6, 0, 1),
-    ((1, 512, 512, 512), "float32", 1e-6, 1, 0),
-    ((1, 512, 512, 256), "float32", 1e-6, 5, 3),
-    ((1, 512, 512, 128), "float32", 1e-6, 0, 1),
-    ((1, 1024, 1024, 256), "float32", 1e-6, 1, 0),
-    ((1, 1024, 1024, 128), "float32", 1e-6, 5, 4),
+    # the VAE's GroupNorm shapes: its resnets normalise inside B9 (ops/vae_conv.py),
+    # so no path launches B3 on them; B3 still takes them
+    ((1, 128, 128, 512), "float32", 1e-6, 0, 0),
+    ((1, 256, 256, 512), "float32", 1e-6, 0, 0),
+    ((1, 256, 256, 256), "float32", 1e-6, 0, 0),
+    ((1, 512, 512, 512), "float32", 1e-6, 0, 0),
+    ((1, 512, 512, 256), "float32", 1e-6, 0, 0),
+    ((1, 512, 512, 128), "float32", 1e-6, 0, 0),
+    ((1, 1024, 1024, 256), "float32", 1e-6, 0, 0),
+    ((1, 1024, 1024, 128), "float32", 1e-6, 0, 0),
     ((1, 128, 128, 320), "bfloat16", 1e-5, 0, 14),     # UNet at batch 1 (T1, T3)
     ((1, 128, 128, 640), "bfloat16", 1e-5, 0, 4),
     ((1, 128, 128, 960), "bfloat16", 1e-5, 0, 2),
@@ -661,6 +673,55 @@ def int4_layout() -> dict:
                                     / max(lay["clusters_resident"], 1))
             shapes[f"{tokens},{in_f},{features}@{'cluster16' if cluster else 'picked'}"] = lay
     return dict(ptxas=ptxas, sms=sms, shapes=shapes)
+
+
+def check_vae_conv(device) -> dict:
+    """B9 at every distinct VAE convolution of the benchmark's two cells, at
+    the cells' own shapes (``tools/torch_bench_vae_conv.py``: the encode at
+    8 x 1024², the decode at 4 x 128² latents, whole H x W): against an fp64
+    convolution of the same fp32 inputs on the first and last samples, its
+    RMS error no larger than cuDNN's fp32 one (TF32 off) and its largest
+    error at most twice cuDNN's; each row timed (``ms``) beside its least
+    time (``bound_ms``, at the split-TF32 ceiling or the memory rate), cuDNN's
+    ``F.conv2d`` alone (``library_ms``) and the composition the VAE ran
+    before (``plain_ms``). Then ``vae_conv_per_pass``: an encode's and a
+    decode's B9 time (calls x ms) against their bounds."""
+    import importlib.util
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_bench_vae_conv", pathlib.Path(__file__).resolve().parent / "tools"
+        / "torch_bench_vae_conv.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    rows = []
+    for row in tool.vae_conv_rows():
+        b = row["shape"][0]
+        case = tool.make_case(row, b, device)
+        err = tool.errors(case, samples=[0, b - 1])
+        t = tool.timings(case, row)
+        del case
+        torch.cuda.empty_cache()
+        rows.append(dict(name=row["name"], shape=list(row["shape"]), cout=row["cout"],
+                         mode=row["mode"], gn=row["gn"], res=row["res"], count=row["count"],
+                         ms=t["kernel_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                         library_ms=t["cudnn_ms"], plain_ms=t["composition_ms"],
+                         tflops=t["kernel_tflops"], **err))
+        emit({"phase": "vae_conv", **rows[-1]})
+        if not err["ok"]:
+            raise AssertionError(f"B9 less accurate than cuDNN's fp32 convolution: {rows[-1]}")
+
+    def per(name):
+        mine = [r for r in rows if r["name"] == name]
+        return dict(calls=sum(r["count"] for r in mine),
+                    **{k: sum(r["count"] * r[k] for r in mine)
+                       for k in ("ms", "bound_ms", "library_ms", "plain_ms")})
+    emit({"phase": "vae_conv_per_pass", "encode": per("encode"), "decode": per("decode")})
+    main = rows[0]
+    return dict(kernel_rms=max(r["kernel_rms"] for r in rows),
+                cudnn_rms=max(r["cudnn_rms"] for r in rows), shape=main["shape"],
+                **{k: main[k] for k in ("ms", "bound_ms", "bound_by", "library_ms", "plain_ms")})
 
 
 def check_int4(device) -> dict:
@@ -1211,18 +1272,20 @@ def serve(device):
     # per UNet forward on the CFG batch of 2: B1 70 at 1024² (10 at 4096 tokens,
     # 60 at 1024), 10 at 768x1344 (level 2 has 1008 tokens, below 1024);
     # B3 34 (17 resnets x 2); B5 70 with characters (one per cross-attention),
-    # 0 without; the VAE decode adds 28 B3 (14 resnets x 2) a tile: one at
-    # 1024² (a 128x128 latent, decoded whole), two at 768x1344 (96x168)
+    # 0 without; the VAE decode adds VAE_DECODE_B9 B9 a tile: one at 1024² (a
+    # 128x128 latent, decoded whole), two at 768x1344 (96x168)
     requests = [
         (GenerationRequest(height=1024, width=1024, num_inference_steps=20,
                            guidance_scale=7.5, seed=1, prompt_ids=ids(), **conditioned),
-         expect(flash_fwd=20 * 70, groupnorm=20 * 34 + 28, dual=20 * 70)),
+         expect(flash_fwd=20 * 70, groupnorm=20 * 34, dual=20 * 70,
+                vae_conv=VAE_DECODE_B9)),
         (GenerationRequest(height=768, width=1344, num_inference_steps=4,
                            guidance_scale=7.5, seed=2, prompt_ids=ids(), **conditioned),
-         expect(flash_fwd=4 * 10, groupnorm=4 * 34 + 2 * 28, dual=4 * 70)),
+         expect(flash_fwd=4 * 10, groupnorm=4 * 34, dual=4 * 70,
+                vae_conv=2 * VAE_DECODE_B9)),
         (GenerationRequest(height=1024, width=1024, num_inference_steps=4,
                            guidance_scale=7.5, seed=3, prompt_ids=ids()),
-         expect(flash_fwd=4 * 70, groupnorm=4 * 34 + 28)),
+         expect(flash_fwd=4 * 70, groupnorm=4 * 34, vae_conv=VAE_DECODE_B9)),
     ]
     # warm the cuDNN plans and the caching allocator off the clock
     server.generate(GenerationRequest(height=1024, width=1024, num_inference_steps=1,
@@ -1398,7 +1461,8 @@ def serve_weights(device, mods, r1, root) -> dict:
                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
                launches=got, **panel_row(img, req.height, req.width))
     emit({"phase": "serve_weights", **row})
-    want_counts = expect(flash_fwd=20 * 70, groupnorm=20 * 34 + 28, dual=20 * 70)
+    want_counts = expect(flash_fwd=20 * 70, groupnorm=20 * 34, dual=20 * 70,
+                         vae_conv=VAE_DECODE_B9)
     if mismatched or on_meta or not row["bit_equal_to_r1"] or got != want_counts:
         raise AssertionError(f"the loaded stack differs from the in-memory one: {row}")
     # the same request again from the built stack, the loaded one, the built
@@ -1443,8 +1507,8 @@ def serve_weights(device, mods, r1, root) -> dict:
     emit({"phase": "serve_weights_cli", **row})
     gc.collect()
     torch.cuda.empty_cache()
-    if panel.shape != (1024, 1024, 3) or cli_launches != expect(flash_fwd=20 * 70,
-                                                               groupnorm=20 * 34 + 28):
+    want = expect(flash_fwd=20 * 70, groupnorm=20 * 34, vae_conv=VAE_DECODE_B9)
+    if panel.shape != (1024, 1024, 3) or cli_launches != want:
         raise AssertionError(f"the serve CLI's panel or launches are wrong: {row}")
     return launch_counts()
 
@@ -1494,13 +1558,14 @@ class LatentTap:
 # steps, DeepCache interval, conditioned, int8 UNet, expected launches). A full
 # UNet step runs B1 70, B3 34, B5 70 (B5 only with characters); a cached step at
 # split 2 runs levels 0 and 1 only: 10 resnets (B3 20) and 10 transformer layers
-# at 4096 tokens (B1 10, B5 10); the decode adds B3 28.
+# at 4096 tokens (B1 10, B5 10); the decode adds VAE_DECODE_B9 B9.
 def _legs():
     def counts(steps, interval, conditioned):
         full = len(range(0, steps, interval or 1))
         cached = steps - full
         b1 = 70 * full + 10 * cached
-        return expect(flash_fwd=b1, groupnorm=34 * full + 20 * cached + 28,
+        return expect(flash_fwd=b1, groupnorm=34 * full + 20 * cached,
+                      vae_conv=VAE_DECODE_B9,
                       dual=b1 if conditioned else 0)
     legs = [("ddim_4_unconditioned", "ddim", 4, None, False, False),
             ("dpmpp_12", "dpmsolver++", 12, None, True, False),
@@ -1749,7 +1814,8 @@ def eval_pages(device, mods) -> dict:
                    seconds=time.perf_counter() - t0, **panel_row(img, req.height, req.width),
                    launches=since(before))
         emit({"phase": "eval_pages", **row})
-        want = expect(flash_fwd=EVAL_STEPS * 70, groupnorm=EVAL_STEPS * 34 + 28,
+        want = expect(flash_fwd=EVAL_STEPS * 70, groupnorm=EVAL_STEPS * 34,
+                      vae_conv=VAE_DECODE_B9,
                       dual=EVAL_STEPS * 70)
         if (req.height, req.width) != (1024, 1024) or row["characters"] < 1 \
                 or row["launches"] != want:
@@ -1858,7 +1924,7 @@ def serve_agent(device, mods, ids, max_new_tokens: int = 500) -> dict:
                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
                launches=launches)
     emit({"phase": "serve_agent", **row})
-    want = expect(flash_fwd=20 * 70, groupnorm=20 * 34 + 28, dual=20 * 70,
+    want = expect(flash_fwd=20 * 70, groupnorm=20 * 34, dual=20 * 70, vae_conv=VAE_DECODE_B9,
                   int4=max_new_tokens * (7 * acfg.llm.num_layers + 1))
     if launches != want:
         raise AssertionError(f"launch counts {launches} != expected {want}")
@@ -2049,7 +2115,8 @@ def write_mangazero(root, pages: int = 8, seed: int = 8) -> None:
 
 TRAIN_STEPS, PROFILED_STEP = 6, 5
 # per step of T1 (stage 2 at 1024², batch 1 a rank, remat on)
-T1_STEP = dict(flash_fwd=140, flash_dq=70, flash_dkv=70, groupnorm=88, dual=140)
+T1_STEP = dict(flash_fwd=140, flash_dq=70, flash_dkv=70, groupnorm=68, dual=140,
+               vae_conv=VAE_ENCODE_B9)
 T1_LOSSES: list = []          # T1's losses by step, from the train phase
 
 
@@ -2182,7 +2249,7 @@ def train(device, weights_root) -> dict:
                    launches=totals)
     emit({"phase": "train_summary", **summary})
     # per step, remat on: B1 70 forward + 70 replayed, B2 and B4 70 each; B3 34 in
-    # the UNet forward + 34 replayed + 20 in the VAE encoder; B5 70 + 70 replayed
+    # the UNet forward + 34 replayed; B5 70 + 70 replayed; B9 23 in the VAE encoder
     want = expect(**T1_STEP)
     if len(rows) != TRAIN_STEPS or not all(np.isfinite(r["loss"]) for r in rows):
         raise AssertionError(f"a bad loss: {rows}")
@@ -2261,7 +2328,8 @@ def train_bf16(device, weights_root) -> dict:
                    moved_frozen_unet=f"{sum(moved['frozen_unet'])}/{len(moved['frozen_unet'])}",
                    peak_gib=max(r["peak_gib"] for r in rows), launches=totals)
     emit({"phase": "train_bf16_summary", **summary})
-    want = expect(flash_fwd=140, flash_dq=70, flash_dkv=70, groupnorm=88, dual=140)
+    want = expect(flash_fwd=140, flash_dq=70, flash_dkv=70, groupnorm=68, dual=140,
+                  vae_conv=VAE_ENCODE_B9)
     if len(rows) != BF16_STEPS or not all(np.isfinite(r["loss"]) for r in rows):
         raise AssertionError(f"a bad loss: {rows}")
     if dtypes != ["torch.bfloat16"] or not (all(moved["unet"]) and all(moved["resampler"])
@@ -2275,13 +2343,14 @@ def train_bf16(device, weights_root) -> dict:
 
 REMAT_POLICIES = (None, "dots", "attn", "dots_attn", "dots_deepest")
 # B1 a T1 step under each policy: attn and dots_attn keep the forward's (o,
-# lse) and drop its 70 replays; B2 70, B4 70, B3 88 (resnets: full recompute)
+# lse) and drop its 70 replays; B2 70, B4 70, B3 68 (resnets: full recompute)
 # and B5 140 (not named, as in JAX: replayed) under all five
 REMAT_B1 = {None: 140, "dots": 140, "attn": 70, "dots_attn": 70, "dots_deepest": 140}
 
 
 def remat_launches(policy) -> dict:
-    return expect(flash_fwd=REMAT_B1[policy], flash_dq=70, flash_dkv=70, groupnorm=88, dual=140)
+    return expect(flash_fwd=REMAT_B1[policy], flash_dq=70, flash_dkv=70, groupnorm=68, dual=140,
+                  vae_conv=VAE_ENCODE_B9)
 
 
 def host_copy(params) -> dict:
@@ -2602,8 +2671,9 @@ def train_lora(device) -> dict:
     emit({"phase": "train_lora_summary", **summary})
     # a step as T1's, but the 3 resnets before the first adapted layer (down
     # level 0 and the first of level 1) need no backward, so remat replays 28
-    # of the UNet's 34 B3 calls: B3 34 + 28 + 20 in the VAE encoder
-    want = expect(flash_fwd=140, flash_dq=70, flash_dkv=70, groupnorm=82, dual=140)
+    # of the UNet's 34 B3 calls: B3 34 + 28, and B9 23 in the VAE encoder
+    want = expect(flash_fwd=140, flash_dq=70, flash_dkv=70, groupnorm=62, dual=140,
+                  vae_conv=VAE_ENCODE_B9)
     if len(rows) != LORA_STEPS or not all(np.isfinite(r["loss"]) for r in rows):
         raise AssertionError(f"a bad loss: {rows}")
     n_adapters = len(groups["lora_A"]) + len(groups["lora_B"])
@@ -2775,9 +2845,10 @@ def check_reference_train_mllm(device, num_layers: int = 2, tokens: int = 160) -
     # 4 self-attentions of 1024 tokens: B1 forward + replay, B2/B4 for the 3
     # whose input depends on the agent (the first block's comes before any IP
     # token); 4 cross-attentions: B5 forward + replay; B3 16 in the UNet
-    # forward, 12 replayed (not the 2 resnets before the first IP token), 20
-    # in the VAE encoder
-    want_launches = expect(flash_fwd=8, flash_dq=3, flash_dkv=3, groupnorm=48, dual=8)
+    # forward, 12 replayed (not the 2 resnets before the first IP token); B9
+    # 23 in the VAE encoder
+    want_launches = expect(flash_fwd=8, flash_dq=3, flash_dkv=3, groupnorm=28, dual=8,
+                           vae_conv=VAE_ENCODE_B9)
     if not (row["loss_rel_err"] <= 2e-2 and total <= 5e-2 and per[worst] <= 1.5e-1
             and launches == want_launches):
         raise AssertionError(f"the stage-3 step on the card disagrees with the CPU "
@@ -2950,9 +3021,10 @@ def train_mllm(device) -> dict:
     # per step, remat on: B5 70 forward + 70 replayed; B1 70 + 70 replayed; B2
     # and B4 69, every self-attention but the first transformer block's, whose
     # input comes before any IP token and needs no gradient; B3 34 in the UNet
-    # forward + 28 replayed (not the 3 resnets before the first cross-attention)
-    # + 20 in the VAE encoder; the LLaMA's 400-token attention is plain math
-    want = expect(flash_fwd=140, flash_dq=69, flash_dkv=69, groupnorm=82, dual=140)
+    # forward + 28 replayed (not the 3 resnets before the first cross-attention);
+    # B9 23 in the VAE encoder; the LLaMA's 400-token attention is plain math
+    want = expect(flash_fwd=140, flash_dq=69, flash_dkv=69, groupnorm=62, dual=140,
+                  vae_conv=VAE_ENCODE_B9)
     losses = ("loss", "loss_diffusion", "loss_lm", "loss_rec")
     if len(rows) != last or not all(np.isfinite(r[k]) for r in rows for k in losses):
         raise AssertionError(f"a bad loss: {rows}")
@@ -3379,7 +3451,8 @@ def agent_cli(device, root, num_layers: int = 2, max_new_tokens: int = 500) -> d
                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
                launches=launches, **panel_row(img, 1024, 1024))
     emit({"phase": "agent_cli", **row})
-    want_counts = expect(flash_fwd=AGENT_CLI_STEPS * 70, groupnorm=AGENT_CLI_STEPS * 34 + 28,
+    want_counts = expect(flash_fwd=AGENT_CLI_STEPS * 70, groupnorm=AGENT_CLI_STEPS * 34,
+                         vae_conv=VAE_DECODE_B9,
                          dual=AGENT_CLI_STEPS * 70,
                          int4=max_new_tokens * (7 * num_layers + 1))
     if not (layout and row["ids_reach_generate"] and row["decode_steps"] == max_new_tokens
@@ -3427,7 +3500,7 @@ def serve_cp(device, mods, ids) -> dict:
                 latents=server.initial_latents(7, (1, lat_side, lat_side, 4)))
     tiles = len(tile_plan(lat_side, lat_side))
     want = expect(flash_fwd=CP_STEPS * 70, dual=CP_STEPS * 70,
-                  groupnorm=CP_STEPS * 34 + 28 * tiles)
+                  groupnorm=CP_STEPS * 34, vae_conv=VAE_DECODE_B9 * tiles)
     rows, panels = {}, {}
     reset_counts()
     for leg, pipe in (("replicated", base), ("context_parallel", cp)):
@@ -4111,9 +4184,10 @@ def serve_agent_tp_check(records) -> dict:
 # layouts' bf16 differences grown by that step, not a wrong update
 # (tools/torch_model_axis_probe.py train_mllm_tp_rates)
 TRAIN_TP_LAYERS, TRAIN_TP_LR, TRAIN_TP_HW, TRAIN_TP_TOKENS = 4, 3e-5, 1024, 400
-# a stage-3 step at T3's shapes: B1 70 + 70 replayed, B2/B4 69, B3 34 + 28 replayed + 20
-# in the VAE encoder, B5 70 + 70 replayed (train_mllm's count)
-T3_STEP = dict(flash_fwd=140, flash_dq=69, flash_dkv=69, groupnorm=82, dual=140)
+# a stage-3 step at T3's shapes: B1 70 + 70 replayed, B2/B4 69, B3 34 + 28 replayed,
+# B5 70 + 70 replayed, B9 23 in the VAE encoder (train_mllm's count)
+T3_STEP = dict(flash_fwd=140, flash_dq=69, flash_dkv=69, groupnorm=62, dual=140,
+               vae_conv=VAE_ENCODE_B9)
 
 
 def train_tp_stack(device):
@@ -4545,6 +4619,7 @@ def main() -> int:
     from diffsensei_tpu_torch.ops import int4_matmul as i4
     from diffsensei_tpu_torch.ops import chunked_attention as ca
     from diffsensei_tpu_torch.ops import single_pass_attention as sp
+    from diffsensei_tpu_torch.ops import vae_conv as vc
 
     device = torch.device("cuda", 0)
     smi = nvidia_smi_line()
@@ -4562,13 +4637,14 @@ def main() -> int:
         fn()
         return time.perf_counter() - t
 
-    with ThreadPoolExecutor(6) as pool:       # one nvcc for each CUDA source, together
+    with ThreadPoolExecutor(7) as pool:       # one nvcc for each CUDA source, together
         nvcc = {"flash_attention": pool.submit(timed, fa.build),
                 "dual_cross_attention": pool.submit(timed, dca.build),
                 "int4_matmul": pool.submit(timed, i4.build),
                 "groupnorm_silu": pool.submit(timed, gn.build),
                 "chunked_attention": pool.submit(timed, ca.build),
-                "single_pass_attention": pool.submit(timed, sp.build)}
+                "single_pass_attention": pool.submit(timed, sp.build),
+                "vae_conv": pool.submit(timed, vc.build)}
         nvcc = {name: fut.result() for name, fut in nvcc.items()}
     from diffsensei_tpu_torch.ops import _build
     ptxas = {}
@@ -4583,6 +4659,7 @@ def main() -> int:
     # the kernels alone on the card first: their times are taken here
     flash = check_flash(device)
     gnorm = check_groupnorm(device)
+    vae_conv = check_vae_conv(device)
     int4 = check_int4(device)
     int4_tp = check_int4_tp(device)
     flash_dq, flash_dkv = check_flash_bwd(device)
@@ -4707,6 +4784,11 @@ def main() -> int:
              source="diffsensei_tpu_torch/csrc/single_pass_attention.cu",
              replaces="tools/bench_attention_single.py:28",
              **on_paths("single"), **single),
+        dict(name="vae_conv", route="cuda", source="diffsensei_tpu_torch/csrc/vae_conv.cu",
+             replaces="none (the JAX package leaves the VAE's convolutions to XLA)",
+             design="implicit GEMM over NHWC, split-TF32 wgmma with A in registers, "
+                    "GroupNorm+SiLU on load, bias and residual in the epilogue",
+             **on_paths("vae_conv"), **vae_conv),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of the attention kernels: B1, B2 and B4's
 // head_dim-64 path (flash_attention.cu), B7 (chunked_attention.cu) and B8
-// (single_pass_attention.cu). TMA loads of bf16 tiles 64 values wide through
-// mbarrier rings, wgmma on them, the register layouts that join the two
-// products of attention, and what warpgroups and the blocks of a
+// (single_pass_attention.cu), and of the VAE's convolution B9
+// (vae_conv.cu: TF32 products with A in registers, 5-d TMA boxes). TMA
+// loads of bf16 tiles 64 values wide through mbarrier rings, wgmma on
+// them, the register layouts that join the two products of attention, and
+// what warpgroups and the blocks of a
 // thread-block cluster exchange through: named barriers, and asynchronous
 // stores and bulk copies into another block's shared memory that complete on
 // its mbarrier. This file is their one home; each source that includes it
@@ -130,6 +132,15 @@ __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uin
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void tma_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+        "r"(c3), "r"(c4) : "memory");
 }
 
 // Shared-memory matrix descriptor of a tile TMA wrote with the 128-byte
@@ -275,6 +286,29 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : HOP_D32_OUT(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
+
+// d (64 x 128, fp32) = [d +] A B^T in TF32, A 64 x 8 in registers (each
+// warp's 16 rows: a[0] row g col t, a[1] row g + 8 col t, a[2] row g col
+// t + 4, a[3] row g + 8 col t + 4, for lane 4g + t; fp32 values whose low 13
+// bits the tensor cores ignore) and B 128 x 8 K-major in shared memory (a
+// 32-byte step of a tile of 128-byte rows, 128-byte swizzle). TF32 has no
+// transpose bits: both operands are K-major.
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " HOP_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : HOP_D64_OUT(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// Warpgroup-wide register budgets (all four warps execute it): a producer
+// warpgroup gives registers up, consumers take them, within the block's
+// allocation at launch.
+template <int N>
+__device__ __forceinline__ void regs_dec() { asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N)); }
+template <int N>
+__device__ __forceinline__ void regs_inc() { asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N)); }
 
 #define HOP_D128 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \

@@ -8,13 +8,23 @@ dict loads as it is; ``load_decoder_state_dict`` loads only the decode half.
 ``tiled_decode`` decodes a latent with a side above one tile in overlapping
 tiles, as the JAX package does for every latent side above 128.
 
-The resnets' GroupNorm+SiLU runs on kernel B3. The mid-block attention stays
-plain math: one head over (H/8)*(W/8) tokens, about 1 GiB of fp32 scores at
-1024².
+The resnets, downsamplers and upsamplers are the VAE's own modules
+(``VAEResnetBlock``, ``VAEDownsample``, ``VAEUpsample``, with the parameter
+names of ``layers``' shared ones): a 3x3 convolution whose channels the
+kernel takes (``vae_conv.takes``, decided when the module is built: every one
+of the SDXL VAE's) goes through ``ops/vae_conv.py`` (kernel B9 on the card:
+GroupNorm+SiLU on load, the upsample read in place, bias and residual in its
+epilogue, fp32 by split-TF32 products), any other (the tiny presets' 8-16
+channels) through plain ``layers`` modules, B3 and ``F.conv2d``. The UNet's
+bf16 blocks keep B3 and cuDNN. ``conv_in``,
+``conv_out``, the 1x1 shortcuts and ``quant_conv``/``post_quant_conv`` stay
+on ``F.conv2d``. The mid-block attention stays plain math: one head over
+(H/8)*(W/8) tokens, about 1 GiB of fp32 scores at 1024².
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -23,8 +33,100 @@ import torch.nn.functional as F
 from torch import nn
 
 from diffsensei_tpu_torch.core.config import VAEConfig
-from diffsensei_tpu_torch.models.layers import (
-    Conv2d, Downsample2D, GroupNorm, ResnetBlock2D, Upsample2D)
+from diffsensei_tpu_torch.models.layers import Conv2d, Conv3x3, FusedGroupNormSiLU, GroupNorm
+from diffsensei_tpu_torch.ops import vae_conv
+
+
+class VAEConv3x3(Conv2d):
+    """A 3x3 convolution of the VAE, padding 1, in ``mode`` (``vae_conv``'s
+    STRIDE1, STRIDE2 or UPSAMPLE), run by ``vae_conv.vae_conv3x3``. The
+    weights' TF32 halves are made at first use and again whenever the
+    weight is another Parameter or its storage or version changes (a load);
+    they are not parameters, so state dicts are unchanged."""
+
+    def __init__(self, in_channels: int, out_channels: int, mode: int = vae_conv.STRIDE1, **kw):
+        super().__init__(in_channels, out_channels, 3, padding=1,
+                         stride=2 if mode == vae_conv.STRIDE2 else 1, **kw)
+        self.mode = mode
+        self._halves = None
+
+    def _split(self):
+        w = self.weight
+        key = (w.data_ptr(), w._version, w.device)
+        if self._halves is None or self._halves[0]() is not w or self._halves[1] != key:
+            self._halves = (weakref.ref(w), key, vae_conv.split_weight(w))
+        return self._halves[2]
+
+    def forward(self, x: torch.Tensor, norm: Optional[FusedGroupNormSiLU] = None,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return vae_conv.vae_conv3x3(x, self.weight, self.bias, self.mode, norm, residual,
+                                    self._split)
+
+
+class VAEResnetBlock(nn.Module):
+    """``layers.ResnetBlock2D`` without time conditioning, for the VAE. Where
+    the kernel takes the channels (``kernel``, fixed when built) each
+    GroupNorm+SiLU is the prologue of the convolution after it and the
+    residual (the input, or its 1x1 shortcut) is added in conv2's epilogue;
+    otherwise the plain composition of ``layers``."""
+
+    def __init__(self, in_channels: int, out_channels: int, norm_num_groups: int = 32,
+                 norm_eps: float = 1e-6, dtype=None, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.kernel = (vae_conv.takes(in_channels, out_channels, vae_conv.STRIDE1, norm_num_groups)
+                       and vae_conv.takes(out_channels, out_channels, vae_conv.STRIDE1,
+                                          norm_num_groups))
+        conv = VAEConv3x3 if self.kernel else Conv3x3
+        self.norm1 = FusedGroupNormSiLU(norm_num_groups, in_channels, norm_eps, **kw)
+        self.conv1 = conv(in_channels, out_channels, **kw)
+        self.norm2 = FusedGroupNormSiLU(norm_num_groups, out_channels, norm_eps, **kw)
+        self.conv2 = conv(out_channels, out_channels, **kw)
+        self.conv_shortcut = (Conv2d(in_channels, out_channels, 1, **kw)
+                              if in_channels != out_channels else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        res = x if self.conv_shortcut is None else self.conv_shortcut(x)
+        if self.kernel:
+            return self.conv2(self.conv1(x, self.norm1), self.norm2, res)
+        vae_conv.fallbacks += 2
+        return res + self.conv2(self.norm2(self.conv1(self.norm1(x))))
+
+
+class VAEDownsample(nn.Module):
+    """Stride-2 3x3 conv (``layers.Downsample2D``'s names), on the kernel
+    where it takes the channels."""
+
+    def __init__(self, channels: int, dtype=None, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.kernel = vae_conv.takes(channels, channels, vae_conv.STRIDE2)
+        self.conv = (VAEConv3x3(channels, channels, vae_conv.STRIDE2, **kw) if self.kernel
+                     else Conv2d(channels, channels, 3, stride=2, padding=1, **kw))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.kernel:
+            vae_conv.fallbacks += 1
+        return self.conv(x)
+
+
+class VAEUpsample(nn.Module):
+    """Nearest 2x upsample, then a 3x3 conv (``layers.Upsample2D``'s names);
+    where the kernel takes the channels it reads the upsampled pixels from x
+    in place."""
+
+    def __init__(self, channels: int, dtype=None, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.kernel = vae_conv.takes(channels, channels, vae_conv.UPSAMPLE)
+        self.conv = (VAEConv3x3(channels, channels, vae_conv.UPSAMPLE, **kw) if self.kernel
+                     else Conv3x3(channels, channels, **kw))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kernel:
+            return self.conv(x)
+        vae_conv.fallbacks += 1
+        return self.conv(vae_conv.upsample2x(x))
 
 
 class VAEAttention(nn.Module):
@@ -66,15 +168,15 @@ class Encoder(nn.Module):
             stage = nn.Module()
             stage.resnets = nn.ModuleList()
             for _ in range(cfg.layers_per_block):
-                stage.resnets.append(ResnetBlock2D(prev, ch, groups, norm_eps=1e-6, **kw))
+                stage.resnets.append(VAEResnetBlock(prev, ch, groups, **kw))
                 prev = ch
             if level < len(chans) - 1:
-                stage.downsamplers = nn.ModuleList([Downsample2D(ch, **kw)])
+                stage.downsamplers = nn.ModuleList([VAEDownsample(ch, **kw)])
             self.down_blocks.append(stage)
         mid = chans[-1]
         self.mid_block = nn.Module()
         self.mid_block.resnets = nn.ModuleList(
-            [ResnetBlock2D(mid, mid, groups, norm_eps=1e-6, **kw) for _ in range(2)])
+            [VAEResnetBlock(mid, mid, groups, **kw) for _ in range(2)])
         self.mid_block.attentions = nn.ModuleList([VAEAttention(mid, groups, **kw)])
         self.conv_norm_out = GroupNorm(groups, mid, eps=1e-6, **kw)
         self.conv_out = Conv2d(mid, 2 * cfg.latent_channels, 3, padding=1, **kw)
@@ -103,7 +205,7 @@ class Decoder(nn.Module):
         self.conv_in = Conv2d(cfg.latent_channels, mid, 3, padding=1, **kw)
         self.mid_block = nn.Module()
         self.mid_block.resnets = nn.ModuleList(
-            [ResnetBlock2D(mid, mid, groups, norm_eps=1e-6, **kw) for _ in range(2)])
+            [VAEResnetBlock(mid, mid, groups, **kw) for _ in range(2)])
         self.mid_block.attentions = nn.ModuleList([VAEAttention(mid, groups, **kw)])
         self.up_blocks = nn.ModuleList()
         prev = mid
@@ -111,10 +213,10 @@ class Decoder(nn.Module):
             stage = nn.Module()
             stage.resnets = nn.ModuleList()
             for _ in range(cfg.layers_per_block + 1):
-                stage.resnets.append(ResnetBlock2D(prev, ch, groups, norm_eps=1e-6, **kw))
+                stage.resnets.append(VAEResnetBlock(prev, ch, groups, **kw))
                 prev = ch
             if rev < len(chans) - 1:
-                stage.upsamplers = nn.ModuleList([Upsample2D(ch, **kw)])
+                stage.upsamplers = nn.ModuleList([VAEUpsample(ch, **kw)])
             self.up_blocks.append(stage)
         self.conv_norm_out = GroupNorm(groups, chans[-1], eps=1e-6, **kw)
         self.conv_out = Conv2d(chans[-1], cfg.out_channels, 3, padding=1, **kw)

@@ -48,6 +48,7 @@ from diffsensei_tpu_torch.models.unet import (
 from diffsensei_tpu_torch.models.vae import AutoencoderKL, tile_plan, tiled_decode
 from diffsensei_tpu_torch.models.vision_encoder import VisionTransformer
 from diffsensei_tpu_torch.ops.masked_ip import build_ip_attention_bias
+from diffsensei_tpu_torch.ops import vae_conv
 from diffsensei_tpu_torch.parallel.mesh import data_group, shard_batch
 from diffsensei_tpu_torch.utils.init import init_flax_like_
 from diffsensei_tpu_torch.utils.observability import span
@@ -254,8 +255,10 @@ def _decode(vae: AutoencoderKL, latents: torch.Tensor, scaling_factor: float) ->
     z = latents.float() / scaling_factor
     tiled = max(z.shape[1:3]) > 128
     with span("pipeline.decode", tiled=tiled,
-              tiles=len(tile_plan(*z.shape[1:3])) if tiled else 1):
+              tiles=len(tile_plan(*z.shape[1:3])) if tiled else 1) as sp:
+        before = vae_conv.tally()
         img = tiled_decode(vae, z) if tiled else vae.decode(z)
+        vae_conv.span_counts(sp, before)
         return torch.clamp(img / 2 + 0.5, 0.0, 1.0)
 
 

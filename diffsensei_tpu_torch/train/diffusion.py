@@ -43,6 +43,7 @@ from diffsensei_tpu_torch.models.schedulers import DDPMSchedule
 from diffsensei_tpu_torch.models.unet import attention_levels, level_spatial_shape
 from diffsensei_tpu_torch.models.vae import sample_latent
 from diffsensei_tpu_torch.ops.masked_ip import build_ip_attention_bias
+from diffsensei_tpu_torch.ops import vae_conv
 from diffsensei_tpu_torch.parallel.mesh import host_rows
 from diffsensei_tpu_torch.parallel.train import (
     full_state, gather_rows, is_sharded, local_like, rank_weight, reduce_metrics)
@@ -134,8 +135,10 @@ def _draw(shape, like: torch.Tensor, generator: Optional[torch.Generator],
 
 
 def _encode_latents(frozen, pixel_values, generator, latent_noise, group=None):
-    with span("train.vae_encode"):
+    with span("train.vae_encode") as sp:
+        before = vae_conv.tally()
         mean, logvar = frozen.vae.encode(pixel_values)
+        vae_conv.span_counts(sp, before)
     eps = _draw(mean.shape, mean, generator, latent_noise, group)
     return sample_latent(mean, logvar, eps, frozen.vae_scaling)
 

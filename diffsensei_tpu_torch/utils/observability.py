@@ -39,11 +39,13 @@ under it):
   ``pipeline.ip_bias`` (the CFG box arrays and the masked-IP biases);
   ``denoise.step`` [i], holding ``denoise.unet`` and ``denoise.sampler``
   (the CFG combine and the scheduler step); ``pipeline.decode`` [tiled,
-  tiles];
+  tiles, kernel_convs, fallback_convs: the VAE's 3x3 convolutions that ran
+  kernel B9 and those that did not, set as the span closes];
 * training, ``train/diffusion.py``: ``train.step`` [step], the root of a
   step, holding ``train.forward`` (in it ``train.encode``, which holds
-  ``train.vae_encode``, and ``train.unet_forward``), ``train.backward``
-  (``loss.backward()`` and the gradient sync), ``train.optimizer`` (the
+  ``train.vae_encode`` [kernel_convs, fallback_convs], and
+  ``train.unet_forward``), ``train.backward`` (``loss.backward()`` and the
+  gradient sync), ``train.optimizer`` (the
   clip and AdamW) and ``train.metrics``; ``train.remat_replay``, the
   recompute of one checkpointed block (``models/remat.py``), runs inside
   the backward on the thread autograd gives it;

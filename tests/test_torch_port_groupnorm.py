@@ -323,4 +323,4 @@ def test_port_imports_no_triton():
     assert not importing
     assert sorted(f.name for f in (root / "csrc").iterdir() if f.suffix in (".cu", ".py")) == [
         "chunked_attention.cu", "dual_cross_attention.cu", "flash_attention.cu",
-        "groupnorm_silu.cu", "int4_matmul.cu", "single_pass_attention.cu"]
+        "groupnorm_silu.cu", "int4_matmul.cu", "single_pass_attention.cu", "vae_conv.cu"]

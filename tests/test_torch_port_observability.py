@@ -16,6 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 from diffsensei_tpu_torch.data.loader import PrefetchLoader
 from diffsensei_tpu_torch.models import unet as unet_mod
 from diffsensei_tpu_torch.models.schedulers import DDPMSchedule
+from diffsensei_tpu_torch.models.vae import VAEDownsample, VAEResnetBlock, VAEUpsample
 from diffsensei_tpu_torch.pipelines.pipeline import DiffSenseiPipeline, PipelineModules
 from diffsensei_tpu_torch.serve.api import DiffSenseiServer, GenerationRequest
 from diffsensei_tpu_torch.train import diffusion as tdiff
@@ -33,6 +34,12 @@ def _recorded(fn):
     got = list(SPANS)
     SPANS.clear()
     return got, prof.events()
+
+
+def _vae_convs(module):
+    """The VAE's 3x3 convolutions under ``module`` (two a resnet)."""
+    return sum(2 if isinstance(m, VAEResnetBlock) else 1 for m in module.modules()
+               if isinstance(m, (VAEResnetBlock, VAEDownsample, VAEUpsample)))
 
 
 def _named(records, name):
@@ -129,7 +136,10 @@ def test_a_served_request_gives_its_span_tree(server):
         assert s.parent == root.id
         assert len(_children(records, s, "denoise.unet")) == 1
         assert len(_children(records, s, "denoise.sampler")) == 1
-    assert _named(records, "pipeline.decode")[0].attrs == dict(request, tiled=False, tiles=1)
+    # the VAE's 3x3 convolutions, none on the kernel on the CPU
+    convs = _vae_convs(server.pipeline.m.vae.decoder)
+    assert _named(records, "pipeline.decode")[0].attrs == dict(
+        request, tiled=False, tiles=1, kernel_convs=0, fallback_convs=convs)
     assert [u.attrs["i"] for s in steps for u in _children(records, s, "denoise.unet")] == [0, 1]
 
     # every span belongs to the request: its number, inside its range, on its thread
@@ -216,7 +226,10 @@ def test_a_train_step_gives_its_span_tree(trainer, monkeypatch, remat):
         unet.remat = False
     (root,) = _named(records, "train.step")
     assert root.parent is None and root.attrs == {"step": state.step - 1}
-    assert all(r.attrs == root.attrs for r in records)
+    assert all(r.attrs == root.attrs for r in records if r.name != "train.vae_encode")
+    convs = _vae_convs(frozen.vae.encoder)
+    (vae_encode,) = _named(records, "train.vae_encode")
+    assert vae_encode.attrs == dict(root.attrs, kernel_convs=0, fallback_convs=convs)
     for name in ("train.forward", "train.backward", "train.optimizer", "train.metrics"):
         assert len(_children(records, root, name)) == 1, name
     (fwd,) = _named(records, "train.forward")
