@@ -5,6 +5,11 @@ configuration states for each network: the VAE in ``vae_dtype``, the rest in
 ``dtype``. Remat's replay is not counted: the reference keeps every
 activation. AdamW's elementwise update is not counted either (about ten
 operations a trainable, under 0.01% of a step).
+
+With an agent (``reference/agent.py``) a request also asks for the agent's
+work, a term of its own (``agent_least_s``): its prefill and each decode
+step at the least, as the configuration's reference decoder counts them
+(``least_cost``), and the two resamplers.
 """
 
 from __future__ import annotations
@@ -15,9 +20,11 @@ from typing import Dict, Tuple
 
 import torch
 
+from benchmark.reference import agent as RA
 from benchmark.reference import diffusion as RD
 from benchmark.reference import nets as RN
-from benchmark.yardstick import PEAK_FLOPS, reference_flops
+from benchmark.weights import DTYPES
+from benchmark.yardstick import HBM_BYTES_PER_S, PEAK_FLOPS, reference_flops
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,3 +134,31 @@ def train_step_flops(stack_json: str, rows: int, h: int, w: int,
     out = {stack["dtype"]: enc + trained}
     out[stack["vae_dtype"]] = out.get(stack["vae_dtype"], 0.0) + vae
     return tuple(out.items())
+
+
+@functools.lru_cache(maxsize=None)
+def agent_least_s(stack_json: str, prompt_len: int, new_tokens: int) -> float:
+    """The agent's least time in one request with characters: the input
+    resampler over the character block, the prefill of ``prompt_len``
+    tokens at the larger of its FLOPs over the peak and its bytes over the
+    memory rate, ``new_tokens`` decode steps at the bytes each must read,
+    and the output resampler, all in the stack's ``dtype``."""
+    stack = json.loads(stack_json)
+    agent = stack["agent"]
+    manga = stack["manga"]
+    dtype = stack["dtype"]
+    cost = RA.decoder(agent).least_cost(RA.llm_config(agent), prompt_len, new_tokens,
+                                        DTYPES[dtype].itemsize)
+    meta = torch.device("meta")
+    with meta:
+        res = {k: RA.QwenResampler(agent[k]) for k in ("input_resampler", "output_resampler")}
+    chars = torch.zeros((1, manga["max_num_ips"] * manga["num_vision_tokens"],
+                         stack["unet"]["cross_attention_dim"]), device=meta)
+    out_cfg = agent["output_resampler"]
+    hidden = torch.zeros((1, RA.num_queries(agent["input_resampler"]),
+                          out_cfg.get("kv_dim") or out_cfg["embed_dim"]), device=meta)
+    resampled = reference_flops(lambda: (res["input_resampler"](chars),
+                                         res["output_resampler"](hidden)))
+    prefill = max(cost["prefill_flops"] / PEAK_FLOPS[dtype],
+                  cost["prefill_bytes"] / HBM_BYTES_PER_S)
+    return resampled / PEAK_FLOPS[dtype] + prefill + cost["decode_bytes"] / HBM_BYTES_PER_S

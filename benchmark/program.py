@@ -1,6 +1,7 @@
 """The system under test, built as its users build it: the port's modules
 from a configuration file, the benchmark's seeded weights loaded into them,
-then the serving API or the stage-2 training step of the train CLI.
+then the serving API (with the SEED-X agent where the stack has one) or the
+stage-2 training step of the train CLI.
 
 Everything of ``diffsensei_tpu_torch`` is imported inside these functions,
 so that the reference and the yardstick import none of it.
@@ -9,6 +10,7 @@ so that the reference and the yardstick import none of it.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Dict
 
 import torch
@@ -37,36 +39,97 @@ def modules(stack: Dict, weights: Dict[str, Dict[str, torch.Tensor]], device):
     mods = PipelineModules.build(port_configs(stack), DTYPES[stack["dtype"]], device,
                                  init="none", channels_last=True)
     for name, mod in mods.networks().items():
-        have = {k: tuple(v.shape) for k, v in mod.state_dict().items()}
-        want = {k: tuple(v.shape) for k, v in weights[name].items()}
-        if have != want:
-            raise ValueError(f"{name}: the program's parameters differ from the reference's: "
-                             f"{sorted(set(have.items()) ^ set(want.items()))[:6]}")
-        mod.load_state_dict(weights[name], strict=True, assign=True)
+        _load(name, mod, weights[name])
         if name in ("unet", "vae"):
             mod.to(memory_format=torch.channels_last)
-        mod.eval().requires_grad_(False)
     return mods
 
 
-def server(cfg: Dict, mods, auto_batch_max_side):
+def _load(name: str, mod, state: Dict[str, torch.Tensor]) -> None:
+    have = {k: tuple(v.shape) for k, v in mod.state_dict().items()}
+    want = {k: tuple(v.shape) for k, v in state.items()}
+    if have != want:
+        raise ValueError(f"{name}: the program's parameters differ from the reference's: "
+                         f"{sorted(set(have.items()) ^ set(want.items()))[:6]}")
+    mod.load_state_dict(state, strict=True, assign=True)
+    mod.eval().requires_grad_(False)
+
+
+def _config(cls, keys: Dict):
+    """A port config dataclass of exactly these keys (an unknown key raises)."""
+    from diffsensei_tpu_torch.core.config import dict_to_dataclass
+
+    unknown = set(keys) - {f.name for f in dataclasses.fields(cls)}
+    if unknown:
+        raise ValueError(f"{cls.__name__} has no {sorted(unknown)}")
+    return dict_to_dataclass(cls, keys)
+
+
+def agent(stack: Dict, weights: Dict[str, Dict[str, torch.Tensor]], device):
+    """The port's ``ContinuousLVLM`` of the stack's ``agent`` section, built
+    empty in the stack's ``dtype`` (its LLM of the config class the section
+    names by import path, the vocabulary with the added rows), ``weights``
+    loaded by strict names."""
+    from diffsensei_tpu_torch.core.config import AgentConfig, QwenResamplerConfig
+    from diffsensei_tpu_torch.models.mllm.seed_x import ContinuousLVLM
+    from benchmark.reference.agent import llm_config
+    from benchmark.weights import DTYPES
+
+    a = stack["agent"]
+    module, _, cls = a["llm"]["class"].rpartition(".")
+    acfg = dataclasses.replace(
+        AgentConfig(), llm=_config(getattr(importlib.import_module(module), cls), llm_config(a)),
+        input_resampler=_config(QwenResamplerConfig, a["input_resampler"]),
+        output_resampler=_config(QwenResamplerConfig, a["output_resampler"]))
+    lvlm = ContinuousLVLM.build(acfg, DTYPES[stack["dtype"]], lora_rank=0, device=device,
+                                init="none")
+    for name, mod in zip(("llm", "input_resampler", "output_resampler"), lvlm.networks()):
+        _load(name, mod, weights[name])
+    return lvlm
+
+
+def token_spec(agent_cfg: Dict):
+    """The agent's ``MLLMTokenSpec``: the image ladder on the vocabulary's
+    last ``num_img_tokens + 2`` rows; ``encode_text`` reads a request's
+    caption ids from its prompt (space-separated ids) and gives the
+    configuration's newline ids for a newline."""
+    from diffsensei_tpu_torch.data.mllm_dataset import MLLMTokenSpec
+    from benchmark.reference.agent import ladder as ladder_of
+
+    ladder = ladder_of(agent_cfg)
+    newline = list(agent_cfg["newline_ids"])
+    return MLLMTokenSpec(
+        bos_id=agent_cfg["bos_id"], eos_id=agent_cfg["eos_id"], pad_id=agent_cfg["pad_id"],
+        boi_id=ladder[0], eoi_id=ladder[-1], img_ids=ladder[1:-1],
+        encode_text=lambda s: list(newline) if s == "\n" else [int(t) for t in s.split()])
+
+
+def server(cfg: Dict, mods, auto_batch_max_side, lvlm=None):
     """``DiffSenseiServer`` over the pipeline with the configuration's
-    sampler settings."""
+    sampler settings, and the agent ``lvlm`` where given (with
+    ``mllm_scale`` and ``mllm_max_new_tokens`` of the sampler)."""
     from diffsensei_tpu_torch.core.config import PipelineConfig
     from diffsensei_tpu_torch.pipelines.pipeline import DiffSenseiPipeline
     from diffsensei_tpu_torch.serve.api import DiffSenseiServer
 
     s = cfg["sampler"]
-    pcfg = PipelineConfig(num_inference_steps=s["num_inference_steps"],
-                          guidance_scale=s["guidance_scale"], ip_scale=s["ip_scale"],
-                          scheduler=s["scheduler"])
-    return DiffSenseiServer(DiffSenseiPipeline(mods, pcfg), auto_batch_max_side=auto_batch_max_side)
+    kw = dict(num_inference_steps=s["num_inference_steps"], guidance_scale=s["guidance_scale"],
+              ip_scale=s["ip_scale"], scheduler=s["scheduler"])
+    if lvlm is None:
+        return DiffSenseiServer(DiffSenseiPipeline(mods, PipelineConfig(**kw)),
+                                auto_batch_max_side=auto_batch_max_side)
+    pcfg = PipelineConfig(mllm_scale=s["mllm_scale"], **kw)
+    return DiffSenseiServer(DiffSenseiPipeline(mods, pcfg), agent=lvlm,
+                            mllm_spec=token_spec(cfg["stack"]["agent"]),
+                            mllm_max_new_tokens=s["mllm_max_new_tokens"],
+                            auto_batch_max_side=auto_batch_max_side)
 
 
 def request(spec: Dict):
     from diffsensei_tpu_torch.serve.api import GenerationRequest
 
-    return GenerationRequest(height=spec["height"], width=spec["width"],
+    return GenerationRequest(prompt=spec.get("prompt", ""),
+                             height=spec["height"], width=spec["width"],
                              num_inference_steps=spec.get("steps"),
                              num_samples=spec["num_samples"], seed=spec["seed"],
                              character_images=spec["characters"], ip_bbox=spec["ip_bbox"],

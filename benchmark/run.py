@@ -6,7 +6,10 @@ Everything is found by name: the cell in ``BENCHMARK.json``, its
 configuration in ``benchmark/configs/<config>.json``, its traffic in
 ``benchmark/traffic/<traffic>.json`` (whose ``kind``, ``serve`` or
 ``train``, picks the module that runs it, ``benchmark/<kind>.py``), and each
-per-layer metric's reader in ``benchmark/metrics/<metric>.py``. The last
+per-layer metric's reader in ``benchmark/metrics/<metric>.py``. A serving
+configuration may carry the SEED-X agent (an ``agent`` section in its
+``stack``, ``benchmark/reference/agent.py``), whose plain reference decoder
+is found by name in ``benchmark/reference/decoders/``. The last
 line of standard output is one JSON object: ``correct``, ``attempted``,
 ``failed``, ``metrics`` (the cell's end-to-end metrics, or with ``--trace 1``
 its per-layer ones), ``device``, with ``--trace 1`` a ``breakdown``, and last

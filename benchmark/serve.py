@@ -18,6 +18,17 @@ latents, and checks the program's CFG and Euler step and its start
 latents (``step_gap``, the worst of these over the steps); and it decodes
 the program's final latents (``image_gap``: the largest pixel
 difference).
+
+A configuration whose ``stack`` has an ``agent`` (``reference/agent.py``)
+serves through the SEED-X agent: the server holds the port's
+``ContinuousLVLM``, each request's caption ids are drawn from the seed over
+the traffic's ``agent_prompt_tokens``, and a request with characters runs
+the agent's greedy decode before the denoise. The checked requests then
+keep, by hooks, the LLM's logits at the prefill's last position and at every
+decode step, the generated ids, ``img_gen_feat`` and the blended character
+tokens. The reference redraws the agent one block at a time in fp32 and
+compares them (``agent_gap``, ``reference/agent.py`` ``check``); the
+panel's ``step_gap`` runs on the program's blended tokens.
 """
 
 from __future__ import annotations
@@ -25,16 +36,16 @@ from __future__ import annotations
 import math
 import statistics
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from benchmark import trace as T
 from benchmark import weights as W
+from benchmark.reference import agent as RA
 from benchmark.reference import diffusion as RD
 from benchmark.reference import nets as RN
-
 
 
 def _rng(*key) -> np.random.Generator:
@@ -71,9 +82,11 @@ def _box(rng, lo: float, hi: float) -> List[float]:
     return [float(x), float(y), float(x + w), float(y + h)]
 
 
-def request_spec(traffic: Dict, seed: int, i: int, vocab: int = 49408) -> Dict:
+def request_spec(traffic: Dict, seed: int, i: int, vocab: int = 49408,
+                 agent: Optional[Dict] = None) -> Dict:
     """The ``i``-th request of a run: size, character pictures and boxes,
-    dialog boxes, token ids, latent seed."""
+    dialog boxes, token ids, latent seed; with the stack's ``agent`` also
+    the caption's ids (``caption_ids``, and as the prompt's text)."""
     lists = [traffic["sizes"], traffic["characters"], traffic["dialogs"]]
     cycle = max(len(v) for v in lists)
     c, p = divmod(i, cycle)
@@ -85,13 +98,20 @@ def request_spec(traffic: Dict, seed: int, i: int, vocab: int = 49408) -> Dict:
     prompt, prompt_2 = _ids(r, int(r.integers(lo, hi + 1)), vocab)
     neg = _rng(seed, 3)
     negative, negative_2 = _ids(neg, int(neg.integers(lo, hi + 1)), vocab)
-    return dict(
+    spec = dict(
         index=i, height=int(h), width=int(w), num_samples=int(traffic["num_samples"]),
         seed=int(r.integers(0, 2 ** 31 - 1)),
         characters=[_picture(r, *r.integers(96, 400, 2)) for _ in range(n_chars)],
         ip_bbox=[_box(r, 0.15, 0.6) for _ in range(n_chars)],
         dialog_bbox=[_box(r, 0.08, 0.3) for _ in range(n_dialogs)],
         prompt_ids=dict(ids=prompt, neg_ids=negative, ids_2=prompt_2, neg_ids_2=negative_2))
+    if agent is not None:    # ordinary ids: above the special ones, below the added rows
+        a = _rng(seed, 6, i)
+        lo, hi = traffic["agent_prompt_tokens"]
+        first = max(agent["bos_id"], agent["eos_id"], agent["pad_id"]) + 1
+        caption = a.integers(first, agent["llm"]["vocab_size"], int(a.integers(lo, hi + 1)))
+        spec.update(caption_ids=caption.tolist(), prompt=" ".join(map(str, caption)))
+    return spec
 
 
 def checked(traffic: Dict, seed: int, vocab: int) -> Dict[int, int]:
@@ -110,16 +130,49 @@ def checked(traffic: Dict, seed: int, vocab: int) -> Dict[int, int]:
 
 class Capture:
     """Forward hooks that keep, during a checked request, one panel's UNet
-    inputs and outputs at every step and its decoder inputs."""
+    inputs and outputs at every step and its decoder inputs; with the
+    agent, the LLM's last-position logits of every call, the generated ids,
+    ``img_gen_feat``'s first block and the blended character tokens the
+    pipeline is given."""
 
-    def __init__(self, mods):
+    def __init__(self, mods, lvlm=None, pipe=None):
         self.panel = None
         self.n = 1
         self.steps: List = []
         self.tiles: List = []
+        self.agent: Dict = {}
         self.handles = [
             mods.unet.register_forward_hook(self._unet, with_kwargs=True),
             mods.vae.post_quant_conv.register_forward_pre_hook(self._decode)]
+        self.undo: List = []
+        if lvlm is not None:
+            self.handles.append(lvlm.llm.register_forward_hook(self._logits))
+            self._after(lvlm, "generate", self._generated)
+            self._after(pipe, "prepare_ip_image_embeds", self._blended)
+
+    def _after(self, obj, attr: str, keep) -> None:
+        inner = getattr(obj, attr)
+
+        def wrapped(*args, **kwargs):
+            out = inner(*args, **kwargs)
+            if self.panel is not None:
+                keep(args, out)
+            return out
+        setattr(obj, attr, wrapped)
+        self.undo.append(lambda: setattr(obj, attr, inner))
+
+    def _logits(self, mod, args, out):
+        if self.panel is not None:
+            self.agent.setdefault("logits", []).append(out[0][0, -1].detach().clone())
+
+    def _generated(self, args, out):
+        self.agent["ids"] = out["output_ids"][0]
+        if out["img_gen_feat"] is not None:
+            self.agent["feat"] = out["img_gen_feat"][0].detach().clone()
+
+    def _blended(self, args, out):
+        if args[1] is not None:
+            self.agent["blend"] = args[1].detach().clone()
 
     def _unet(self, mod, args, kwargs, out):
         if self.panel is not None:
@@ -132,13 +185,17 @@ class Capture:
             self.tiles.append(args[0][self.panel].detach().clone())
 
     def take(self):
-        got = (self.steps, self.tiles)
-        self.steps, self.tiles = [], []
+        if "logits" in self.agent:
+            self.agent["logits"] = torch.stack(self.agent["logits"])
+        got = (self.steps, self.tiles, self.agent)
+        self.steps, self.tiles, self.agent = [], [], {}
         return got
 
     def remove(self):
         for h in self.handles:
             h.remove()
+        for undo in self.undo:
+            undo()
 
 
 def run(ctx) -> Dict:
@@ -147,17 +204,21 @@ def run(ctx) -> Dict:
     cfg, traffic, seed, dev = ctx.cfg, ctx.traffic, ctx.seed, ctx.device
     stack = cfg["stack"]
     vocab = stack["text_encoder"]["vocab_size"]
+    agent = stack.get("agent")
     weights = W.make(stack, seed, dev)
     mods = P.modules(stack, weights, dev)
     del weights
+    lvlm = None
+    if agent is not None:
+        lvlm = P.agent(stack, W.make_agent(stack, seed, dev), dev)
     if ctx.variant == "control":        # the program's int8 UNet, and TF32 for the VAE
         P.int8_unet(mods)
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
-    server = P.server(cfg, mods, traffic["auto_batch_max_side"])
+    server = P.server(cfg, mods, traffic["auto_batch_max_side"], lvlm)
     make = P.request
 
     # warm-up: one short request a (size, with and without characters)
-    base = request_spec(traffic, seed, 0, vocab)
+    base = request_spec(traffic, seed, 0, vocab, agent)
     for h, w in traffic["sizes"]:
         for n_chars in sorted({min(n, 1) for n in traffic["characters"]}):
             server.generate(make(dict(base, height=h, width=w, steps=traffic["warmup_steps"],
@@ -166,13 +227,13 @@ def run(ctx) -> Dict:
     T.sync(dev)
 
     want = checked(traffic, seed, vocab)
-    cap = Capture(mods)
+    cap = Capture(mods, lvlm, server.pipeline)
     latencies, failed, captured, images = [], 0, {}, {}
     t0 = time.perf_counter()
     ctx.setup_s = t0 - ctx.t_start
     i = 0
     while time.perf_counter() - t0 < ctx.seconds:
-        spec = request_spec(traffic, seed, i, vocab)
+        spec = request_spec(traffic, seed, i, vocab, agent)
         cap.panel, cap.n = want.get(i), spec["num_samples"]
         ts = time.perf_counter()
         try:
@@ -189,8 +250,9 @@ def run(ctx) -> Dict:
         cap.panel = None
         i += 1
     t_end = time.perf_counter()
+    ctx.log(f"window: {i} request(s) in {t_end - t0:.1f} s after {ctx.setup_s:.1f} s of set-up")
     for j in [k for k in want if k not in captured]:     # due in the window: wait for it
-        spec = request_spec(traffic, seed, j, vocab)
+        spec = request_spec(traffic, seed, j, vocab, agent)
         cap.panel, cap.n = want[j], spec["num_samples"]
         images[j] = server.generate(make(spec))[want[j]]
         captured[j] = cap.take()
@@ -208,10 +270,15 @@ def run(ctx) -> Dict:
         layer["latencies"] = latencies
         layer["span"] = span
     peak = T.peak_bytes(dev)
-    specs = {k: request_spec(traffic, seed, k, vocab) for k in want}
-    del server, mods, cap
+    specs = {k: request_spec(traffic, seed, k, vocab, agent) for k in want}
+    del server, mods, cap, lvlm
     T.free_memory()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t_check = time.perf_counter()
     check = reference_check(cfg, ctx, specs, want, captured, images)
+    ctx.log(f"reference check: {time.perf_counter() - t_check:.1f} s, "
+            f"peak {T.peak_bytes(dev) / 2 ** 30:.2f} GiB")
     return dict(attempted=i, failed=failed, e2e=e2e, layer=layer, peak=peak, check=check)
 
 
@@ -226,9 +293,11 @@ def _traced(ctx, server, mods, traffic, seed, start, vocab) -> Dict:
     undo = [spans.wrap(pipe, "encode_prompt", "conditioning"),
             spans.wrap(pipe, "prepare_ip_image_embeds", "conditioning"),
             spans.wrap(pipe_mod, "_decode", "decode")]
+    if server.agent is not None:
+        undo.append(spans.wrap(server.agent, "generate", "agent"))
     pre = mods.unet.register_forward_pre_hook(lambda m, a: spans.open())
     post = mods.unet.register_forward_hook(lambda m, a, o: spans.close("unet"))
-    specs = [request_spec(traffic, seed, start + k, vocab)
+    specs = [request_spec(traffic, seed, start + k, vocab, ctx.cfg["stack"].get("agent"))
              for k in range(traffic["trace_requests"])]
     with T.Launches() as launches, T.DeviceTrace() as dt:
         for spec in specs:
@@ -238,6 +307,9 @@ def _traced(ctx, server, mods, traffic, seed, start, vocab) -> Dict:
     for u in undo:
         u()
     T.sync(ctx.device)
+    ctx.log(f"traced {len(specs)} request(s): {dt.window_s:.1f} s, profiler stop "
+            f"{dt.stop_s:.1f} s, reduction {dt.reduce_s:.1f} s, {len(dt.kernels)} kernels, "
+            f"{len(dt.host)} host ops")
     return dict(spans={k: spans.ms(k) for k in spans.events}, launches=launches.shapes,
                 trace=dt, requests=len(specs))
 
@@ -251,10 +323,15 @@ def reference_check(cfg, ctx, specs, want, captured, images) -> Dict:
     length; and at step 0 that of its start latents to the reference's own
     draw from the request's seed. ``image_gap`` is the largest pixel
     difference of the panel against the reference's decode of the latents
-    that entered the program's decoder."""
+    that entered the program's decoder. With the agent, ``agent_gap``: the
+    worst of ``reference/agent.py`` ``check``'s distances over the checked
+    requests that have characters (``inf`` if none has), the agent redrawn
+    one block at a time; the steps then run on the program's blended
+    character tokens."""
     dev = ctx.device
     stack = cfg["stack"]
     s = cfg["sampler"]
+    agent = stack.get("agent")
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     with torch.device("meta"):
@@ -268,6 +345,15 @@ def reference_check(cfg, ctx, specs, want, captured, images) -> Dict:
     norm = torch.linalg.vector_norm
     parts = dict(start=0.0, eps=0.0, sampler=0.0)
     image_gap = 0.0
+    if agent is not None:
+        with torch.device("meta"):
+            anets = W.agent_nets(stack)
+
+        def load(block):
+            return W.placed(anets[block.split(".")[0]],
+                            W.agent_block(stack, ctx.seed, block, dev, upcast=True))
+        agent_parts, agent_checked = dict(logits=0.0, feat=0.0, blend=0.0), 0
+        dummy = stack["manga"]["num_dummy_tokens"]
     fp8 = None
     if ctx.variant == "fp8_reference":     # a control: the reference's UNet in fp8
         from benchmark.reference.fp8 import fp8_copy
@@ -275,10 +361,20 @@ def reference_check(cfg, ctx, specs, want, captured, images) -> Dict:
         fp8, fp8_gap = dict(nets, unet=fp8_copy(nets["unet"])), 0.0
     with torch.no_grad():
         for i, panel in want.items():
-            spec, (steps, tiles) = specs[i], captured[i]
+            spec, (steps, tiles, got) = specs[i], captured[i]
             if len(steps) != s["num_inference_steps"] or i not in images:
-                return dict(step_gap=math.inf, image_gap=math.inf, **parts)
+                return dict(step_gap=math.inf, image_gap=math.inf, **parts,
+                            **({} if agent is None else dict(agent_gap=math.inf)))
             cond = RD.panel_conditioning(nets, stack, spec, dev)
+            if agent is not None and spec["characters"]:
+                chars = cond["ip_tokens"][1, dummy:]
+                gaps = RA.check(agent, spec["caption_ids"], chars, got, s["mllm_scale"],
+                                anets["llm"], anets, load)
+                agent_parts = {k: max(v, gaps[k]) for k, v in agent_parts.items()}
+                agent_checked += 1
+                if "blend" in got:
+                    cond["ip_tokens"] = cond["ip_tokens"].clone()
+                    cond["ip_tokens"][1, dummy:] = got["blend"].reshape(chars.shape).float()
             f = nets["vae"].factor
             lh, lw = spec["height"] // f, spec["width"] // f
             gen = torch.Generator().manual_seed(spec["seed"])
@@ -308,6 +404,10 @@ def reference_check(cfg, ctx, specs, want, captured, images) -> Dict:
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     ctx.log(f"step_gap parts: {parts}")
     out = dict(step_gap=max(parts.values()), image_gap=image_gap, **parts)
+    if agent is not None:
+        ctx.log(f"agent_gap parts over {agent_checked} request(s): {agent_parts}")
+        out["agent_gap"] = max(agent_parts.values()) if agent_checked else math.inf
+        out.update({f"agent_{k}": v for k, v in agent_parts.items()})
     if fp8 is not None:
         out["fp8_eps"] = fp8_gap
     return out

@@ -33,6 +33,7 @@ def test_reference_and_yardstick_import_nothing_of_the_program():
     got = _python("""
         import sys
         import benchmark.reference.nets, benchmark.reference.diffusion
+        import benchmark.reference.agent, benchmark.reference.decoders.llama
         import benchmark.reference.data, benchmark.weights, benchmark.yardstick
         import benchmark.flops, benchmark.trace, benchmark.readers
         print(sorted({m.split('.')[0] for m in sys.modules} & {

@@ -3,9 +3,13 @@ name: one added as new files needs no edit to an existing file."""
 
 import json
 import shutil
+import time
 from pathlib import Path
 
+import torch
+
 from benchmark import run as R
+from benchmark.tests import tiny
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -14,7 +18,7 @@ def test_benchmark_json_names_files_that_exist():
     bench = R.load_bench(ROOT)
     for w in bench["workloads"]:
         cell, cfg, traffic = R.cell_files(bench, w["name"], ROOT / "benchmark")
-        assert traffic["kind"] in ("serve", "train")
+        assert (ROOT / "benchmark" / f"{traffic['kind']}.py").is_file()
         assert set(traffic["limits"])
     for m in bench["per_layer"]:
         mod = R.reader(m["name"], ROOT / "benchmark")
@@ -60,3 +64,37 @@ def test_a_cell_config_and_metric_added_as_files(tmp_path):
     run = {"layer": {"spans": {"unet": [1.0, 2.0]}}}
     assert R.reader("unet_calls.serve", here).read(run) == 2
     assert (here / "run.py").read_bytes() == (ROOT / "benchmark" / "run.py").read_bytes()
+
+
+def test_an_agent_cell_added_as_files(tmp_path):
+    """A configuration whose stack carries the agent, its traffic and its
+    cell, added as files and entries only: the copy runs the cell and
+    reports its end-to-end metrics, its harness files as they were."""
+    torch.set_num_threads(4)
+    here = tmp_path / "benchmark"
+    shutil.copytree(ROOT / "benchmark", here, ignore=shutil.ignore_patterns("__pycache__"))
+    cfg, traffic = tiny.agent_cell()
+    (here / "configs" / "tiny-agent.json").write_text(json.dumps(cfg))
+    (here / "traffic" / "agent_tiny.json").write_text(json.dumps(traffic))
+    bench = R.load_bench(ROOT)
+    bench["configs"].append({"name": "tiny-agent", "source": "x",
+                             "file": "benchmark/configs/tiny-agent.json", "reduced": [],
+                             "why": "x"})
+    bench["workloads"].append({"name": "serve_agent_tiny", "config": "tiny-agent",
+                               "traffic": "agent_tiny", "chips": 1, "why": "x"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "panels_per_s":
+            m["workloads"].append("serve_agent_tiny")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    bench = R.load_bench(tmp_path)
+    cell, cfg, traffic = R.cell_files(bench, "serve_agent_tiny", here)
+    assert "agent" in cfg["stack"] and traffic["kind"] == "serve"
+    ctx = R.Context(cell, cfg, traffic, 2 ** 35 + 13, 0.1, 0, torch.device("cpu"),
+                    time.perf_counter())
+    res = R.execute(ctx, bench)
+    assert res["correct"], res["check"]
+    assert set(res["metrics"]) == {"panels_per_s", "setup_s"}
+    assert set(res["check"]) == {"step_gap", "image_gap", "agent_gap"}
+    for name in ("run.py", "serve.py"):
+        assert (here / name).read_bytes() == (ROOT / "benchmark" / name).read_bytes()

@@ -1,6 +1,8 @@
 """Tiny versions of the cells' configurations and traffic for CPU runs of
 the harness: the port's tiny stack (``pipelines.pipeline.tiny_configs``'s
-sizes) in float32, small panels, two steps."""
+sizes) in float32, small panels, two steps; and a serving cell with the
+SEED-X agent at ``AgentConfig.tiny()``'s widths (two grouped KV heads; both
+resamplers at 8 queries, the tiny stack's 2 characters x 4 tokens)."""
 
 from __future__ import annotations
 
@@ -42,6 +44,21 @@ STACK = {
 }
 
 
+AGENT = {
+    "llm": {"class": "diffsensei_tpu_torch.core.config.LlamaConfig", "reference": "llama",
+            "vocab_size": 502, "hidden_size": 64, "intermediate_size": 128, "num_layers": 2,
+            "num_heads": 4, "num_kv_heads": 2, "max_position_embeddings": 512,
+            "rope_theta": 10000.0, "rms_norm_eps": 1e-5},
+    "input_resampler": {"grid_size": 2, "num_queries_override": 8, "embed_dim": 64,
+                        "num_heads": 4, "kv_dim": 32},
+    "output_resampler": {"grid_size": 2, "num_queries_override": 8, "embed_dim": 32,
+                         "num_heads": 4, "kv_dim": 64},
+    "num_img_tokens": 8, "added_tokens": 10, "bos_id": 1, "eos_id": 2, "pad_id": 0,
+    "newline_ids": [13],
+}
+AGENT_LIMIT = 1e-4      # fp32 on both sides: order of operations only
+
+
 def load(kind: str, name: str) -> dict:
     return json.loads((HERE / kind / f"{name}.json").read_text())
 
@@ -64,5 +81,17 @@ def train_cell(traffic_name: str = "stage2_1024_b8", **traffic_over):
     traffic = load("traffic", traffic_name)
     traffic.update(pages=4, page_size=320, frame_size=256, num_workers=2, checked_steps=2,
                    trace_steps=1)
+    traffic.update(traffic_over)
+    return cfg, traffic
+
+
+def agent_cell(**traffic_over):
+    """(configuration, traffic) of a serving cell with the agent: one panel a
+    request with characters, captions of 4-12 ids, 24 new tokens."""
+    cfg, traffic = serve_cell("candidates_1024x4", num_samples=1, characters=[2, 1],
+                              agent_prompt_tokens=[4, 12])
+    cfg["stack"]["agent"] = copy.deepcopy(AGENT)
+    cfg["sampler"].update(mllm_scale=0.4, mllm_max_new_tokens=24)
+    traffic["limits"] = dict(traffic["limits"], agent_gap=AGENT_LIMIT)
     traffic.update(traffic_over)
     return cfg, traffic

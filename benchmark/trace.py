@@ -10,6 +10,7 @@ import contextlib
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -147,6 +148,7 @@ class DeviceTrace:
         self.kernels: List[Tuple[str, float, float]] = []
         self.host: List[Tuple[str, float, float]] = []
         self.window_s = 0.0
+        self.stop_s = self.reduce_s = 0.0    # the profiler's stop, the reduction
         self._prof = None
         self._t = 0.0
 
@@ -164,18 +166,12 @@ class DeviceTrace:
 
     def __exit__(self, *exc):
         sync_all()
-        self.window_s = time.perf_counter() - self._t
+        t = time.perf_counter()
+        self.window_s = t - self._t
         self._prof.__exit__(*exc)
-        for e in self._prof.events():
-            # annotation ranges (the optimizer's, record_function's) span
-            # operations counted on their own: left out on both sides
-            if getattr(e, "is_user_annotation", False):
-                continue
-            rng = (e.time_range.start, e.time_range.end)
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                self.kernels.append((e.name, *rng))
-            else:
-                self.host.append((e.name, *rng))
+        self.stop_s = time.perf_counter() - t
+        self.kernels, self.host = raw_events(self._prof.profiler.kineto_results)
+        self.reduce_s = time.perf_counter() - t - self.stop_s
         self._prof = None
 
     def busy_intervals(self) -> List[Tuple[float, float]]:
@@ -206,17 +202,53 @@ class DeviceTrace:
 
     def idle_gaps(self, n: int = 10) -> List[List]:
         """The longest gaps with no device operation, each named by the host
-        op that overlaps it most (the innermost on ties)."""
+        op that overlaps it most (the innermost on ties: the shortest, the
+        first of those)."""
         busy = self.busy_intervals()
         gaps = [(busy[i][1], busy[i + 1][0]) for i in range(len(busy) - 1)
                 if busy[i + 1][0] > busy[i][1]]
         gaps = sorted(gaps, key=lambda g: g[0] - g[1])[:n]
+        hs = np.array([h[1] for h in self.host], dtype=np.float64)
+        he = np.array([h[2] for h in self.host], dtype=np.float64)
         out = []
         for s, e in gaps:
-            best, best_len, best_dur = "host", 0.0, float("inf")
-            for name, hs, he in self.host:
-                ov = min(e, he) - max(s, hs)
-                if ov > best_len or (ov == best_len and ov > 0 and he - hs < best_dur):
-                    best, best_len, best_dur = name, ov, he - hs
+            best = "host"
+            if len(hs):
+                ov = np.minimum(e, he) - np.maximum(s, hs)
+                top = ov.max()
+                if top > 0:
+                    tied = np.flatnonzero(ov == top)
+                    best = self.host[tied[np.argmin(he[tied] - hs[tied])]][0]
             out.append([best[:120], (e - s) / 1e6])
         return out
+
+
+def raw_events(results) -> Tuple[List[Tuple[str, float, float]], List[Tuple[str, float, float]]]:
+    """``(kernels, host ops)`` of a profiler's results as ``(name, start us,
+    end us)`` from the trace's start, each list in start order (the longer
+    first on ties): what its parsed event list (``profile.events()``) holds,
+    read from the raw events, which costs a tenth as much (a traced agent
+    request holds millions). Left out as there: the profiler's own utility
+    ops and hidden events; left out here besides: annotation ranges (the
+    optimizer's, ``record_function``'s), which span operations counted on
+    their own. Kept here only: a host op that is the one child of an op of
+    its own name, which the parsed list folds into its parent; it names an
+    idle gap as its parent would."""
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    base = results.trace_start_ns()
+    cuda = torch.autograd.DeviceType.CUDA
+    names: Dict[str, str] = {}
+    kernels, host = [], []
+    for e in results.events():
+        name = e.name()
+        if _filter_name(name) or e.is_user_annotation() or \
+                getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        if name not in names:
+            names[name] = _rewrite_name(name, with_wildcard=True)
+        row = (names[name], (e.start_ns() - base) / 1000, (e.end_ns() - base) / 1000)
+        (kernels if e.device_type() == cuda else host).append(row)
+    kernels.sort(key=lambda r: (r[1], -r[2]))
+    host.sort(key=lambda r: (r[1], -r[2]))
+    return kernels, host
